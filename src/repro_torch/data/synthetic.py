@@ -1,0 +1,65 @@
+"""Deterministic synthetic datasets.
+
+The container is offline: MNIST/CIFAR-10 are replaced by synthetic
+stand-ins of identical shape and cardinality whose classes are genuinely
+learnable (class-conditional pattern + noise), so optimization dynamics
+(the paper's subject) are preserved.  The random 20-dim/10-class dataset
+reproduces the paper's §6 setup exactly.
+
+A numpy-only copy of ``src/repro/data/synthetic.py``: the same seeds
+give the same arrays.  Datasets are built on the host and moved to the
+device once by the trainer.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _class_image_dataset(n_train: int, n_test: int, shape, num_classes: int,
+                         seed: int, noise: float):
+    """Images = class template (low-frequency pattern) + per-sample noise."""
+    rng = np.random.default_rng(seed)
+    H, W, C = shape
+    # smooth class templates: random low-rank outer products per channel
+    templates = np.zeros((num_classes, H, W, C), np.float32)
+    for c in range(num_classes):
+        for ch in range(C):
+            u = rng.normal(size=(H, 3)).astype(np.float32)
+            v = rng.normal(size=(3, W)).astype(np.float32)
+            templates[c, :, :, ch] = (u @ v) / 3.0
+
+    def make(n, seed2):
+        r = np.random.default_rng(seed2)
+        y = r.integers(0, num_classes, size=n)
+        x = templates[y] + noise * r.normal(size=(n, H, W, C)).astype(np.float32)
+        return x.astype(np.float32), y.astype(np.int32)
+
+    x_tr, y_tr = make(n_train, seed + 1)
+    x_te, y_te = make(n_test, seed + 2)
+    return x_tr, y_tr, x_te, y_te
+
+
+def mnist_like(seed: int = 0, n_train: int = 60_000, n_test: int = 10_000):
+    """MNIST stand-in: 28x28x1, 10 classes, 60k/10k."""
+    return _class_image_dataset(n_train, n_test, (28, 28, 1), 10, seed,
+                                noise=0.8)
+
+
+def cifar10_like(seed: int = 0, n_train: int = 50_000, n_test: int = 10_000):
+    """CIFAR-10 stand-in: 32x32x3, 10 classes, 50k/10k; noisier => the
+    'harder optimization problem' role CIFAR plays in the paper."""
+    return _class_image_dataset(n_train, n_test, (32, 32, 3), 10, seed,
+                                noise=1.6)
+
+
+def random_classification(seed: int = 0, n: int = 10_000, dim: int = 20,
+                          num_classes: int = 10, train_frac: float = 0.8):
+    """The paper's randomly-generated dataset: 20 dims, 10 classes, 10k
+    samples, 80:20 split.  Labels from a random linear teacher + noise."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    teacher = rng.normal(size=(dim, num_classes)).astype(np.float32)
+    logits = x @ teacher + 0.5 * rng.normal(size=(n, num_classes))
+    y = np.argmax(logits, axis=-1).astype(np.int32)
+    k = int(train_frac * n)
+    return x[:k], y[:k], x[k:], y[k:]

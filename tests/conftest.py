@@ -98,3 +98,9 @@ try:  # pragma: no cover - trivial import guard
     import hypothesis  # noqa: F401
 except ImportError:
     _install_hypothesis_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips on a host without "
+        "CUDA (run on the card with `python -m pytest -m cuda`)")
