@@ -5,15 +5,19 @@ Subcommands:
             emit a RunResult JSON; ``--backend sim`` is the one ported
   simulate  alias for ``run --backend sim`` (paper-faithful simulator);
             ``--smoke`` picks a seconds-scale configuration
+  serve     greedy decode on a registry model (the model stack's serving
+            path: rmsnorm and flash_attention kernels); ``--smoke`` picks
+            the reduced same-family config
   schedules list the registered threshold-schedule families
 
-Every run takes ``--device {cuda,cpu}`` (default ``cuda``); without
+Every run and serve takes ``--device {cuda,cpu}`` (default ``cuda``); without
 ``--device cpu`` a host with no CUDA is an error, never a CPU run.
 The spec and pool flags are those of ``python -m repro``.
 
 Examples:
   python -m repro_torch simulate --smoke
   python -m repro_torch simulate --smoke --device cpu --quiet
+  python -m repro_torch serve --arch h2o-danube-1.8b --smoke --device cpu
   python -m repro_torch run --backend sim --arch cnn-cifar --no-smoke \\
       --mode hybrid --schedule step:300 --horizon 2 --out /tmp/r.json
 """
@@ -147,8 +151,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_sim = sub.add_parser("simulate",
                            help="run the paper-faithful simulator backend")
     _add_spec_flags(p_sim, backend_flag=False)
+    p_serve = sub.add_parser("serve", help="greedy decode on a registry "
+                             "model (prefill replayed through decode)")
+    from repro_torch.launch import serve
+    serve.add_args(p_serve)
     sub.add_parser("schedules", help="list threshold-schedule families")
     args = ap.parse_args(argv)
+
+    if args.cmd == "serve":
+        return serve.run(args)
 
     if args.cmd in ("run", "simulate"):
         try:

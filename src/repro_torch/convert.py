@@ -1,8 +1,9 @@
 """Devices, and parameter trees between numpy and the port.
 
-``params_from_numpy``/``params_to_numpy`` carry a nested dict of arrays
-(the JAX package's parameters, read out as numpy) into the port and
-back, keeping structure, names, shapes and dtypes.  numpy has no
+``params_from_numpy``/``params_to_numpy`` carry a tree of nested dicts,
+tuples and lists of arrays (the JAX package's parameters or KV caches,
+read out as numpy) into the port and back, keeping structure, names,
+shapes and dtypes.  numpy has no
 bfloat16 of its own: a bf16 leaf travels as ``ml_dtypes.bfloat16``, the
 type JAX hands out.
 """
@@ -54,25 +55,32 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def params_from_numpy(tree: Any, device: Device = "cpu") -> Any:
-    """Nested dict of arrays -> the same dict of tensors on ``device``."""
+def _map(fn, tree: Any) -> Any:
+    """``fn`` on every leaf of nested dicts, tuples and lists."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return _leaf_from_numpy(tree, device)
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def params_from_numpy(tree: Any, device: Device = "cpu") -> Any:
+    """Tree of arrays -> the same tree of tensors on ``device``."""
+    return _map(lambda a: _leaf_from_numpy(a, device), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """Nested dict of tensors -> the same dict of numpy arrays (host
-    copies that later updates of the tensors do not touch)."""
-    if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
-    return _leaf_to_numpy(tree)
+    """Tree of tensors -> the same tree of numpy arrays (host copies
+    that later updates of the tensors do not touch)."""
+    return _map(_leaf_to_numpy, tree)
 
 
 def tree_to(tree: Any, device: torch.device) -> Any:
-    """Tensors or arrays of a nested dict, as tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if not isinstance(tree, torch.Tensor):
-        tree = _leaf_from_numpy(tree, "cpu")
-    return tree.to(device)
+    """Tensors or arrays of a tree, as tensors on ``device``."""
+    return _map(lambda leaf: _leaf_to(leaf, device), tree)
+
+
+def _leaf_to(leaf: Any, device: torch.device) -> torch.Tensor:
+    if not isinstance(leaf, torch.Tensor):
+        leaf = _leaf_from_numpy(leaf, "cpu")
+    return leaf.to(device)

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load
+from repro_torch.kernels._launch import bind, launch, on_cuda
 
 # the slab's padding unit (src/repro/core/slab.py:133): wire frames and
 # slab layouts depend on it.  It is not the CUDA block size
@@ -58,20 +59,15 @@ def reset_launch_counts() -> None:
 def _lib() -> ctypes.CDLL:
     lib = load("hybrid_aggregate")
     if not getattr(lib, "_repro_bound", False):
-        for base, argtypes in _SIGNATURES.items():
-            for suffix in _SUFFIX.values():
-                fn = getattr(lib, f"{base}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        lib.hybrid_error_string.argtypes = [ctypes.c_int]
-        lib.hybrid_error_string.restype = ctypes.c_char_p
         lib.hybrid_max_k.restype = ctypes.c_int
         lib.hybrid_block_p.restype = ctypes.c_int
         if (lib.hybrid_max_k(), lib.hybrid_block_p()) != (MAX_K, BLOCK_P):
             raise RuntimeError("csrc/hybrid_aggregate.cu disagrees with "
                                "the wrapper on MAX_K or BLOCK_P")
-        lib._repro_bound = True
-    return lib
+    return bind(lib, {f"{base}_{suffix}": argtypes
+                      for base, argtypes in _SIGNATURES.items()
+                      for suffix in _SUFFIX.values()},
+                "hybrid_error_string")
 
 
 def _check_rows(grads: torch.Tensor, weights: torch.Tensor
@@ -100,38 +96,16 @@ def _check_slab(name: str, t: torch.Tensor, P: int) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix, on
-    another device type, and on CUDA tensors the kernels cannot read."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"flush inputs are on several devices: "
-                         f"{sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"flush kernels run on cuda or cpu, not {dev}")
-    for t in tensors:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flush kernels need contiguous, 16-byte "
-                             "aligned tensors")
-    return True
-
-
 def _launch(name: str, fn, *args) -> None:
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        msg = _lib().hybrid_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    LAUNCHES[name] += 1
+    launch(LAUNCHES, name, fn, *args,
+           error_string=_lib().hybrid_error_string)
 
 
 def flush(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """grads (K, P) f32 or bf16, weights (K,) f32 -> (P,) weighted sum
     in grads' dtype, accumulated in f32.  Replaces ``flush_pallas``."""
     K, P = _check_rows(grads, weights)
-    if not _on_cuda(grads, weights):
+    if not on_cuda("flush", grads, weights):
         return ref.flush_ref(grads, weights)
     out = torch.empty((P,), dtype=grads.dtype, device=grads.device)
     with torch.cuda.device(grads.device):
@@ -153,7 +127,7 @@ def flush_momentum(grads: torch.Tensor, weights: torch.Tensor,
     CPU the inputs are left as they are and both results are new."""
     K, P = _check_rows(grads, weights)
     _check_slab("momentum", momentum, P)
-    if not _on_cuda(grads, weights, momentum):
+    if not on_cuda("flush", grads, weights, momentum):
         return ref.flush_momentum_ref(grads, weights, momentum, beta)
     with torch.cuda.device(grads.device):
         fn = getattr(_lib(), f"hybrid_flush_momentum_{_SUFFIX[grads.dtype]}")
@@ -187,7 +161,7 @@ def flush_adamw(grads, weights, params, mu, nu, bc1, bc2, scale, *,
     K, P = _check_rows(grads, weights)
     for name, t in (("params", params), ("mu", mu), ("nu", nu)):
         _check_slab(name, t, P)
-    if not _on_cuda(grads, weights, params, mu, nu):
+    if not on_cuda("flush", grads, weights, params, mu, nu):
         return ref.flush_adamw_ref(grads, weights, params, mu, nu, bc1,
                                    bc2, scale, b1=b1, b2=b2, eps=eps,
                                    weight_decay=weight_decay)

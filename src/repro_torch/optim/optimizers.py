@@ -12,6 +12,8 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch.kernels.ref import sqrt_rn
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -92,7 +94,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc1, bc2 = bias_correction(c, b1, b2)
 
         def u(m, v, p):
-            return -lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+            return -lr * ((m / bc1) / (sqrt_rn(v / bc2) + eps)
                           + weight_decay * p.float())
         upd = _map(u, mu, nu, params)
         return _cast_like(upd, params), {"count": c, "mu": mu, "nu": nu}

@@ -29,10 +29,11 @@ from repro_torch.api import ExperimentSpec, SimulatorTrainer
 from repro_torch.core.simulator import WorkerPool
 
 # kernel-name substring -> group, first match wins
-_GROUPS = (("flush_", "flush kernels"), ("conv", "convolution"),
+_GROUPS = (("flush_", "flush kernels"), ("rmsnorm", "rmsnorm kernel"),
+           ("flash_fwd", "flash_attention kernel"), ("conv", "convolution"),
            ("cudnn", "convolution"), ("gemm", "matrix product"),
-           ("gemv", "matrix product"), ("Memcpy", "memcpy"),
-           ("Memset", "memset"))
+           ("gemv", "matrix product"), ("nvjet", "matrix product"),
+           ("Memcpy", "memcpy"), ("Memset", "memset"))
 
 
 def _group(name: str) -> str:
@@ -49,16 +50,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_run(spec: ExperimentSpec) -> Dict:
-    trainer = SimulatorTrainer(device="cuda")
-    trainer.run(spec.with_(horizon=min(spec.horizon, 0.2)))   # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = trainer.run(spec)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+def _summarize(prof, wall: float) -> Dict:
+    """Device time by kernel group, the device's idle share of ``wall``,
+    the top kernels and the top host ops of one profiled window."""
     by_group: Dict[str, float] = defaultdict(float)
     kernels: List = []
     host_ops: List = []
@@ -75,11 +69,7 @@ def profile_run(spec: ExperimentSpec) -> Dict:
     host_ops.sort(reverse=True)
     return {
         "device": torch.cuda.get_device_name(0),
-        "spec": {"arch": spec.arch, "mode": spec.mode,
-                 "optimizer": spec.optimizer, "horizon": spec.horizon,
-                 "workers": spec.pool.num_workers, "batch": spec.batch},
-        "wall_s": wall, "num_gradients": res.num_gradients,
-        "num_updates": res.num_updates,
+        "wall_s": wall,
         "device_busy_s": busy_s,
         "device_idle_share": max(0.0, 1.0 - busy_s / wall),
         "device_s_by_group": {k: v / 1e6 for k, v in
@@ -93,6 +83,31 @@ def profile_run(spec: ExperimentSpec) -> Dict:
                           "self_cpu_s": us / 1e6}
                          for us, n, name in host_ops[:15]],
     }
+
+
+def profiled(fn):
+    """``fn()`` once under ``torch.profiler``; returns its result and the
+    summary of the window."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return res, _summarize(prof, wall)
+
+
+def profile_run(spec: ExperimentSpec) -> Dict:
+    trainer = SimulatorTrainer(device="cuda")
+    trainer.run(spec.with_(horizon=min(spec.horizon, 0.2)))   # warm-up
+    torch.cuda.synchronize()
+    res, report = profiled(lambda: trainer.run(spec))
+    return {
+        "spec": {"arch": spec.arch, "mode": spec.mode,
+                 "optimizer": spec.optimizer, "horizon": spec.horizon,
+                 "workers": spec.pool.num_workers, "batch": spec.batch},
+        "num_gradients": res.num_gradients,
+        "num_updates": res.num_updates, **report}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -70,7 +70,8 @@ def test_averaged_agrees_on_smoke_spec():
     from repro_torch.models.cnn import accuracy, mlp_clf_forward, nll_loss
     ours = SimulatorTrainer(
         lambda p, x, y: nll_loss(mlp_clf_forward(p, x), y),
-        params_from_numpy(jax.tree.map(np.asarray, params)), data,
+        params_from_numpy(jax.tree.map(np.asarray, params)),
+        jax.tree.map(lambda a: np.array(a, copy=True), data),
         lambda p, x, y: accuracy(mlp_clf_forward(p, x), y), device="cpu")
     tres = ours.run(ExperimentSpec.from_json(jspec.to_json()))
     assert (tres.num_updates, tres.num_gradients) == \
@@ -128,10 +129,29 @@ def test_port_imports_no_jax():
         "or n.startswith('jax.') or n == 'repro' "
         "or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.core.simulator' in sys.modules\n"
+        "for m in ('core.simulator', 'models.model', 'models.attention', "
+        "'launch.serve', 'kernels.rmsnorm', 'kernels.flash_attention', "
+        "'configs.h2o_danube_18b'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names no module of JAX or of the JAX package in any
+    import, at top level or inside a function."""
+    import ast
+    path = os.path.join(os.path.dirname(SRC), "chip_smoke.py")
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "repro_torch.launch" in names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad

@@ -1,11 +1,12 @@
-"""The CUDA flush kernels against their plain PyTorch versions, on the
-card.
+"""The port's CUDA kernels (the three flushes, rmsnorm and
+flash_attention) against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip on a host without a CUDA device.  The file
 imports nothing of JAX, so it also runs where only the port is
 installed:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
-Shapes are the main path's (K = 25 staging rows, the cnn-cifar slab).
+Shapes are the main paths': K = 25 staging rows of the cnn-cifar slab
+for the flushes, h2o-danube-1.8b's widths for rmsnorm and attention.
 """
 import pytest
 import torch
@@ -109,3 +110,104 @@ def test_cuda_aggregator_matches_cpu(cuda, opt):
                                    atol=1e-6)
     torch.cuda.synchronize()
     assert ha.LAUNCHES[kernel] == before + 4
+
+
+# ------------------------------------------------ rmsnorm, flash_attention
+# Shapes: h2o-danube-1.8b's (D 2560; H 32, KV 8, d 80, window 4096) at
+# the serve path's row counts, and the JAX package's kernel-test cases.
+# Tolerances: rmsnorm f32 rtol 1e-5 / atol 1e-6, bf16 3e-2 (one ulp);
+# attention f32 2e-4, as tests/kernels/test_kernels.py, bf16 rtol 1.6e-2
+# / atol 1e-5 (two bf16 ulps; see test_cuda_flash_matches_plain).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 128, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rmsnorm_matches_plain(cuda, N, dtype):
+    from repro_torch.kernels import rmsnorm as rms
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    x = torch.randn(N, 2560, device=cuda, generator=gen).to(dtype)
+    s = 1 + 0.1 * torch.randn(2560, device=cuda, generator=gen)
+    before = rms.LAUNCHES["rmsnorm"]
+    got, again = rms.rmsnorm(x, s), rms.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rms.LAUNCHES["rmsnorm"] == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), tref.rmsnorm_ref(x, s).float(),
+                               rtol=tol, atol=1e-6 if tol == 1e-5 else tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 100, 8192])
+def test_cuda_rmsnorm_other_widths(cuda, D):
+    """A width the 16-byte vector path does not divide, and the widest."""
+    from repro_torch.kernels import rmsnorm as rms
+    x = torch.randn(33, D, device=cuda)
+    s = torch.rand(D, device=cuda)
+    torch.testing.assert_close(rms.rmsnorm(x, s), tref.rmsnorm_ref(x, s),
+                               rtol=1e-5, atol=1e-6)
+
+
+FLASH_CASES = [
+    # B, S, H, KV, d, causal, window, dtype
+    (4, 32, 32, 8, 80, True, 4096, torch.bfloat16),    # serve prompt
+    (1, 8192, 32, 8, 80, True, 4096, torch.bfloat16),  # long prefill
+    (1, 128, 4, 4, 64, True, None, torch.float32),     # MHA
+    (2, 256, 8, 2, 64, False, None, torch.float32),    # GQA 4:1
+    (1, 512, 4, 1, 128, True, None, torch.float32),    # MQA
+    (1, 256, 4, 2, 64, True, 32, torch.float32),
+    (1, 256, 4, 2, 64, True, 100, torch.bfloat16),
+    (1, 256, 4, 2, 16, False, 256, torch.float32),
+    (2, 37, 4, 2, 80, True, 8, torch.float32),         # ragged S
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_cuda_flash_matches_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, KV, d, causal, window, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(B, S, n, d, device=cuda, generator=gen)
+               .to(dtype) for n in (H, KV, KV))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = tref.attention_ref(q, k, v, causal=causal, window=window)
+    # bf16: both sides round f32 math to bf16 once, so they differ by
+    # one bf16 ulp (at most 2^-7 of the value); rtol 1.6e-2 is two
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 else \
+        dict(rtol=1.6e-2, atol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_path_launches(cuda):
+    """A small model's forward and decode step on the card: 2L+1 rmsnorm
+    launches each, L flash launches per forward and none per decode."""
+    from repro_torch.configs.registry import get_config, smoke_variant
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.models import model as M
+    cfg = smoke_variant(get_config("h2o-danube-1.8b"))
+    L = cfg.num_layers
+    with torch.inference_mode():
+        params = M.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               cfg)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
+        r0, f0 = rms.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"]
+        logits, _ = M.forward(params, {"tokens": toks}, cfg)
+        assert (rms.LAUNCHES["rmsnorm"] - r0,
+                fa.LAUNCHES["flash_attention"] - f0) == (2 * L + 1, L)
+        cache = M.init_cache(cfg, 2, 40, device=cuda)
+        r0 = rms.LAUNCHES["rmsnorm"]
+        for i in range(40):
+            step, cache = M.decode_step(params, cache, toks[:, i:i + 1], i,
+                                        cfg)
+        assert rms.LAUNCHES["rmsnorm"] - r0 == 40 * (2 * L + 1)
+        assert fa.LAUNCHES["flash_attention"] - f0 == L
+        torch.testing.assert_close(step[:, 0], logits[:, -1], rtol=2e-3,
+                                   atol=1e-3)

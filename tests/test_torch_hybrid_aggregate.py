@@ -3,8 +3,10 @@
 On the CPU the wrappers run their plain PyTorch versions; the JAX side
 runs the Pallas kernels in interpret mode and the jnp oracles, as
 ``tests/kernels/test_hybrid_aggregate.py`` does.  The cases are that
-file's.  The CUDA kernels themselves are held against their plain
-versions in ``tests/test_torch_cuda_kernels.py``.
+file's.  Each framework gets its own copy of every numpy input: JAX may
+alias a numpy buffer (``jnp.asarray``) and torch does
+(``torch.from_numpy``).  The CUDA kernels themselves are held against
+their plain versions in ``tests/test_torch_cuda_kernels.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,18 +23,36 @@ I = dict(interpret=True)
 TILE_P = ha.TILE_P
 
 
+def _pair(a):
+    """One numpy array as a JAX array and a torch tensor, each on its own
+    copy of the buffer."""
+    return jnp.asarray(np.array(a, copy=True)), \
+        torch.from_numpy(np.array(a, copy=True))
+
+
 def _rows(seed, K, P, dtype=np.float32):
     g = np.random.default_rng(seed).normal(size=(K, P)).astype(np.float32)
+    gj, gt = _pair(g)
     if dtype == "bf16":
-        return (jnp.asarray(g).astype(jnp.bfloat16),
-                torch.from_numpy(g).to(torch.bfloat16))
-    return jnp.asarray(g), torch.from_numpy(g)
+        return gj.astype(jnp.bfloat16), gt.to(torch.bfloat16)
+    return gj, gt
 
 
 def _f32(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
     return np.asarray(x, np.float32)
+
+
+def _assert_close(got, want, name, rtol, atol):
+    """allclose, with the output's name, the share of elements out of
+    tolerance and the largest error in the message."""
+    a, b = _f32(got), _f32(want)
+    bad = ~np.isclose(a, b, rtol=rtol, atol=atol)
+    np.testing.assert_allclose(
+        a, b, rtol=rtol, atol=atol,
+        err_msg=f"{name}: {bad.mean():.4%} of {bad.size} elements out of "
+                f"tolerance, max abs err {np.abs(a - b).max():.3e}")
 
 
 def test_tile_matches_reference():
@@ -47,11 +67,11 @@ def test_flush_shapes_dtypes(K, dtype):
     gj, gt = _rows(K, K, P, dtype)
     w = np.random.default_rng(K + 1).uniform(size=K).astype(np.float32)
     w /= w.sum()
-    got = ha.flush(gt, torch.from_numpy(w))
+    wj, wt = _pair(w)
+    got = ha.flush(gt, wt)
     assert got.dtype == gt.dtype and got.shape == (P,)
     tol = 1e-5 if dtype == "f32" else 3e-2
-    for want in (ops.hybrid_flush(gj, jnp.asarray(w), **I),
-                 jref.flush_ref(gj, jnp.asarray(w))):
+    for want in (ops.hybrid_flush(gj, wj, **I), jref.flush_ref(gj, wj)):
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol,
                                    atol=1e-6 if dtype == "f32" else tol)
 
@@ -66,10 +86,12 @@ def test_flush_zero_weight_masking(k):
     junk[k:] = 1e30
     w = np.zeros(K_max, np.float32)
     w[:k] = np.random.default_rng(k + 7).uniform(size=k) + 0.1
-    got = ha.flush(torch.from_numpy(junk), torch.from_numpy(w))
-    want = ops.hybrid_flush(jnp.asarray(junk), jnp.asarray(w), **I)
+    (junk_j, junk_t), (wj, wt) = _pair(junk), _pair(w)
+    got = ha.flush(junk_t, wt)
+    want = ops.hybrid_flush(junk_j, wj, **I)
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-6)
-    clean = ha.flush(torch.from_numpy(g[:k]), torch.from_numpy(w[:k]))
+    clean = ha.flush(torch.from_numpy(g[:k].copy()),
+                     torch.from_numpy(w[:k].copy()))
     np.testing.assert_array_equal(_f32(got), _f32(clean))
 
 
@@ -79,13 +101,11 @@ def test_flush_momentum(beta):
     gj, gt = _rows(0, K, P)
     w = np.full(K, 1.0 / K, np.float32)
     m = np.random.default_rng(1).normal(size=P).astype(np.float32)
-    m_t = torch.from_numpy(m.copy())
-    u, m2 = ha.flush_momentum(gt, torch.from_numpy(w), m_t, beta)
+    (wj, wt), (mj, m_t) = _pair(w), _pair(m)
+    u, m2 = ha.flush_momentum(gt, wt, m_t, beta)
     np.testing.assert_array_equal(m_t.numpy(), m)   # CPU: input untouched
-    for uw, mw in (ops.hybrid_flush_momentum(gj, jnp.asarray(w),
-                                             jnp.asarray(m), beta, **I),
-                   jref.flush_momentum_ref(gj, jnp.asarray(w),
-                                           jnp.asarray(m), beta)):
+    for uw, mw in (ops.hybrid_flush_momentum(gj, wj, mj, beta, **I),
+                   jref.flush_momentum_ref(gj, wj, mj, beta)):
         np.testing.assert_allclose(_f32(u), _f32(uw), rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(_f32(m2), _f32(mw), rtol=1e-5,
                                    atol=1e-6)
@@ -106,17 +126,44 @@ def test_flush_adamw(wd, count):
     jbc1, jbc2 = jax_bias_correction(count, b1, b2)
     np.testing.assert_allclose([float(bc1), float(bc2)],
                                [float(jbc1), float(jbc2)], rtol=1e-6)
-    got = ha.flush_adamw(gt, torch.from_numpy(w), torch.from_numpy(p),
-                         torch.from_numpy(m), torch.from_numpy(v), bc1, bc2,
-                         scale, b1=b1, b2=b2, eps=eps, weight_decay=wd)
-    args = (gj, jnp.asarray(w), jnp.asarray(p), jnp.asarray(m),
-            jnp.asarray(v), jbc1, jbc2, scale)
+    (wj, wt), (pj, pt), (mj, mt), (vj, vt) = map(_pair, (w, p, m, v))
+    got = ha.flush_adamw(gt, wt, pt, mt, vt, bc1, bc2, scale, b1=b1, b2=b2,
+                         eps=eps, weight_decay=wd)
+    args = (gj, wj, pj, mj, vj, jbc1, jbc2, scale)
     kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=wd)
-    for want in (ops.hybrid_flush_adamw(*args, **kw, **I),
-                 jref.flush_adamw_ref(*args, **kw)):
+    for which, want in (("pallas", ops.hybrid_flush_adamw(*args, **kw, **I)),
+                        ("oracle", jref.flush_adamw_ref(*args, **kw))):
         for g_a, w_a, name in zip(got, want, ("params", "mu", "nu")):
-            np.testing.assert_allclose(_f32(g_a), _f32(w_a), rtol=1e-5,
-                                       atol=1e-6, err_msg=name)
+            _assert_close(g_a, w_a, f"{name} vs the {which}", rtol=1e-5,
+                          atol=1e-6)
+
+
+def test_adamw_plain_version_takes_the_correctly_rounded_sqrt():
+    """The AdamW plain version's square root is the correctly rounded
+    float32 one (numpy's, and the CUDA kernel's ``__fsqrt_rn``), not
+    ``torch.sqrt``'s CPU path: MKL's VML sqrt, within 1 ulp, and split
+    across the intra-op threads, whose first call in a process has
+    returned one thread's half with errors up to 2.9e-4 (ROADMAP C.8).
+    With ``torch.sqrt`` in the plain version, 6 of these 24,576 params
+    differ by an ulp."""
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(8)
+    P = 3 * TILE_P
+    x = torch.from_numpy(rng.uniform(1e-6, 4.0, P).astype(np.float32))
+    np.testing.assert_array_equal(tref.sqrt_rn(x).numpy(),
+                                  np.sqrt(x.numpy()))
+    g = torch.from_numpy(rng.normal(size=(2, P)).astype(np.float32))
+    w = torch.tensor([0.25, 0.75])
+    p, m, v = (torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=P), 0.1 * rng.normal(size=P),
+        0.01 * np.abs(rng.normal(size=P))))
+    bc1, bc2 = bias_correction(3, 0.9, 0.95)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+    got, m_new, v_new = tref.flush_adamw_ref(g, w, p, m, v, bc1, bc2, 0.01,
+                                             **kw)
+    den = torch.from_numpy(np.sqrt((v_new / bc2).numpy())) + 1e-8
+    want = p - 0.01 * ((m_new / bc1) / den + 0.01 * p)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "weights", "k", "device"])

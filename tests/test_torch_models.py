@@ -27,6 +27,11 @@ ARCHS = {
 }
 
 
+def _copies(tree):
+    """A JAX tree as numpy arrays that share no memory with it."""
+    return jax.tree.map(lambda a: np.array(a, copy=True), tree)
+
+
 def _batch(arch, n=8, seed=0):
     rng = np.random.default_rng(seed)
     shape = ARCHS[arch][3] or (20,)
@@ -38,10 +43,10 @@ def _batch(arch, n=8, seed=0):
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_forward_loss_accuracy_and_grad_slab(arch):
     jinit, jfwd, tfwd, _ = ARCHS[arch]
-    params = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0)))
+    params = _copies(jinit(jax.random.PRNGKey(0)))
     tparams = params_from_numpy(params)
     x, y = _batch(arch)
-    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    xt, yt = torch.from_numpy(x.copy()), torch.from_numpy(y.copy())
 
     np.testing.assert_allclose(tfwd(tparams, xt).numpy(),
                                np.asarray(jfwd(params, x)),
@@ -64,13 +69,13 @@ def test_conv_layout_is_nhwc_hwio(arch):
     """A one-hot input pixel and one-hot fc1 row show that the flatten
     before fc1 is in NHWC order, as in the reference."""
     jinit, jfwd, tfwd, shape = ARCHS[arch]
-    params = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(3)))
+    params = _copies(jinit(jax.random.PRNGKey(3)))
     params["fc1_w"] = np.zeros_like(params["fc1_w"])
     params["fc1_w"][5, :] = 1.0
     x = np.zeros((1,) + shape, np.float32)
     x[0, 1, 2, 0] = 3.0
     np.testing.assert_allclose(
-        tfwd(params_from_numpy(params), torch.from_numpy(x)).numpy(),
+        tfwd(params_from_numpy(params), torch.from_numpy(x.copy())).numpy(),
         np.asarray(jfwd(params, x)), rtol=1e-5, atol=1e-6)
 
 
@@ -87,8 +92,7 @@ def test_datasets_identical(name, kw):
 
 
 def test_params_round_trip_keeps_names_shapes_dtypes():
-    params = jax.tree.map(np.asarray,
-                          jcnn.init_cnn(jax.random.PRNGKey(0), (28, 28, 1)))
+    params = _copies(jcnn.init_cnn(jax.random.PRNGKey(0), (28, 28, 1)))
     params["fc2_b"] = np.asarray(jnp.asarray(params["fc2_b"],
                                              jnp.bfloat16))
     back = params_to_numpy(params_from_numpy(params))

@@ -31,10 +31,15 @@ CASES = [("async", None, "sgd"), ("sync", None, "sgd"),
          ("hybrid", 50, "adamw")]
 
 
+def _copies(tree):
+    """The arrays of a tree (dicts, tuples) as numpy arrays, each on a
+    fresh buffer, so the two frameworks never share one."""
+    return jax.tree.map(lambda a: np.array(a, copy=True), tree)
+
+
 def _mlp():
     data = random_classification(seed=0, n=2000)
-    params = jax.tree.map(np.asarray,
-                          jcnn.init_mlp_clf(jax.random.PRNGKey(0)))
+    params = _copies(jcnn.init_mlp_clf(jax.random.PRNGKey(0)))
     jloss = lambda p, x, y: jcnn.nll_loss(jcnn.mlp_clf_forward(p, x), y)  # noqa: E731,E501
     tloss = lambda p, x, y: tcnn.nll_loss(tcnn.mlp_clf_forward(p, x), y)  # noqa: E731,E501
     return data, params, jloss, tloss
@@ -42,8 +47,7 @@ def _mlp():
 
 def _cnn_mnist():
     data = mnist_like(seed=0, n_train=2_000, n_test=500)
-    params = jax.tree.map(np.asarray,
-                          jcnn.init_cnn(jax.random.PRNGKey(0), (28, 28, 1)))
+    params = _copies(jcnn.init_cnn(jax.random.PRNGKey(0), (28, 28, 1)))
     jloss = lambda p, x, y: jcnn.nll_loss(jcnn.cnn_forward(p, x), y)  # noqa: E731,E501
     tloss = lambda p, x, y: tcnn.nll_loss(tcnn.cnn_forward(p, x), y)  # noqa: E731,E501
     return data, params, jloss, tloss
@@ -56,11 +60,12 @@ def mlp():
 
 def _pair(workload, workers, batch, optimizer):
     data, params, jloss, tloss = workload
-    jtr = JaxPSTrainer(jloss, params, data, lr=0.01, batch_size=batch,
+    jtr = JaxPSTrainer(jloss, _copies(params), _copies(data), lr=0.01,
+                       batch_size=batch,
                        pool=JaxWorkerPool(num_workers=workers), seed=0,
                        optimizer=JaxSlabOptimizer(optimizer))
-    ttr = PSTrainer(tloss, params_from_numpy(params), data, lr=0.01,
-                    batch_size=batch, pool=WorkerPool(num_workers=workers),
+    ttr = PSTrainer(tloss, params_from_numpy(params), _copies(data),
+                    lr=0.01, batch_size=batch, pool=WorkerPool(num_workers=workers),
                     seed=0, optimizer=SlabOptimizer(optimizer),
                     device="cpu")
     return jtr, ttr

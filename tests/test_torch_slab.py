@@ -30,7 +30,19 @@ WORKLOADS = {
 
 
 def _np_params(arch):
-    return jax.tree.map(np.asarray, WORKLOADS[arch]())
+    """The JAX init as numpy arrays that share no memory with it."""
+    return jax.tree.map(lambda a: np.array(a, copy=True), WORKLOADS[arch]())
+
+
+def _assert_close(got, want, name, rtol=1e-5, atol=1e-6):
+    """allclose, with the output's name, the share of elements out of
+    tolerance and the largest error in the message."""
+    a, b = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    bad = ~np.isclose(a, b, rtol=rtol, atol=atol)
+    np.testing.assert_allclose(
+        a, b, rtol=rtol, atol=atol,
+        err_msg=f"{name}: {bad.mean():.4%} of {bad.size} elements out of "
+                f"tolerance, max abs err {np.abs(a - b).max():.3e}")
 
 
 def _bytes(x):
@@ -104,7 +116,8 @@ def _agg_pair(opt, k_max=5):
     params = _np_params("mlp")
     kw = dict(beta1=0.9, beta2=0.95, weight_decay=0.01) \
         if opt == "adamw" else {}
-    jagg = jslab.SlabAggregator(jslab.slab_codec(params), params, k_max,
+    jparams = jax.tree.map(lambda a: jnp.asarray(a.copy()), params)
+    jagg = jslab.SlabAggregator(jslab.slab_codec(jparams), jparams, k_max,
                                 use_pallas=False,
                                 optimizer=JaxSlabOptimizer(opt, **kw))
     tparams = params_from_numpy(params)
@@ -120,22 +133,45 @@ def test_aggregator_matches_reference(opt):
     for step, k in enumerate((1, 3, 5, 3)):
         for slot in range(k):
             row = rng.normal(size=p_pad).astype(np.float32)
-            jagg.stage(jnp.asarray(row), slot)
-            tagg.stage(torch.from_numpy(row), slot)
+            jagg.stage(jnp.asarray(row.copy()), slot)
+            tagg.stage(torch.from_numpy(row.copy()), slot)
         w = 0.5 ** rng.integers(0, 3, size=k)
-        jpub = jagg.flush_apply(w, 0.01 * k)
-        tpub = tagg.flush_apply(w, 0.01 * k)
-        np.testing.assert_allclose(tpub.numpy(), np.asarray(jpub),
-                                   rtol=1e-5, atol=1e-6,
-                                   err_msg=f"flush {step}")
+        jpub = jagg.flush_apply(w.copy(), 0.01 * k)
+        tpub = tagg.flush_apply(w.copy(), 0.01 * k)
+        _assert_close(tpub.numpy(), np.asarray(jpub),
+                      f"{opt} params published by flush {step}")
     jstate, tstate = jagg.opt_state_host(), tagg.opt_state_host()
     if opt == "sgd":
         assert jstate is None and tstate is None
         return
     assert tstate["count"] == jstate["count"] == 4
     for name in SlabOptimizer(opt).moment_names:
-        np.testing.assert_allclose(tstate[name], jstate[name], rtol=1e-5,
-                                   atol=1e-6, err_msg=name)
+        _assert_close(tstate[name], jstate[name], f"{opt} moment {name}")
+
+
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
+def test_inputs_survive_the_reference_donated_flush(opt):
+    """The numpy inputs of a parity test are byte-unchanged after the
+    JAX aggregator's donated stage and flush, and so are the port's
+    tensors made from them."""
+    params = _np_params("mlp")
+    before = jax.tree.map(lambda a: a.tobytes(), params)
+    jagg, tagg, p_pad = _agg_pair(opt)
+    rows = np.random.default_rng(4).normal(size=(3, p_pad)
+                                           ).astype(np.float32)
+    rows_bytes = rows.tobytes()
+    trows = torch.from_numpy(rows.copy())
+    for slot in range(3):
+        jagg.stage(jnp.asarray(rows[slot].copy()), slot)
+        tagg.stage(trows[slot], slot)
+    for _ in range(2):
+        jax.block_until_ready(jagg.flush_apply(np.ones(3), 0.1))
+        tagg.flush_apply(np.ones(3), 0.1)
+    assert rows.tobytes() == rows_bytes
+    assert trows.numpy().tobytes() == rows_bytes
+    assert jax.tree.map(lambda a: a.tobytes(), params) == before
+    fresh = _np_params("mlp")
+    assert jax.tree.map(lambda a: a.tobytes(), fresh) == before
 
 
 @pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
