@@ -31,6 +31,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -140,16 +141,53 @@ def nbytes(*tensors) -> int:
 
 # -------------------------------------------------------------- phases
 
+def kernel_label(mangled: str) -> str:
+    """``rmsnorm_kernel<bf16, 8, 16>``-style label from an Itanium-mangled
+    kernel name: its last nested name, dtype and integer template
+    arguments."""
+    i = mangled.find("_ZN")
+    if i < 0:
+        return mangled
+    i += 3
+    label = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        label, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = mangled[i:]
+    if not args.startswith("I"):
+        return label
+    args = args[1:args.find("Ev")]
+    parts = (["bf16"] if "bfloat16" in args else
+             ["f32"] if args.startswith("f") else [])
+    return f"{label}<{', '.join(parts + re.findall(r'Li(\d+)E', args))}>"
+
+
 def build_kernels():
+    """Build every CUDA source and print each kernel's registers,
+    spills and shared memory as ``nvcc -Xptxas -v`` gave them."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     t0 = time.time()
     libs = _build.build(_build.all_sources())
     log(f"[build] {len(libs)} CUDA source(s) built in "
         f"{time.time() - t0:.2f} s: {sorted(libs)}")
     for name in libs:
+        kernel, spill = "?", ""
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = kernel_label(m.group(1))
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                log(f"[build] {name}: {kernel}: "
+                    f"{line.split(':', 1)[1].strip()}; {spill}")
+    lib = fa._lib()
+    smem = {d: lib.flash_attention_bf16_smem_bytes(d) for d in fa.HEAD_DIMS}
+    log(f"[build] flash_attention: flash_fwd_bf16_kernel dynamic shared "
+        f"memory by head dim (bytes): {smem}")
 
 
 def max_err(torch, a, b) -> float:
@@ -400,7 +438,10 @@ def drive_main_path(torch):
 
 # flash_attention cases: (label, B, S, H, KV, d, causal, window, dtype).
 # The serve path's two shapes, then the JAX package's kernel-test cases
-# (tests/kernels/test_kernels.py:44-119) and a ragged S.
+# (tests/kernels/test_kernels.py:44-119) and a ragged S in f32 (the
+# CUDA-core kernel), then bf16 cases for the tensor-core kernel at every
+# head dim it takes: MHA, GQA, MQA, causal and not, windows, a ragged S
+# and an S below one key tile.
 FLASH_CASES = [
     ("serve prompt", 4, 32, 32, 8, 80, True, 4096, "bfloat16"),
     ("long prefill", 1, LONG_S, 32, 8, 80, True, 4096, "bfloat16"),
@@ -416,6 +457,20 @@ FLASH_CASES = [
     ("window 100", 1, 256, 4, 2, 64, True, 100, "float32"),
     ("window 256", 1, 256, 4, 2, 64, True, 256, "float32"),
     ("ragged S 37", 2, 37, 4, 2, 80, True, 8, "float32"),
+    ("bf16 MHA causal", 1, 128, 4, 4, 16, True, None, "bfloat16"),
+    ("bf16 MHA full", 1, 256, 4, 4, 32, False, None, "bfloat16"),
+    ("bf16 GQA causal", 2, 256, 8, 2, 64, True, None, "bfloat16"),
+    ("bf16 GQA full", 2, 256, 8, 2, 96, False, None, "bfloat16"),
+    ("bf16 MQA causal", 1, 512, 4, 1, 128, True, None, "bfloat16"),
+    ("bf16 MQA full", 1, 512, 4, 1, 80, False, None, "bfloat16"),
+    ("bf16 window 32", 1, 256, 4, 2, 16, True, 32, "bfloat16"),
+    ("bf16 window 100", 1, 256, 4, 2, 96, True, 100, "bfloat16"),
+    ("bf16 window 256", 1, 300, 4, 2, 128, False, 256, "bfloat16"),
+    ("bf16 window 4096", 1, 5000, 4, 1, 64, True, 4096, "bfloat16"),
+    ("bf16 ragged S 37", 2, 37, 4, 2, 32, True, 8, "bfloat16"),
+    ("bf16 ragged S 37 full", 1, 37, 4, 1, 128, False, None, "bfloat16"),
+    ("bf16 S 32", 2, 32, 4, 1, 16, False, None, "bfloat16"),
+    ("bf16 S 8192 d 128", 1, LONG_S, 8, 2, 128, True, None, "bfloat16"),
 ]
 # rmsnorm f32 rtol 1e-5 / atol 1e-6, bf16 3e-2 (one bf16 ulp is 2^-8
 # relative); attention f32 2e-4 (tests/kernels/test_kernels.py), bf16
@@ -436,27 +491,26 @@ def qkv(torch, seed, B, S, H, KV, d, dtype):
 
 def compare_lm_kernels(torch, D: int):
     """rmsnorm and flash_attention against their plain versions on the
-    card, each run twice (bitwise equal), at the serve path's shapes and
-    at the JAX package's kernel-test cases."""
+    card, each run twice (bitwise equal), at the serve path's shapes, at
+    the JAX package's kernel-test cases, and (rmsnorm) at a width the
+    16-byte vectors do not divide and at the registry's widest d_model."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
 
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(2)
-    scale = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
-    for n in (4, SERVE["batch"] * SERVE["prompt"], LONG_S):
-        for dtype in ("float32", "bfloat16"):
-            x = torch.randn(n, D, device="cuda", generator=gen).to(
-                getattr(torch, dtype))
-            (y,) = same_twice(torch, lambda: rms.rmsnorm(x, scale))
-            errs["rmsnorm"] = max(errs["rmsnorm"], hold(
-                torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale),
-                *RMS_TOL[dtype], f"N={n} D={D} {dtype}"))
-    x = torch.randn(33, 100, device="cuda", generator=gen)
-    (y,) = same_twice(torch, lambda: rms.rmsnorm(x, scale[:100]))
-    hold(torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale[:100]),
-         *RMS_TOL["float32"], "N=33 D=100 (scalar path)")
+    for width in (D, 100, 8192):
+        scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
+        for n in (4, SERVE["batch"] * SERVE["prompt"], LONG_S):
+            for dtype in ("float32", "bfloat16"):
+                x = torch.randn(n, width, device="cuda", generator=gen).to(
+                    getattr(torch, dtype))
+                (y,) = same_twice(torch, lambda: rms.rmsnorm(x, scale))
+                err = hold(torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale),
+                           *RMS_TOL[dtype], f"N={n} D={width} {dtype}")
+                if width == D:
+                    errs["rmsnorm"] = max(errs["rmsnorm"], err)
 
     for seed, (label, B, S, H, KV, d, causal, window, dtype) in \
             enumerate(FLASH_CASES):
@@ -485,7 +539,8 @@ def window_pairs(S: int, causal: bool, window) -> int:
 
 
 def time_lm_kernels(torch, D: int):
-    """rmsnorm and flash_attention at the serve path's shapes."""
+    """rmsnorm and flash_attention at the serve path's shapes, and flash
+    at every head dim it takes."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as fa
@@ -508,8 +563,13 @@ def time_lm_kernels(torch, D: int):
             2 * nbytes(x) + nbytes(scale), 4 * n * D)
     out = time_cases(torch, timer, rms_cases)
 
+    # the serve path's two shapes, then every head dim at one mid-size
+    # causal shape
+    shapes = FLASH_CASES[:2] + [
+        (f"bf16 d={d}", 1, 4096, 16, 4, d, True, None, "bfloat16")
+        for d in fa.HEAD_DIMS]
     for seed, (label, B, S, H, KV, d, causal, window, dtype) in \
-            enumerate(FLASH_CASES[:2]):     # the serve path's two shapes
+            enumerate(shapes):
         q, k, v = qkv(torch, 10 + seed, B, S, H, KV, d, dtype)
         mask = ref.attention_mask(S, causal, window, "cuda")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))

@@ -2,16 +2,18 @@
 
 q (B, S, H, d), k/v (B, S, KV, d) -> (B, S, H, d), with GQA (H % KV ==
 0), causal and sliding-window (key > query - window) masks, scale
-d^-0.5, and 0 for a fully masked row.  The kernel is in
-``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``); it replaces the
+d^-0.5, and 0 for a fully masked row.  The kernels are in
+``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``); they replace the
 Pallas kernel ``src/repro/kernels/flash_attention.py:75
-flash_attention_pallas``.  Unlike that kernel it takes any S: the
-tail of the last tile is masked.  For tensors on the CPU the wrapper
-runs the plain version (:func:`repro_torch.kernels.ref.attention_ref`);
-for CUDA tensors it launches the kernel on the current stream, adds
-one to ``LAUNCHES["flash_attention"]``, and raises if the launch
-failed.  Forward only, as the reference: an input that requires grad is
-refused.
+flash_attention_pallas``.  bfloat16 inputs take the tensor-core kernel
+(``wgmma`` with TMA-staged k/v tiles; p split into two bf16 parts for
+the PV product), float32 inputs the CUDA-core kernel.  Unlike the
+Pallas kernel they take any S: the tail of the last tile is masked.
+For tensors on the CPU the wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.attention_ref`); for CUDA tensors it
+launches the kernel on the current stream, adds one to
+``LAUNCHES["flash_attention"]``, and raises if the launch failed.
+Forward only, as the reference: an input that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ def _lib() -> ctypes.CDLL:
         if tuple(dims[:n]) != HEAD_DIMS:
             raise RuntimeError("csrc/flash_attention.cu disagrees with the "
                                "wrapper on the head dims it takes")
+        lib.flash_attention_bf16_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_bf16_smem_bytes.restype = ctypes.c_int
     return bind(lib, {f"flash_attention_{s}": _SIGNATURE
                       for s in _SUFFIX.values()},
                 "flash_attention_error_string")

@@ -148,6 +148,26 @@ def test_cuda_rmsnorm_other_widths(cuda, D):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4100, 8192, 40000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rmsnorm_wide_rows(cuda, D, dtype):
+    """Rows that take several warps (4100 scalar, 8192 in vectors) and a
+    row too wide to hold in registers (40000, read twice): within the
+    tolerances above and bitwise equal run to run."""
+    from repro_torch.kernels import rmsnorm as rms
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    x = torch.randn(5, D, device=cuda, generator=gen).to(dtype)
+    s = 1 + 0.1 * torch.randn(D, device=cuda, generator=gen)
+    got, again = rms.rmsnorm(x, s), rms.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else \
+        dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(got.float(), tref.rmsnorm_ref(x, s).float(),
+                               **tol)
+
+
 FLASH_CASES = [
     # B, S, H, KV, d, causal, window, dtype
     (4, 32, 32, 8, 80, True, 4096, torch.bfloat16),    # serve prompt
@@ -159,6 +179,14 @@ FLASH_CASES = [
     (1, 256, 4, 2, 64, True, 100, torch.bfloat16),
     (1, 256, 4, 2, 16, False, 256, torch.float32),
     (2, 37, 4, 2, 80, True, 8, torch.float32),         # ragged S
+    # the tensor-core kernel (bf16) at every head dim it takes
+    (1, 128, 4, 4, 16, True, None, torch.bfloat16),    # MHA
+    (2, 256, 8, 2, 32, False, None, torch.bfloat16),   # GQA 4:1
+    (1, 512, 4, 1, 128, True, None, torch.bfloat16),   # MQA
+    (1, 300, 4, 2, 96, False, 256, torch.bfloat16),    # ragged, windowed
+    (2, 37, 4, 2, 64, True, 8, torch.bfloat16),        # ragged S
+    (2, 32, 4, 1, 80, False, None, torch.bfloat16),    # S below one tile
+    (1, 5000, 4, 1, 128, True, 4096, torch.bfloat16),  # 64-key tiles
 ]
 
 
