@@ -14,6 +14,12 @@ main paths:
   widths, the paper's 25 workers, through async, sync and hybrid (SGD,
   momentum, AdamW), checking that every flush went through the flush
   kernels;
+- the cluster: ``ClusterTrainer`` (``backend="cluster"``, in-process
+  transport) on ``cnn-cifar`` at its published widths with 25 worker
+  threads and batch 32 — sync twice (bitwise equal), async, hybrid, and
+  hybrid AdamW with a kill, a respawn, checkpoints and a mid-run
+  restore — checking the exact conservation ledger and that every
+  server update went through a flush kernel;
 - serving: ``greedy_generate`` on h2o-danube-1.8b at its published
   widths and depth (batch 4, prompt 32, gen 16) and ``prefill_step`` on
   the 32-token prompts and on one 8192-token sequence, checking that
@@ -45,6 +51,10 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 K_MAX = 25                       # the paper's fleet: at most one row each
 HORIZON = 2.0                    # virtual seconds per main-path run
+CLUSTER_BUDGET_S = 4.0           # wall seconds per timed cluster run
+# K grows by one every 10 updates: about 800 gradients in a 4 s run (the
+# async run's rate) take K from 1 to about 12 of the 25 workers
+CLUSTER_SCHEDULE = "step:10"
 ARCH = "h2o-danube-1.8b"         # the serving path's model, full width
 SERVE = dict(batch=4, prompt=32, gen=16)   # the reference's serve defaults
 LONG_S = 8192                    # the long prefill: twice the 4096 window
@@ -123,6 +133,28 @@ class Timer:
             end.record()
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def kernel_only_ms(torch, fn, kernel: str, reps: int = 50) -> float:
+    """Median device duration of the kernel named ``kernel`` over
+    ``reps`` cold calls of ``fn``, from the profiler's trace: the kernel
+    alone, without the gaps the CUDA events around a call also time."""
+    from torch.profiler import ProfilerActivity, profile
+    scrub = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            scrub.sum()
+            fn()
+        torch.cuda.synchronize()
+    durations = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+    check(len(durations) == reps, f"{kernel}: {len(durations)} kernels "
+          f"in the trace of {reps} calls")
+    return statistics.median(durations) / 1e3
 
 
 def bound_ms(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S):
@@ -324,7 +356,17 @@ def time_kernels(torch, P: int):
             None, nbytes(g, wn, p, mu, nu) + 12 + 3 * P * 4,
             2 * K * P + 16 * P),
     }
-    return time_cases(torch, Timer(torch), cases)
+    out = time_cases(torch, Timer(torch), cases)
+    # the kernel alone, from the profiler, beside the wrapper call's
+    # event time above; each wrapper launches its kernel and nothing else
+    for name, case in cases.items():
+        t = out[name]
+        t["kernel_only_ms"] = kernel_only_ms(torch, case[0],
+                                             f"{name}_kernel")
+        log(f"[time] {name:15s} kernel alone {t['kernel_only_ms']:.6f} ms "
+            f"cold (profiler) = {100 * t['bound_ms'] / t['kernel_only_ms']:.1f}"
+            f"% of bound; wrapper call {t['ms']:.6f} ms (CUDA events)")
+    return out
 
 
 def time_cases(torch, timer, cases, plain_timer=None, peak=F32_FLOPS_PER_S):
@@ -413,7 +455,7 @@ def drive_main_path(torch):
         engine = trainer.engine(spec)
         agg = engine._agg_cache[1 if spec.mode == "async" else 25]
         check(all(t.is_cuda for t in (engine.x_tr, engine.y_tr, agg._slab,
-                                      agg._staging, agg.params_slab)),
+                                      *agg._staging, agg.params_slab)),
               "params, staging or data left the card")
         losses = res.metrics["train_loss"] + res.metrics["test_loss"]
         check(all(math.isfinite(x) for x in losses),
@@ -432,6 +474,135 @@ def drive_main_path(torch):
             f" -> {res.metrics['train_loss'][-1]:.4f}  averaged {avg}")
         results.append(res)
     return dict(ha.LAUNCHES), results
+
+
+# ------------------------------------------------------- cluster path
+
+def check_ledger(res, label: str) -> dict:
+    """The exact conservation ledger and its telemetry cross-check."""
+    a = res.extra["accounting"]
+    check(a["computed"] == a["applied"] + a["dropped"] + a["buffered"]
+          + a["pending_round"] + a["in_flight"]
+          and res.num_gradients == a["applied"]
+          and res.extra["telemetry"]["ledger_check"]["consistent"],
+          f"{label}: conservation ledger broken: {a}")
+    return a
+
+
+def drive_cluster_path(torch):
+    """cnn-cifar at full width through ``ClusterTrainer`` on the card:
+    25 worker threads, batch 32, the in-process transport.  Returns the
+    flush kernels' launches over the counted runs."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as ckpt_dir:
+        return cluster_runs(torch, ckpt_dir)
+
+
+def cluster_runs(torch, ckpt_dir: str):
+    from repro_torch.api import ExperimentSpec, FaultPlan
+    from repro_torch.cluster.trainer import ClusterTrainer
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.profile_sim import profiled
+
+    trainer = ClusterTrainer(ckpt_dir=ckpt_dir, device="cuda")
+    base = ExperimentSpec(arch="cnn-cifar", backend="cluster", smoke=False,
+                          seed=0, lr=0.01, batch=32, cluster_workers=25,
+                          wall_budget_s=CLUSTER_BUDGET_S,
+                          wall_sample_every_s=1.0, transport="inproc")
+    sync = base.with_(mode="sync", schedule=None, max_gradients=250,
+                      wall_budget_s=60.0)
+    # the dataset's upload and each worker thread's cuDNN and cuBLAS
+    # handles are paid outside the counted runs
+    t0 = time.time()
+    trainer.run(sync.with_(max_gradients=50))
+    torch.cuda.synchronize()
+    log(f"[cluster] set-up run (dataset upload, 25 threads' first "
+        f"gradients): {time.time() - t0:.1f} s")
+
+    faults = FaultPlan(kill=((3, 1.0),), respawn_after_s=0.5,
+                       checkpoint_every_s=1.0, restore_at_s=2.5)
+    runs = [
+        ("sync sgd #1", sync, "flush"),
+        ("sync sgd #2", sync, "flush"),
+        ("async sgd", base.with_(mode="async", schedule=None), "flush"),
+        ("hybrid sgd", base.with_(mode="hybrid",
+                                  schedule=CLUSTER_SCHEDULE), "flush"),
+        ("hybrid adamw faults", base.with_(
+            mode="hybrid", schedule=CLUSTER_SCHEDULE, optimizer="adamw",
+            faults=faults), "flush_adamw"),
+    ]
+    ha.reset_launch_counts()
+    finals, rates = [], {}
+    for label, spec, kernel in runs:
+        before = dict(ha.LAUNCHES)
+        res, prof = profiled(lambda: trainer.run(spec), host_ops=False)
+        delta = {k: ha.LAUNCHES[k] - before[k] for k in ha.LAUNCHES}
+        a = check_ledger(res, label)
+        # + 1: the server's warm-up flush before the clock starts
+        check(delta[kernel] == res.num_updates + 1
+              and sum(delta.values()) == delta[kernel],
+              f"{label}: launches {delta} vs {res.num_updates} updates")
+        losses = res.metrics["train_loss"] + res.metrics["test_loss"]
+        check(all(math.isfinite(x) for x in losses) and len(losses) > 0,
+              f"{label}: non-finite or missing losses")
+        window = res.extra["serve_wall_s"]
+        rates[label] = res.num_gradients / window
+        events = [e["event"] for e in res.extra["events"]]
+        log(f"[cluster] cnn-cifar {label:20s} {res.num_gradients} grads "
+            f"in {window:.2f} s ({rates[label]:.1f} grads/s), "
+            f"{res.num_updates} updates, {a['dropped']} dropped, "
+            f"{a['in_flight']} in flight; ledger computed {a['computed']}"
+            f" == applied {a['applied']} + dropped {a['dropped']} + "
+            f"buffered {a['buffered']} + pending {a['pending_round']} + "
+            f"in flight {a['in_flight']}; {kernel} launches "
+            f"{delta[kernel]} = {res.num_updates} updates + 1 warm-up; "
+            f"device busy {prof['device_busy_s']:.4f} s of "
+            f"{prof['wall_s']:.2f} s wall, idle share "
+            f"{prof['device_idle_share']:.4f}, flush kernels "
+            f"{prof['device_s_by_group'].get('flush kernels', 0.0):.6f} s,"
+            f" convolutions "
+            f"{prof['device_s_by_group'].get('convolution', 0.0):.4f} s;"
+            f" test_acc {res.final()['test_acc']:.4f}; events {events}")
+        if label.startswith("sync"):
+            check(res.num_updates == 10 and a["applied"] == 250,
+                  f"{label}: {res.num_updates} rounds, expected 10 of 25")
+            finals.append(trainer.last_params)
+        if label == "hybrid adamw faults":
+            for kind in ("kill", "respawn", "checkpoint", "restore"):
+                check(kind in events, f"{label}: no {kind} event: {events}")
+            restore_t = next(e["t"] for e in res.extra["events"]
+                             if e["event"] == "restore")
+            check(restore_t < window, f"{label}: no training after the "
+                  "restore")
+    launches = dict(ha.LAUNCHES)
+    check(all(torch.equal(finals[0][k], finals[1][k]) for k in finals[0]),
+          "the two sync runs' final params differ")
+    log("[cluster] sync sgd #1 and #2: final params bitwise equal "
+        f"({sum(t.numel() for t in finals[0].values())} params, 10 "
+        "rounds of 25 gradients in worker-id order)")
+
+    # what the device trace costs the runs above: the async run untraced
+    res = trainer.run(runs[2][1])
+    check_ledger(res, "async, untraced")
+    untraced = res.num_gradients / res.extra["serve_wall_s"]
+    log(f"[cluster] async sgd untraced: {untraced:.1f} grads/s against "
+        f"{rates['async sgd']:.1f} under the device trace")
+    # what cuDNN's deterministic algorithms cost: the same async run,
+    # traced the same way, with the default algorithm choice
+    torch.backends.cudnn.deterministic = False
+    try:
+        res, prof = profiled(lambda: trainer.run(runs[2][1]),
+                             host_ops=False)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    check_ledger(res, "async, default cuDNN")
+    free = res.num_gradients / res.extra["serve_wall_s"]
+    log(f"[cluster] async sgd with cuDNN's default (non-deterministic) "
+        f"algorithms: {free:.1f} grads/s against {rates['async sgd']:.1f} "
+        f"deterministic; device busy {prof['device_busy_s']:.4f} s, "
+        f"convolutions {prof['device_s_by_group'].get('convolution', 0):.4f}"
+        f" s, idle share {prof['device_idle_share']:.4f}")
+    return launches
 
 
 # ------------------------------------------------------- serving path
@@ -790,6 +961,9 @@ def main() -> int:
     cross_check_small(torch)
     launches, _ = drive_main_path(torch)
     log(f"[phase] simulator path done at {time.time() - t_start:.1f} s")
+    for name, n in drive_cluster_path(torch).items():
+        launches[name] += n
+    log(f"[phase] cluster path done at {time.time() - t_start:.1f} s")
 
     D = get_config(ARCH).d_model
     errs.update(compare_lm_kernels(torch, D))
@@ -816,7 +990,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "warm_ms": t["warm_ms"], "timed_at": t.get(
+            "warm_ms": t["warm_ms"],
+            "kernel_only_ms": t.get("kernel_only_ms"), "timed_at": t.get(
                 "timed_at", f"K={K_MAX} P={P} f32"), "tpu_kernel": tpu,
             "status": "ported", "max_err": errs[name], "kernel_ms": t["ms"]})
     log(smi)

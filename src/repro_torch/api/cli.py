@@ -2,7 +2,9 @@
 
 Subcommands:
   run       execute an ExperimentSpec (flags and/or --spec JSON file) and
-            emit a RunResult JSON; ``--backend sim`` is the one ported
+            emit a RunResult JSON: ``--backend sim`` (the simulator) or
+            ``--backend cluster`` (the wall-clock parameter server with
+            worker threads, ``--transport inproc``)
   simulate  alias for ``run --backend sim`` (paper-faithful simulator);
             ``--smoke`` picks a seconds-scale configuration
   serve     greedy decode on a registry model (the model stack's serving
@@ -20,6 +22,9 @@ Examples:
   python -m repro_torch serve --arch h2o-danube-1.8b --smoke --device cpu
   python -m repro_torch run --backend sim --arch cnn-cifar --no-smoke \\
       --mode hybrid --schedule step:300 --horizon 2 --out /tmp/r.json
+  python -m repro_torch run --backend cluster --arch mlp --device cpu \\
+      --cluster-workers 4 --wall-budget 5 --straggler 0:0.1 --kill 1:2 \\
+      --respawn-after 0.5 --ckpt-every 1 --ckpt-dir /tmp/ck --quiet
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import List, Optional
 
 from repro_torch.api.schedules import schedule_help
 from repro_torch.api.spec import BACKENDS, FLUSH_MODES, MODES, ExperimentSpec
+from repro_torch.cluster.faults import parse_fault_pairs
 
 # CLI flag -> (spec field, type, help).  Every flag defaults to None so
 # that only explicitly-passed flags override the --spec file / dataclass
@@ -55,6 +61,34 @@ _SPEC_FLAGS = [
     ("--flush-mode", "flush_mode", str, f"one of {FLUSH_MODES}"),
     ("--staleness-decay", "staleness_decay", float,
      "staleness weight decay"),
+    ("--cluster-workers", "cluster_workers", int,
+     "cluster: worker count (threads)"),
+    ("--transport", "transport", str,
+     "cluster: worker wire — inproc (threads+queue, the one ported; "
+     "socket, proc and host come with ROADMAP A10)"),
+    ("--wall-budget", "wall_budget_s", float,
+     "cluster: wall-clock training budget (real seconds)"),
+    ("--wall-sample-every", "wall_sample_every_s", float,
+     "cluster: metric grid spacing (real seconds)"),
+    ("--max-gradients", "max_gradients", int,
+     "cluster: stop after N applied gradients"),
+    ("--slab-dtype", "slab_dtype", str,
+     "cluster: gradient/params slab precision on the staging buffer "
+     "and the wire — f32 (default) | bf16 (master params and the flush "
+     "reduction stay f32)"),
+]
+# fault-plan flags (cluster backend): merged into spec.faults
+_FAULT_FLAGS = [
+    ("--straggler", "stragglers", "WID:SECONDS[,WID:SECONDS...]",
+     "cluster: extra seconds of delay per gradient for these workers"),
+    ("--kill", "kill", "WID:AT_S[,WID:AT_S...]",
+     "cluster: kill these workers at the given wall-clock seconds"),
+    ("--respawn-after", "respawn_after_s", float,
+     "cluster: respawn killed workers after this many seconds"),
+    ("--ckpt-every", "checkpoint_every_s", float,
+     "cluster: server checkpoint cadence (needs --ckpt-dir)"),
+    ("--restore-at", "restore_at_s", float,
+     "cluster: restore the latest checkpoint at this wall-clock second"),
 ]
 _POOL_FLAGS = [
     ("--workers", "num_workers", int, "worker count"),
@@ -73,6 +107,19 @@ def _add_spec_flags(ap: argparse.ArgumentParser, backend_flag: bool):
         ap.add_argument("--backend", choices=BACKENDS, default=None)
     for flag, dest, typ, hlp in _SPEC_FLAGS + _POOL_FLAGS:
         ap.add_argument(flag, dest=dest, type=typ, default=None, help=hlp)
+    for flag, dest, typ, hlp in _FAULT_FLAGS:
+        if isinstance(typ, str):     # WID:SECONDS pair lists
+            ap.add_argument(flag, dest=f"fault_{dest}", metavar=typ,
+                            default=None, help=hlp)
+        else:
+            ap.add_argument(flag, dest=f"fault_{dest}", type=typ,
+                            default=None, help=hlp)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="cluster: checkpoint directory")
+    ap.add_argument("--resume-from", default=None, metavar="CKPT",
+                    help="cluster: restore this checkpoint into the "
+                         "server before training (K(t) resumes from the "
+                         "restored step)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=None, help="reduced dataset sizes")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -101,6 +148,15 @@ def _build_spec(args, backend: Optional[str]) -> ExperimentSpec:
                     if getattr(args, f) is not None}
     if pool_changes:
         changes["pool"] = dataclasses.replace(spec.pool, **pool_changes)
+    fault_changes = {}
+    for _, field, typ, _ in _FAULT_FLAGS:
+        v = getattr(args, f"fault_{field}")
+        if v is not None:
+            fault_changes[field] = parse_fault_pairs(v) \
+                if isinstance(typ, str) else v
+    if fault_changes:
+        changes["faults"] = dataclasses.replace(spec.faults,
+                                                **fault_changes)
     return spec.with_(**changes) if changes else spec
 
 
@@ -116,8 +172,15 @@ def _cmd_run(args, forced_backend: Optional[str] = None) -> int:
                                                        None))
     if args.save_spec:
         spec.save(args.save_spec)
-    from repro_torch.api.trainers import get_trainer
-    result = get_trainer(spec.backend, device=args.device).run(spec)
+    if spec.backend == "cluster":
+        from repro_torch.cluster.trainer import ClusterTrainer
+        trainer = ClusterTrainer(ckpt_dir=args.ckpt_dir,
+                                 resume_from=args.resume_from,
+                                 verbose=not args.quiet, device=args.device)
+    else:
+        from repro_torch.api.trainers import get_trainer
+        trainer = get_trainer(spec.backend, device=args.device)
+    result = trainer.run(spec)
     if args.out:
         result.save(args.out)
         print(f"full RunResult written to {args.out}", file=sys.stderr)

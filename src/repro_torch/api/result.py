@@ -1,11 +1,12 @@
 """The common result a Trainer returns.
 
 :class:`RunResult` is a metric grid (``grid`` in ``grid_unit`` units —
-virtual seconds for the simulator) with aligned per-metric series, plus
-update / gradient counters and provenance (the spec that produced it).
-``averaged()`` is the paper's headline statistic — every metric averaged
-over the entire training interval.  The JSON form is the reference's
-(``src/repro/api/result.py``); only the simulator's builder is ported.
+virtual seconds for the simulator, wall seconds for the cluster) with
+aligned per-metric series, plus update / gradient counters and
+provenance (the spec that produced it).  ``averaged()`` is the paper's
+headline statistic — every metric averaged over the entire training
+interval.  The JSON form is the reference's
+(``src/repro/api/result.py``); the SPMD builder is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,10 +17,10 @@ from typing import Any, Dict, Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class RunResult:
-    backend: str                       # "sim"
+    backend: str                       # "sim" | "cluster"
     mode: str                          # "sync" | "async" | "hybrid"
     schedule: Optional[str]            # schedule spec string (hybrid)
-    grid_unit: str                     # "virtual_s"
+    grid_unit: str                     # "virtual_s" | "wall_s"
     grid: Tuple[float, ...]            # metric sample points
     metrics: Dict[str, Tuple[float, ...]]  # name -> series, len == len(grid)
     num_updates: int = 0               # parameter updates applied
@@ -98,3 +99,34 @@ class RunResult:
             wall_s=float(wall_s),
             spec=spec.to_dict() if spec is not None else None,
             extra=dict(extra or {}))
+
+    @classmethod
+    def from_cluster(cls, cres, spec=None, wall_s: float = 0.0
+                     ) -> "RunResult":
+        """Adapt a :class:`repro_torch.cluster.runtime.ClusterResult`.
+
+        ``num_gradients`` is the server's applied-gradient counter,
+        exactly; the conservation ledger and the fault/checkpoint
+        timeline ride along in ``extra``."""
+        mode = cres.mode
+        return cls(
+            backend="cluster", mode=mode,
+            schedule=getattr(spec, "schedule", None)
+            if mode == "hybrid" else None,
+            grid_unit="wall_s",
+            grid=tuple(float(t) for t in cres.times),
+            metrics={
+                "train_loss": tuple(float(x) for x in cres.train_loss),
+                "test_loss": tuple(float(x) for x in cres.test_loss),
+                "test_acc": tuple(float(x) for x in cres.test_acc),
+            },
+            num_updates=int(cres.num_updates),
+            num_gradients=int(cres.num_gradients),
+            wall_s=float(wall_s),
+            spec=spec.to_dict() if spec is not None else None,
+            extra={"accounting": dict(cres.accounting),
+                   "events": list(cres.events),
+                   "start_version": int(cres.start_version),
+                   # the training window only (the clock starts after
+                   # set-up): the denominator for gradients per second
+                   "serve_wall_s": float(cres.wall_s)})

@@ -11,62 +11,29 @@ package loads in the other:
                           schedule="step:300", horizon=8.0)
     result = repro_torch.api.run(spec, device="cuda")
 
-The port runs ``backend="sim"`` only; ``spmd`` and ``cluster`` are
-recognised and refused with :class:`NotImplementedError` until their
-slices land.  The cluster-only fields (``faults``, ``transport``,
-``listen`` ...) are kept and validated so the reference's JSON loads.
-:class:`FaultPlan` and :data:`TRANSPORTS` are local copies of the
-reference's ``cluster/faults.py`` and ``cluster/transport.py`` pieces.
+The port runs ``backend="sim"`` and ``backend="cluster"``; ``spmd`` is
+recognised and refused with :class:`NotImplementedError` until its
+slice lands.  The cluster backend runs the ``inproc`` transport; the
+other transports' fields (``listen``, ``heartbeat_s`` ...) are kept and
+validated so the reference's JSON loads, and a run on them is refused
+when it is built (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.api.schedules import parse_schedule
+from repro_torch.cluster.faults import FaultPlan
+from repro_torch.cluster.transport import TRANSPORTS
 from repro_torch.core.simulator import WorkerPool
 from repro_torch.optim.slab_form import OPTIMIZER_NAMES, SlabOptimizer
 
 BACKENDS = ("sim", "spmd", "cluster")
-PORTED_BACKENDS = ("sim",)
+PORTED_BACKENDS = ("sim", "cluster")
 MODES = ("sync", "async", "hybrid")
 FLUSH_MODES = ("sum", "mean")
-# worker wires of the cluster backend (src/repro/cluster/transport.py)
-TRANSPORTS = ("inproc", "socket", "proc", "host")
-
-Pairs = Tuple[Tuple[int, float], ...]
-
-
-def _pairs(raw: Iterable, what: str) -> Pairs:
-    out = []
-    for item in raw:
-        wid, val = item
-        wid, val = int(wid), float(val)
-        if wid < 0 or val < 0:
-            raise ValueError(f"{what} entries must be (worker_id >= 0, "
-                             f"seconds >= 0), got {item!r}")
-        out.append((wid, val))
-    return tuple(out)
-
-
-@dataclasses.dataclass(frozen=True)
-class FaultPlan:
-    """What goes wrong, and when (wall-clock seconds from run start)."""
-    stragglers: Pairs = ()        # (worker_id, extra seconds per gradient)
-    kill: Pairs = ()              # (worker_id, kill at wall second t)
-    respawn_after_s: float = 0.0  # respawn killed workers after this; 0=off
-    checkpoint_every_s: float = 0.0   # server checkpoint cadence; 0=off
-    restore_at_s: float = 0.0     # restore latest checkpoint mid-run; 0=off
-
-    def __post_init__(self):
-        object.__setattr__(self, "stragglers",
-                           _pairs(self.stragglers, "stragglers"))
-        object.__setattr__(self, "kill", _pairs(self.kill, "kill"))
-        for f in ("respawn_after_s", "checkpoint_every_s", "restore_at_s"):
-            if getattr(self, f) < 0:
-                raise ValueError(f"{f} must be >= 0, "
-                                 f"got {getattr(self, f)!r}")
 
 
 def parse_hostport(s: str, default_host: str = "127.0.0.1"
@@ -163,7 +130,7 @@ class ExperimentSpec:
             raise NotImplementedError(
                 f"backend {self.backend!r} is not ported to repro_torch "
                 f"yet: it comes with the {self.backend} slice of the "
-                "port (see ROADMAP.md); use backend='sim'")
+                "port (see ROADMAP.md); use backend='sim' or 'cluster'")
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, "
                              f"got {self.mode!r}")

@@ -5,8 +5,9 @@ event-driven parameter-server simulator.  ``spec.arch`` names a
 registered workload (``mlp``, ``cnn-mnist``, ``cnn-cifar``; extend via
 :func:`register_sim_workload`), or pass a prepared ``(loss_fn,
 init_params, data, accuracy_fn)`` to the constructor.  Mirrors
-``src/repro/api/trainers.py``; the SPMD and cluster trainers come with
-later slices of the port.
+``src/repro/api/trainers.py``.  ``backend="cluster"`` is
+:class:`repro_torch.cluster.trainer.ClusterTrainer`, loaded on first
+use; the SPMD trainer comes with a later slice of the port.
 
 Everything runs on ``device``: ``cuda`` unless the caller asks for
 another, and an error when CUDA is asked for and missing.  On CUDA the
@@ -166,12 +167,18 @@ class SimulatorTrainer:
                                          "device_name": name})
 
 
-TRAINERS: Dict[str, Callable[..., SimulatorTrainer]] = {
+def _cluster_trainer(device: Device = None):
+    from repro_torch.cluster.trainer import ClusterTrainer
+    return ClusterTrainer(device=device)
+
+
+TRAINERS: Dict[str, Callable[..., Any]] = {
     "sim": SimulatorTrainer,
+    "cluster": _cluster_trainer,
 }
 
 
-def get_trainer(backend: str, device: Device = None) -> SimulatorTrainer:
+def get_trainer(backend: str, device: Device = None):
     try:
         factory = TRAINERS[backend]
     except KeyError:

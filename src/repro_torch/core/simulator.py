@@ -81,7 +81,7 @@ class SimResult:
         }
 
 
-def _data_to(data, device: torch.device):
+def data_to(data, device: torch.device):
     """(x_train, y_train, x_test, y_test) as tensors on ``device``;
     labels become int64, PyTorch's index type."""
     out = []
@@ -120,7 +120,7 @@ class PSTrainer:
         self.flush_mode = flush_mode
         self.loss_fn = loss_fn
         self.init_params = tree_to(init_params, self.device)
-        self.x_tr, self.y_tr, self.x_te, self.y_te = _data_to(data,
+        self.x_tr, self.y_tr, self.x_te, self.y_te = data_to(data,
                                                               self.device)
         self.lr = lr
         self.batch = batch_size

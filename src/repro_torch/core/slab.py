@@ -23,8 +23,11 @@ PyTorch has no buffer donation.  Instead (enforced by
   the aggregator writes again, so a caller may hold it across later
   flushes (the simulator's event heap holds old parameter snapshots).
 
-Only the single-buffer layout (``shards=1`` in the reference) is ported;
-growing the staging buffer comes with the cluster backend.
+``shards > 1`` splits the staging buffer along P into tile-aligned
+chunks, each flushed by its own kernel launch; the fold is elementwise
+along P, so a sharded flush is bitwise equal to the unsharded one.
+The chunks stay on the aggregator's device (the reference spreads them
+over a host's devices; across cards is ROADMAP A12b).
 """
 from __future__ import annotations
 
@@ -151,6 +154,11 @@ class SlabCodec:
                                                   self.shapes, self.dtypes)]
         return _unflatten(self.paths, leaves)
 
+    def decode_host(self, slab: torch.Tensor) -> Any:
+        """:meth:`decode` into fresh CPU tensors (one device-to-host
+        copy of the slab; it waits for the work queued before it)."""
+        return self.decode(slab.cpu())
+
     def __repr__(self):
         return (f"SlabCodec(leaves={len(self.sizes)}, P={self.size}, "
                 f"padded={self.padded_size}, "
@@ -173,6 +181,19 @@ def slab_codec(tree, slab_dtype="f32") -> SlabCodec:
     if codec is None:
         codec = _CODEC_CACHE[key] = SlabCodec(paths, shapes, dtypes, sdt)
     return codec
+
+
+_SHARD_AUTO_MIN = 1 << 22     # elements: auto-shard only for multi-
+#                               million-parameter slabs
+
+
+def _auto_shards(padded_size: int, num_devices: int) -> int:
+    """The reference's default shard count: 1 unless the slab is
+    multi-million-parameter and there are several devices to spread the
+    chunks across."""
+    if num_devices <= 1 or padded_size < _SHARD_AUTO_MIN:
+        return 1
+    return min(num_devices, padded_size // TILE_P)
 
 
 def shard_chunks(padded_size: int, shards: int) -> Tuple[int, ...]:
@@ -208,20 +229,33 @@ class SlabAggregator:
     moment slabs, with AdamW's bias correction driven by an int32 update
     count kept on the device.  No flush reads a device value on the
     host.
+
+    ``shards`` splits staging along P into :func:`shard_chunks` chunks,
+    one flush launch each; the master and moment slabs stay whole and
+    each launch updates its chunk's slice of them.  ``None`` takes the
+    reference's rule for one device: 1.
     """
 
     def __init__(self, codec: SlabCodec, params, k_max: int, *,
+                 shards: Optional[int] = None,
                  optimizer: Optional[SlabOptimizer] = None):
         if k_max < 1:
             raise ValueError(f"k_max must be >= 1, got {k_max}")
         self.codec = codec
         self.k_max = int(k_max)
         self.opt = optimizer or SlabOptimizer("sgd")
+        if shards is None:
+            # every chunk stays on this aggregator's device
+            shards = _auto_shards(codec.padded_size, num_devices=1)
+        self.chunk_sizes = shard_chunks(codec.padded_size, shards)
+        self.shards = len(self.chunk_sizes)
+        self.chunk_offsets = tuple(int(o) for o in
+                                   np.cumsum((0,) + self.chunk_sizes)[:-1])
         self._slab = codec.encode_master(params)
         self.device = self._slab.device
-        self._staging = torch.zeros((self.k_max, codec.padded_size),
-                                    dtype=codec.slab_dtype,
-                                    device=self.device)
+        self._staging = [torch.zeros((self.k_max, n), dtype=codec.slab_dtype,
+                                     device=self.device)
+                         for n in self.chunk_sizes]
         self._pub = codec.encode(params)
         self._zero_row = torch.zeros((codec.padded_size,),
                                      dtype=codec.slab_dtype,
@@ -242,17 +276,21 @@ class SlabAggregator:
             return self._slab.clone()
         return self._slab.to(self.codec.slab_dtype)
 
-    def _rows(self) -> torch.Tensor:
-        if self._staging.dtype == torch.float32:
-            return self._staging
-        return self._staging.float()
+    def _chunks(self):
+        """(staging rows in f32 or bf16, slice of the P axis) per chunk."""
+        for rows, off, n in zip(self._staging, self.chunk_offsets,
+                                self.chunk_sizes):
+            yield (rows if rows.dtype == torch.float32 else rows.float(),
+                   slice(off, off + n))
 
     # ------------------------------------------------------------- API
     def stage(self, slab: torch.Tensor, slot: int) -> None:
         """Write one gradient slab into staging row ``slot`` (in place)."""
         if not 0 <= slot < self.k_max:
             raise IndexError(f"slot {slot} outside 0..{self.k_max - 1}")
-        self._staging[slot].copy_(slab)
+        for rows, off, n in zip(self._staging, self.chunk_offsets,
+                                self.chunk_sizes):
+            rows[slot].copy_(slab[off:off + n])
 
     def flush_apply(self, weights, scale: float) -> torch.Tensor:
         """Aggregate the first ``len(weights)`` staged rows and apply the
@@ -263,26 +301,31 @@ class SlabAggregator:
         wfull = np.zeros((self.k_max,), np.float32)
         wfull[:k] = np.asarray(weights, np.float32)
         w = to_device(wfull, self.device)
-        rows = self._rows()
         if self.opt.name == "sgd":
-            agg = flush(rows, w)
-            self._slab.sub_(agg.div_(w.sum()).mul_(scale))
+            wsum = w.sum()
+            for rows, sl in self._chunks():
+                agg = flush(rows, w)
+                self._slab[sl].sub_(agg.div_(wsum).mul_(scale))
         elif self.opt.name == "momentum":
-            _, mu = flush_momentum(rows, w / w.sum(), self._moments["mu"],
-                                   self.opt.beta1)
-            self._moments["mu"] = mu
+            wn = w / w.sum()
+            mu = self._moments["mu"]
+            for rows, sl in self._chunks():
+                _, new_mu = flush_momentum(rows, wn, mu[sl], self.opt.beta1)
+                _write(mu[sl], new_mu)
             self._slab.sub_(mu * scale)
             self._count += 1
         else:
+            wn = w / w.sum()
             c = self._count + 1
             bc1, bc2 = bias_correction(c, self.opt.beta1, self.opt.beta2)
-            new, mu, nu = flush_adamw(
-                rows, w / w.sum(), self._slab, self._moments["mu"],
-                self._moments["nu"], bc1, bc2, scale, b1=self.opt.beta1,
-                b2=self.opt.beta2, eps=self.opt.eps,
-                weight_decay=self.opt.weight_decay)
-            self._slab, self._moments["mu"], self._moments["nu"] = \
-                new, mu, nu
+            mu, nu = self._moments["mu"], self._moments["nu"]
+            for rows, sl in self._chunks():
+                new = flush_adamw(
+                    rows, wn, self._slab[sl], mu[sl], nu[sl], bc1, bc2,
+                    scale, b1=self.opt.beta1, b2=self.opt.beta2,
+                    eps=self.opt.eps, weight_decay=self.opt.weight_decay)
+                for dst, src in zip((self._slab[sl], mu[sl], nu[sl]), new):
+                    _write(dst, src)
             self._count = c
         self._pub = self._published()
         return self._pub
@@ -297,18 +340,41 @@ class SlabAggregator:
         return self.codec.decode(self._pub)
 
     def reset_params(self, params) -> None:
-        """Replace the live params."""
+        """Replace the live params (checkpoint restore)."""
         self._slab = self.codec.encode_master(params).to(self.device)
         self._pub = self.codec.encode(params).to(self.device)
 
-    def reset_opt_state(self) -> None:
-        """Zero the moments and the update count (reloading a saved state
-        comes with the checkpoint slice)."""
-        self._init_opt_state()
+    def reset_opt_state(self, state: Optional[Dict[str, Any]] = None
+                        ) -> None:
+        """Resync the optimizer state (checkpoint restore): ``None``
+        zeros the moments and the update count; a dict in the
+        :meth:`opt_state_host` form (f32 ``(P_pad,)`` arrays by moment
+        name plus an int ``count``) reloads them."""
+        if state is None:
+            self._init_opt_state()
+            return
+        missing = [n for n in self.opt.moment_names if n not in state]
+        if missing:
+            raise ValueError(
+                f"optimizer state is missing moment slab(s) {missing} "
+                f"for {self.opt.name!r}: the checkpoint was written by "
+                "a run with a different optimizer")
+        moments = {}
+        for name in self.opt.moment_names:
+            full = np.asarray(state[name], np.float32)
+            if full.shape != (self.codec.padded_size,):
+                raise ValueError(f"moment {name!r} has shape {full.shape},"
+                                 f" the slab ({self.codec.padded_size},)")
+            moments[name] = to_device(full, self.device)
+        self._moments = moments
+        self._count = torch.tensor(int(state["count"]), dtype=torch.int32,
+                                   device=self.device)
 
     def opt_state_host(self) -> Optional[Dict[str, Any]]:
         """Host copies of the moment slabs + the int update count, or
-        ``None`` for plain SGD."""
+        ``None`` for plain SGD.  The copy waits for every flush queued
+        before it; the owner holds its lock so that none is queued
+        while it runs."""
         if self.opt.name == "sgd":
             return None
         out: Dict[str, Any] = {name: m.cpu().numpy().copy()
@@ -320,7 +386,8 @@ class SlabAggregator:
         """Zero every staging row: zero-weight masking neutralizes finite
         leftovers, but a non-finite row would poison later flushes
         (``0 · inf = nan``)."""
-        self._staging.zero_()
+        for rows in self._staging:
+            rows.zero_()
 
     def warmup(self) -> None:
         """Run one flush before training starts, so the kernels are built
@@ -332,6 +399,32 @@ class SlabAggregator:
         if self.opt.name != "sgd":
             self._count = torch.zeros((), dtype=torch.int32,
                                       device=self.device)
+
+    def grow(self, k_max: int) -> None:
+        """Resize the staging buffer to ``k_max`` rows (elastic fleet
+        admission).  Staged rows are kept — a hybrid buffer holds rows
+        between flushes — and the new rows are zero, which zero-weight
+        masking keeps inert.  It never shrinks: a departed worker's row
+        just keeps weight 0."""
+        k_max = int(k_max)
+        if k_max <= self.k_max:
+            return
+        grown = []
+        for old in self._staging:
+            rows = torch.zeros((k_max, old.shape[1]), dtype=old.dtype,
+                               device=self.device)
+            rows[:self.k_max].copy_(old)
+            grown.append(rows)
+        self._staging = grown
+        self.k_max = k_max
+
+
+def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Land a kernel's result in ``dst``: on the card the kernels update
+    their inputs in place, on the CPU the plain versions return new
+    tensors."""
+    if src.data_ptr() != dst.data_ptr():
+        dst.copy_(src)
 
 
 class SlabBuffer:
@@ -362,4 +455,11 @@ class SlabBuffer:
     def clear(self) -> None:
         """Forget rows that a flush just consumed (zero weights mask
         them on the next flush)."""
+        self._versions = []
+
+    def discard(self) -> None:
+        """Drop staged rows unconsumed (checkpoint restore).  The rows
+        are wiped, not just masked: a discarded gradient may be
+        non-finite, and ``0 · inf = nan`` would defeat the masking."""
+        self.agg.wipe_staging()
         self._versions = []

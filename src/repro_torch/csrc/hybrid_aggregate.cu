@@ -169,17 +169,30 @@ __device__ __forceinline__ void adamw_step(const AdamWConsts& c, float g,
   v = v_new;
 }
 
-// h = (bc1, bc2, scale) lives on the device, so a flush never waits on the host.
+// A scalar the kernel reads from the device when ptr is set, else value.
+struct Scalar {
+  const float* ptr;
+  float value;
+};
+
+__device__ __forceinline__ float scalar_value(Scalar s) {
+  return s.ptr != nullptr ? __ldg(s.ptr) : s.value;
+}
+
+// bc1 and bc2 come from the update count kept on the device, so a flush
+// never waits on the host; each of bc1, bc2 and scale is a device pointer
+// or a value, so the wrapper launches this kernel and nothing else.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flush_adamw_kernel(const float* __restrict__ w, const float* __restrict__ h,
-                       const T* __restrict__ g, float* __restrict__ params,
-                       float* __restrict__ mu, float* __restrict__ nu, int K,
-                       int64_t P, float b1, float omb1, float b2, float omb2,
-                       float eps, float wd) {
+    flush_adamw_kernel(const float* __restrict__ w, Scalar bc1, Scalar bc2,
+                       Scalar scale, const T* __restrict__ g,
+                       float* __restrict__ params, float* __restrict__ mu,
+                       float* __restrict__ nu, int K, int64_t P, float b1,
+                       float omb1, float b2, float omb2, float eps, float wd) {
   extern __shared__ float sw[];
   load_weights(sw, w, K);
-  const AdamWConsts c{b1, omb1, b2, omb2, eps, wd, h[0], h[1], h[2]};
+  const AdamWConsts c{b1, omb1, b2, omb2, eps, wd, scalar_value(bc1),
+                      scalar_value(bc2), scalar_value(scale)};
   const int64_t p = thread_offset();
   const float4 gm = weighted_sum<T>(sw, g, K, P, p);
   float4 pv = load_f32(params + p), mv = load_f32(mu + p), vv = load_f32(nu + p);
@@ -224,13 +237,14 @@ int launch_momentum(const void* w, const void* g, void* m, int K, int64_t P,
 }
 
 template <typename T>
-int launch_adamw(const void* w, const void* h, const void* g, void* params,
-                 void* mu, void* nu, int K, int64_t P, float b1, float omb1,
-                 float b2, float omb2, float eps, float wd, void* stream) {
+int launch_adamw(const void* w, Scalar bc1, Scalar bc2, Scalar scale,
+                 const void* g, void* params, void* mu, void* nu, int K,
+                 int64_t P, float b1, float omb1, float b2, float omb2,
+                 float eps, float wd, void* stream) {
   if (bad_shape(K, P)) return static_cast<int>(cudaErrorInvalidValue);
   flush_adamw_kernel<T><<<grid_for(P), kThreads, smem_for(K),
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), static_cast<const float*>(h),
+      static_cast<const float*>(w), bc1, bc2, scale,
       static_cast<const T*>(g), static_cast<float*>(params),
       static_cast<float*>(mu), static_cast<float*>(nu), K, P, b1, omb1, b2,
       omb2, eps, wd);
@@ -269,20 +283,32 @@ int hybrid_flush_momentum_bf16(const void* w, const void* g, void* m, int K,
   return launch_momentum<__nv_bfloat16>(w, g, m, K, P, beta, stream);
 }
 
-int hybrid_flush_adamw_f32(const void* w, const void* h, const void* g,
-                           void* params, void* mu, void* nu, int K,
-                           long long P, float b1, float omb1, float b2,
-                           float omb2, float eps, float wd, void* stream) {
-  return launch_adamw<float>(w, h, g, params, mu, nu, K, P, b1, omb1, b2, omb2,
-                             eps, wd, stream);
+int hybrid_flush_adamw_f32(const void* w, const void* bc1_ptr,
+                           float bc1, const void* bc2_ptr, float bc2,
+                           const void* scale_ptr, float scale,
+                           const void* g, void* params, void* mu, void* nu,
+                           int K, long long P, float b1, float omb1,
+                           float b2, float omb2, float eps, float wd,
+                           void* stream) {
+  return launch_adamw<float>(
+      w, Scalar{static_cast<const float*>(bc1_ptr), bc1},
+      Scalar{static_cast<const float*>(bc2_ptr), bc2},
+      Scalar{static_cast<const float*>(scale_ptr), scale}, g, params, mu,
+      nu, K, P, b1, omb1, b2, omb2, eps, wd, stream);
 }
 
-int hybrid_flush_adamw_bf16(const void* w, const void* h, const void* g,
-                            void* params, void* mu, void* nu, int K,
-                            long long P, float b1, float omb1, float b2,
-                            float omb2, float eps, float wd, void* stream) {
-  return launch_adamw<__nv_bfloat16>(w, h, g, params, mu, nu, K, P, b1, omb1,
-                                     b2, omb2, eps, wd, stream);
+int hybrid_flush_adamw_bf16(const void* w, const void* bc1_ptr,
+                            float bc1, const void* bc2_ptr, float bc2,
+                            const void* scale_ptr, float scale,
+                            const void* g, void* params, void* mu, void* nu,
+                            int K, long long P, float b1, float omb1,
+                            float b2, float omb2, float eps, float wd,
+                            void* stream) {
+  return launch_adamw<__nv_bfloat16>(
+      w, Scalar{static_cast<const float*>(bc1_ptr), bc1},
+      Scalar{static_cast<const float*>(bc2_ptr), bc2},
+      Scalar{static_cast<const float*>(scale_ptr), scale}, g, params, mu,
+      nu, K, P, b1, omb1, b2, omb2, eps, wd, stream);
 }
 
 }  // extern "C"

@@ -21,7 +21,7 @@ device value on the host, so a flush never waits for the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -46,8 +46,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "hybrid_flush": [_P, _P, _P, _I, _L, _P],
     "hybrid_flush_momentum": [_P, _P, _P, _I, _L, _F, _P],
-    "hybrid_flush_adamw": [_P, _P, _P, _P, _P, _P, _I, _L,
-                           _F, _F, _F, _F, _F, _F, _P],
+    "hybrid_flush_adamw": [_P, _P, _F, _P, _F, _P, _F, _P, _P, _P, _P, _I,
+                           _L, _F, _F, _F, _F, _F, _F, _P],
 }
 
 
@@ -136,15 +136,18 @@ def flush_momentum(grads: torch.Tensor, weights: torch.Tensor,
     return momentum.to(grads.dtype), momentum
 
 
-def _scalars(device, *values) -> torch.Tensor:
-    """Stack f32 scalars (device tensors or floats) into one (n,) device
-    tensor.  A float is written by a fill kernel, not copied from the
-    host, so this never waits for the card."""
-    return torch.stack([
-        v.to(device=device, dtype=torch.float32).reshape(())
-        if isinstance(v, torch.Tensor)
-        else torch.full((), float(v), dtype=torch.float32, device=device)
-        for v in values])
+def _scalar(name: str, value, device) -> Tuple[Optional[int], float]:
+    """``(pointer, 0.0)`` for an f32 one-element tensor on ``device``,
+    ``(None, value)`` for a number: the kernel reads the first from the
+    device and takes the second by value, so no scalar costs a launch."""
+    if not isinstance(value, torch.Tensor):
+        return None, float(value)
+    if value.numel() != 1 or value.dtype != torch.float32 \
+            or value.device != device:
+        raise ValueError(f"{name} must be a number or a one-element float32 "
+                         f"tensor on {device}, got {value.dtype} "
+                         f"{tuple(value.shape)} on {value.device}")
+    return value.data_ptr(), 0.0
 
 
 def flush_adamw(grads, weights, params, mu, nu, bc1, bc2, scale, *,
@@ -155,8 +158,9 @@ def flush_adamw(grads, weights, params, mu, nu, bc1, bc2, scale, *,
     Returns ``(new_params, new_mu, new_nu)``.
 
     On CUDA the kernel updates ``params``, ``mu`` and ``nu`` **in place**
-    and returns them; the three scalars reach it as one (3,) device
-    tensor like the Pallas ``h``.  On the CPU the inputs are left as
+    and returns them, and it is the only launch: a tensor scalar reaches
+    it as a device pointer, a number by value (the Pallas kernel takes
+    the three as one ``h`` array).  On the CPU the inputs are left as
     they are and the results are new."""
     K, P = _check_rows(grads, weights)
     for name, t in (("params", params), ("mu", mu), ("nu", nu)):
@@ -165,10 +169,12 @@ def flush_adamw(grads, weights, params, mu, nu, bc1, bc2, scale, *,
         return ref.flush_adamw_ref(grads, weights, params, mu, nu, bc1,
                                    bc2, scale, b1=b1, b2=b2, eps=eps,
                                    weight_decay=weight_decay)
-    h = _scalars(grads.device, bc1, bc2, scale)
+    scalars = [x for name, v in (("bc1", bc1), ("bc2", bc2),
+                                 ("scale", scale))
+               for x in _scalar(name, v, grads.device)]
     with torch.cuda.device(grads.device):
         fn = getattr(_lib(), f"hybrid_flush_adamw_{_SUFFIX[grads.dtype]}")
-        _launch("flush_adamw", fn, weights.data_ptr(), h.data_ptr(),
+        _launch("flush_adamw", fn, weights.data_ptr(), *scalars,
                 grads.data_ptr(), params.data_ptr(), mu.data_ptr(),
                 nu.data_ptr(), K, P, b1, 1 - b1, b2, 1 - b2, eps,
                 weight_decay)

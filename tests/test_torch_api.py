@@ -46,8 +46,15 @@ def test_spec_loads_reference_json(fields):
 
 @pytest.mark.parametrize("backend", ["spmd", "cluster"])
 def test_unported_backends_refuse(backend):
-    with pytest.raises(NotImplementedError, match=backend):
-        ExperimentSpec(backend=backend)
+    """spmd is refused by the spec; the cluster backend runs in process,
+    and a run on its wire transports is refused when it is built."""
+    if backend == "spmd":
+        with pytest.raises(NotImplementedError, match=backend):
+            ExperimentSpec(backend=backend)
+        return
+    spec = ExperimentSpec(backend=backend, transport="socket")
+    with pytest.raises(NotImplementedError, match=f"{backend}.*A10"):
+        run(spec, device="cpu")
 
 
 def test_spec_validation_matches_reference():
@@ -131,7 +138,10 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "for m in ('core.simulator', 'models.model', 'models.attention', "
         "'launch.serve', 'kernels.rmsnorm', 'kernels.flash_attention', "
-        "'configs.h2o_danube_18b'):\n"
+        "'configs.h2o_danube_18b', 'checkpoint.ckpt', 'obs.telemetry', "
+        "'data.pipeline', 'cluster.faults', 'cluster.transport', "
+        "'cluster.server', 'cluster.worker', 'cluster.runtime', "
+        "'cluster.trainer'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (the three flushes, rmsnorm and
-flash_attention) against their plain PyTorch versions, on the card.
+flash_attention) against their plain PyTorch versions, on the card, and
+a small cluster run on the card against the same run on the CPU.
 
 Marked ``cuda``: they skip on a host without a CUDA device.  The file
 imports nothing of JAX, so it also runs where only the port is
@@ -77,6 +78,69 @@ def test_cuda_adamw_matches_plain(cuda, wd, count):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_on_device", [False, True])
+def test_cuda_adamw_is_one_launch(cuda, scale_on_device):
+    """flush_adamw launches its kernel and nothing else (bc1/bc2 reach it
+    as device pointers, scale by value or as a pointer), counted by the
+    profiler's device kernels, and stays bitwise equal to its plain
+    version."""
+    from torch.profiler import ProfilerActivity, profile
+    K, P = 25, 33 * TILE_P
+    g = torch.randn(K, P, device=cuda)
+    w = torch.full((K,), 1.0 / K, device=cuda)
+    p = torch.randn(P, device=cuda)
+    m = 0.1 * torch.randn(P, device=cuda)
+    v = 0.01 * torch.randn(P, device=cuda).abs()
+    bc1, bc2 = bias_correction(torch.tensor(3, device=cuda), 0.9, 0.95)
+    scale = torch.tensor(0.01, device=cuda) if scale_on_device else 0.01
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+    want = tref.flush_adamw_ref(g, w, p, m, v, bc1, bc2, scale, **kw)
+    args = [t.clone() for t in (p, m, v)]
+    ha.flush_adamw(g, w, *[t.clone() for t in (p, m, v)], bc1, bc2,
+                   scale, **kw)              # built and loaded
+    torch.cuda.synchronize()
+    before = ha.LAUNCHES["flush_adamw"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = ha.flush_adamw(g, w, *args, bc1, bc2, scale, **kw)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [e.name for e in kernels if "flush_adamw" in e.name] \
+        and len(kernels) == 1, [e.name for e in kernels]
+    assert ha.LAUNCHES["flush_adamw"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_sync_matches_cpu(cuda):
+    """A small mlp cluster sync run on the card (flush kernels) against
+    the same run on the CPU (plain versions): same updates and server
+    ledger, final params within rtol 1e-5 / atol 1e-6."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.cluster.trainer import ClusterTrainer
+    spec = ExperimentSpec(arch="mlp", backend="cluster", mode="sync",
+                          schedule=None, cluster_workers=3, batch=16,
+                          wall_budget_s=20.0, max_gradients=30)
+    runs = {}
+    for dev in ("cpu", cuda):
+        trainer = ClusterTrainer(device=dev)
+        before = ha.LAUNCHES["flush"]
+        res = trainer.run(spec)
+        runs[str(dev)] = (res, trainer.last_params,
+                          ha.LAUNCHES["flush"] - before)
+    (cres, cparams, cl), (gres, gparams, gl) = runs["cpu"], runs[str(cuda)]
+    assert gres.num_updates == cres.num_updates == 10
+    assert cl == 0 and gl == 10 + 1          # + the server's warm-up
+    keys = ("applied", "dropped", "buffered", "pending_round", "updates")
+    assert {k: gres.extra["accounting"][k] for k in keys} == \
+        {k: cres.extra["accounting"][k] for k in keys}
+    for k in cparams:
+        torch.testing.assert_close(gparams[k], cparams[k], rtol=1e-5,
+                                   atol=1e-6)
 
 
 @pytest.mark.cuda

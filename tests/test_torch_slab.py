@@ -256,3 +256,154 @@ def test_tree_optimizers_match_reference(name):
     np.testing.assert_allclose(got["b"]["c"], want["b"]["c"], rtol=1e-5,
                                atol=1e-6)
     assert int(ts["count"]) == int(js["count"]) == 3
+
+
+def _jax_agg(params, opt, k_max, shards=1):
+    jparams = jax.tree.map(lambda a: jnp.asarray(a.copy()), params)
+    return jslab.SlabAggregator(jslab.slab_codec(jparams), jparams, k_max,
+                                use_pallas=False, shards=shards,
+                                optimizer=JaxSlabOptimizer(opt))
+
+
+def _port_agg(params, opt, k_max, shards=None):
+    tparams = params_from_numpy(params)
+    return tslab.SlabAggregator(tslab.slab_codec(tparams), tparams, k_max,
+                                shards=shards, optimizer=SlabOptimizer(opt))
+
+
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
+def test_grow_keeps_staged_rows_like_reference(opt):
+    """Rows staged before a grow survive it: the flush after growth
+    tracks the JAX aggregator's grown one (allclose) and equals, bitwise,
+    a port aggregator built at the larger size from the start."""
+    params = _np_params("mlp")
+    jagg, grown = _jax_agg(params, opt, 2), _port_agg(params, opt, 2)
+    fixed = _port_agg(params, opt, 5)
+    rng = np.random.default_rng(6)
+    p_pad = grown.codec.padded_size
+    rows = rng.normal(size=(5, p_pad)).astype(np.float32)
+    for slot in range(2):
+        for agg in (grown, fixed):
+            agg.stage(torch.from_numpy(rows[slot].copy()), slot)
+        jagg.stage(jnp.asarray(rows[slot].copy()), slot)
+    for agg in (grown, jagg):
+        agg.grow(5)
+        agg.grow(3)                 # never shrinks
+    assert grown.k_max == jagg.k_max == 5
+    assert all(r.shape == (5, c) for r, c in zip(grown._staging,
+                                                 grown.chunk_sizes))
+    for slot in range(2, 5):
+        for agg in (grown, fixed):
+            agg.stage(torch.from_numpy(rows[slot].copy()), slot)
+        jagg.stage(jnp.asarray(rows[slot].copy()), slot)
+    w = np.asarray([1.0, 0.5, 0.25, 1.0, 0.75])
+    got = grown.flush_apply(w, 0.05)
+    assert torch.equal(got, fixed.flush_apply(w, 0.05))
+    _assert_close(got.numpy(), np.asarray(jagg.flush_apply(w, 0.05)),
+                  f"{opt} params after grow")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
+def test_sharded_flush_bitwise_equals_unsharded(opt, dtype):
+    """Chunking staging along P changes no bit of the params or the
+    moments (the fold is elementwise over P), and a sharded port
+    aggregator tracks the JAX one sharded the same way.  Against JAX the
+    weights are powers of two summing to one, so the two packages'
+    orders of normalizing and folding (ROADMAP C.1) round alike and the
+    comparison sees the sharding alone."""
+    params = _np_params("cnn-mnist")
+    tparams = params_from_numpy(params)
+    codec = tslab.slab_codec(tparams, slab_dtype=dtype)
+    rng = np.random.default_rng(8)
+    rows = [torch.from_numpy(rng.normal(size=codec.padded_size)
+                             .astype(np.float32)).to(codec.slab_dtype)
+            for _ in range(3)]
+    w = np.asarray([1.0, 0.7, 0.4], np.float32)
+    outs = {}
+    for shards in (1, 2, 3):
+        agg = tslab.SlabAggregator(codec, tparams, 3, shards=shards,
+                                   optimizer=SlabOptimizer(opt))
+        assert agg.shards == shards
+        assert sum(agg.chunk_sizes) == codec.padded_size
+        assert all(c % tslab.TILE_P == 0 for c in agg.chunk_sizes)
+        for _ in range(2):
+            for slot, r in enumerate(rows):
+                agg.stage(r, slot)
+            agg.flush_apply(w, 0.1)
+        outs[shards] = (agg.params_slab, agg.opt_state_host())
+    for shards in (2, 3):
+        assert torch.equal(outs[shards][0], outs[1][0])
+        if opt != "sgd":
+            for name in SlabOptimizer(opt).moment_names:
+                np.testing.assert_array_equal(outs[shards][1][name],
+                                              outs[1][1][name])
+    jparams = jax.tree.map(jnp.asarray, params)
+    jagg = jslab.SlabAggregator(jslab.slab_codec(jparams, dtype), jparams,
+                                3, use_pallas=False, shards=2,
+                                optimizer=JaxSlabOptimizer(opt))
+    tagg = tslab.SlabAggregator(codec, tparams, 3, shards=2,
+                                optimizer=SlabOptimizer(opt))
+    w2 = np.asarray([0.5, 0.25, 0.25], np.float32)
+    for _ in range(2):
+        for slot, r in enumerate(rows):
+            tagg.stage(r, slot)
+            jagg.stage(jnp.asarray(r.float().numpy()).astype(
+                jagg.codec.slab_dtype), slot)
+        jpub = jagg.flush_apply(w2, 0.1)
+        tagg.flush_apply(w2, 0.1)
+    _assert_close(tagg.params_slab.float().numpy(),
+                  np.asarray(jpub).astype(np.float32),
+                  f"{opt} {dtype} sharded params",
+                  **({} if dtype == "f32" else dict(rtol=3e-2, atol=3e-2)))
+
+
+def test_default_shards_follow_the_reference_rule():
+    """One device gives one shard; the reference's rule splits only a
+    multi-million-element slab across several devices."""
+    p_pad = tslab.slab_codec(params_from_numpy(_np_params("cnn-cifar"))
+                             ).padded_size
+    for size in (p_pad, 1 << 22, 1 << 24):
+        assert tslab._auto_shards(size, 1) == 1
+        assert tslab._auto_shards(size, jax.local_device_count()) == \
+            jslab._auto_shards(size)
+    assert tslab._auto_shards(1 << 22, 4) == 4
+    assert tslab._auto_shards((1 << 22) - tslab.TILE_P, 4) == 1
+    assert _port_agg(_np_params("mlp"), "sgd", 3).shards == 1
+
+
+@pytest.mark.parametrize("opt", ["momentum", "adamw"])
+def test_reset_opt_state_reloads_like_reference(opt):
+    """A saved optimizer state loads into both packages' aggregators and
+    the next flush agrees; a state of another optimizer is refused."""
+    jagg, tagg, p_pad = _agg_pair(opt)
+    rng = np.random.default_rng(9)
+    state = {name: rng.normal(size=p_pad).astype(np.float32) ** 2
+             for name in SlabOptimizer(opt).moment_names}
+    state["count"] = 7
+    jagg.reset_opt_state({k: (v.copy() if k != "count" else v)
+                          for k, v in state.items()})
+    tagg.reset_opt_state(state)
+    assert tagg.opt_state_host()["count"] == 7
+    row = rng.normal(size=p_pad).astype(np.float32)
+    tagg.stage(torch.from_numpy(row.copy()), 0)
+    jagg.stage(jnp.asarray(row.copy()), 0)
+    _assert_close(tagg.flush_apply(np.ones(1), 0.05).numpy(),
+                  np.asarray(jagg.flush_apply(np.ones(1), 0.05)),
+                  f"{opt} params after reload")
+    jst, tst = jagg.opt_state_host(), tagg.opt_state_host()
+    assert tst["count"] == jst["count"] == 8
+    for name in SlabOptimizer(opt).moment_names:
+        _assert_close(tst[name], jst[name], f"{opt} moment {name}")
+    with pytest.raises(ValueError, match="missing moment"):
+        tagg.reset_opt_state({"count": 1})
+
+
+def test_discard_wipes_staged_rows():
+    _, tagg, p_pad = _agg_pair("sgd")
+    buf = tslab.SlabBuffer(tagg)
+    buf.add(torch.full((p_pad,), float("inf")), 0)
+    buf.add(torch.ones(p_pad), 0)
+    buf.discard()
+    assert len(buf) == 0
+    assert all(not r.any() for r in tagg._staging)
