@@ -20,6 +20,14 @@ main paths:
   hybrid AdamW with a kill, a respawn, checkpoints and a mid-run
   restore — checking the exact conservation ledger and that every
   server update went through a flush kernel;
+- the cluster over the wire: the same trainer on ``transport="proc"``,
+  25 worker processes sharing the card over Unix sockets (sync, bitwise
+  equal to the in-process sync run; hybrid AdamW with a SIGKILL, a
+  respawn, checkpoints and a restore), and on ``transport="socket"``,
+  25 worker threads over TCP (async, the received bytes exactly the
+  frames the ledger implies), with the card's utilization as
+  ``nvidia-smi`` samples it, the wire bytes, the fleet's start-up and
+  the peak host and card memory;
 - serving: ``greedy_generate`` on h2o-danube-1.8b at its published
   widths and depth (batch 4, prompt 32, gen 16) and ``prefill_step`` on
   the 32-token prompts and on one 8192-token sequence, checking that
@@ -136,25 +144,28 @@ class Timer:
 
 
 def kernel_only_ms(torch, fn, kernel: str, reps: int = 50) -> float:
-    """Median device duration of the kernel named ``kernel`` over
-    ``reps`` cold calls of ``fn``, from the profiler's trace: the kernel
-    alone, without the gaps the CUDA events around a call also time."""
+    """Median device duration of the kernel named ``kernel`` over the
+    last ``reps`` of ``reps + 10`` cold calls of ``fn``, from the
+    profiler's raw trace: the kernel alone, without the gaps the CUDA
+    events around a call also time.  The first calls are spares: the
+    tracer can miss kernels that run just after it starts."""
     from torch.profiler import ProfilerActivity, profile
     scrub = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(reps + 10):
             scrub.sum()
             fn()
         torch.cuda.synchronize()
-    durations = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and kernel in e.name]
-    check(len(durations) == reps, f"{kernel}: {len(durations)} kernels "
-          f"in the trace of {reps} calls")
-    return statistics.median(durations) / 1e3
+    durations = [(e.start_ns(), (e.end_ns() - e.start_ns()) / 1e3)
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name()]
+    check(len(durations) >= reps, f"{kernel}: {len(durations)} kernels "
+          f"in the trace of {reps + 10} calls")
+    return statistics.median(d for _, d in sorted(durations)[-reps:]) / 1e3
 
 
 def bound_ms(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S):
@@ -492,7 +503,8 @@ def check_ledger(res, label: str) -> dict:
 def drive_cluster_path(torch):
     """cnn-cifar at full width through ``ClusterTrainer`` on the card:
     25 worker threads, batch 32, the in-process transport.  Returns the
-    flush kernels' launches over the counted runs."""
+    flush kernels' launches over the counted runs, each run's grads/s
+    and the first sync run's final params."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as ckpt_dir:
         return cluster_runs(torch, ckpt_dir)
@@ -602,7 +614,237 @@ def cluster_runs(torch, ckpt_dir: str):
         f"deterministic; device busy {prof['device_busy_s']:.4f} s, "
         f"convolutions {prof['device_s_by_group'].get('convolution', 0):.4f}"
         f" s, idle share {prof['device_idle_share']:.4f}")
-    return launches
+    return launches, rates, finals[0]
+
+
+# ---------------------------------------------- cluster over the wire
+
+def tree_rss_bytes(root: int) -> int:
+    """Resident memory of ``root`` and every process below it."""
+    children = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(d))
+    total, todo = 0, [root]
+    page = os.sysconf("SC_PAGE_SIZE")
+    while todo:
+        pid = todo.pop()
+        todo.extend(children.get(pid, ()))
+        try:
+            with open(f"/proc/{pid}/statm") as f:
+                total += int(f.read().split()[1]) * page
+        except (OSError, ValueError, IndexError):
+            pass
+    return total
+
+
+def host_used_bytes() -> int:
+    """The host's memory in use: MemTotal - MemAvailable."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            info[key] = int(value.split()[0]) * 1024
+    return info["MemTotal"] - info["MemAvailable"]
+
+
+class CardMonitor:
+    """Every 0.2 s while a run lasts: the card's utilization and memory
+    in use as ``nvidia-smi`` samples them (it sees the kernels of every
+    process on the card, where the parent's profiler sees only its own),
+    the host's memory in use and the resident memory of this process and
+    its children."""
+
+    def __init__(self):
+        import threading
+        self.card = []      # (epoch s, utilization %, memory used MiB)
+        self.host = []      # (epoch s, tree RSS bytes, host used bytes)
+        self.host_before = host_used_bytes()
+        self._stop = threading.Event()
+        self._smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu,"
+             "memory.used", "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, text=True)
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (self._read_smi, self._sample_host)]
+        for t in self._threads:
+            t.start()
+        deadline = time.time() + 30
+        while not self.card and time.time() < deadline:
+            time.sleep(0.05)
+        if not self.card:
+            self.stop()
+            raise AssertionError("nvidia-smi gave no sample within 30 s")
+        self.card_before = self.card[-1][2]
+
+    def _read_smi(self):
+        from datetime import datetime
+        for line in self._smi.stdout:
+            try:
+                stamp, util, mem = (x.strip() for x in line.split(","))
+                t = datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f")
+                self.card.append((t.timestamp(), float(util), float(mem)))
+            except ValueError:
+                continue
+
+    def _sample_host(self):
+        me = os.getpid()
+        while not self._stop.wait(0.2):
+            self.host.append((time.time(), tree_rss_bytes(me),
+                              host_used_bytes()))
+
+    def stop(self):
+        self._stop.set()
+        self._smi.terminate()
+        try:
+            self._smi.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self._smi.kill()
+            self._smi.wait()
+        for t in self._threads:
+            t.join(timeout=10)
+
+
+def drive_wire_path(torch, P: int, inproc_rates, inproc_sync_params):
+    """cnn-cifar at full width through ``ClusterTrainer`` on the wire
+    transports: 25 worker processes sharing the card over Unix sockets
+    (sync, then hybrid AdamW with a SIGKILL, a respawn, checkpoints and a
+    restore), and 25 worker threads over TCP (async).  Returns the flush
+    kernels' launches over the three runs."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-wire-") as ckpt_dir:
+        return wire_runs(torch, ckpt_dir, P, inproc_rates,
+                         inproc_sync_params)
+
+
+def wire_runs(torch, ckpt_dir: str, P: int, inproc_rates,
+              inproc_sync_params):
+    from repro_torch.api import ExperimentSpec, FaultPlan
+    from repro_torch.cluster.trainer import ClusterTrainer
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.profile_sim import profiled
+
+    trainer = ClusterTrainer(ckpt_dir=ckpt_dir, device="cuda")
+    base = ExperimentSpec(arch="cnn-cifar", backend="cluster", smoke=False,
+                          seed=0, lr=0.01, batch=32, cluster_workers=25,
+                          wall_budget_s=CLUSTER_BUDGET_S,
+                          wall_sample_every_s=1.0)
+    faults = FaultPlan(kill=((3, 1.0),), respawn_after_s=0.5,
+                       checkpoint_every_s=1.0, restore_at_s=2.5)
+    runs = [  # label, spec, kernel, the [cluster] run of the same spec
+        ("proc sync sgd", base.with_(
+            transport="proc", mode="sync", schedule=None,
+            max_gradients=250, wall_budget_s=60.0), "flush",
+         "sync sgd #1"),
+        ("proc hybrid adamw faults", base.with_(
+            transport="proc", mode="hybrid", schedule=CLUSTER_SCHEDULE,
+            optimizer="adamw", faults=faults, wall_budget_s=6.0),
+         "flush_adamw", "hybrid adamw faults"),
+        ("socket async sgd", base.with_(transport="socket", mode="async",
+                                        schedule=None), "flush",
+         "async sgd"),
+    ]
+    hello, grad_frame = 5 + 14, 5 + 16 + 4 * P
+    ha.reset_launch_counts()
+    for label, spec, kernel, twin in runs:
+        before = dict(ha.LAUNCHES)
+        runtime = trainer.build_runtime(spec)
+        torch.cuda.reset_peak_memory_stats()
+        monitor = CardMonitor()
+        try:
+            res, prof = profiled(lambda: trainer.finish(runtime, spec),
+                                 host_ops=False)
+        finally:
+            monitor.stop()
+        card0 = monitor.card_before
+        delta = {k: ha.LAUNCHES[k] - before[k] for k in ha.LAUNCHES}
+        a = check_ledger(res, label)
+        check("torn_frames" in a, f"{label}: no torn_frames in {a}")
+        check(delta[kernel] == res.num_updates + 1
+              and sum(delta.values()) == delta[kernel],
+              f"{label}: launches {delta} vs {res.num_updates} updates")
+        losses = res.metrics["train_loss"] + res.metrics["test_loss"]
+        check(all(math.isfinite(x) for x in losses) and len(losses) > 0,
+              f"{label}: non-finite or missing losses")
+        window = res.extra["serve_wall_s"]
+        # the training window on the wall clock the samples carry
+        t1 = time.time() - (time.monotonic() - runtime._t0 - window)
+        t0 = t1 - window
+        utils = [u for t, u, _ in monitor.card if t0 <= t <= t1]
+        check(len(utils) > 0, f"{label}: no utilization sample in the "
+              "training window")
+        card_peak = max(m for _, _, m in monitor.card)
+        rss_peak = max(r for _, r, _ in monitor.host)
+        host_peak = max(h for _, _, h in monitor.host) - monitor.host_before
+        counters = res.extra["telemetry"]["counters"]
+        rx, tx = counters.get("wire.rx_bytes", 0), \
+            counters.get("wire.tx_bytes", 0)
+        rate = res.num_gradients / window
+        events = [e["event"] for e in res.extra["events"]]
+        ready = res.extra.get("fleet_ready_s")
+        log(f"[cluster-wire] cnn-cifar {label:25s} {res.num_gradients} "
+            f"grads in {window:.2f} s ({rate:.1f} grads/s; inproc "
+            f"'{twin}' {inproc_rates[twin]:.1f} grads/s in [cluster]), "
+            f"{res.num_updates} updates, {a['dropped']} dropped, "
+            f"{a['in_flight']} in flight, torn frames {a['torn_frames']}; "
+            f"ledger computed {a['computed']} == applied {a['applied']} + "
+            f"dropped {a['dropped']} + buffered {a['buffered']} + pending "
+            f"{a['pending_round']} + in flight {a['in_flight']}; {kernel} "
+            f"launches {delta[kernel]} = {res.num_updates} updates + 1 "
+            f"warm-up; parent's flush kernels "
+            f"{prof['device_s_by_group'].get('flush kernels', 0.0):.6f} s "
+            f"device time; card utilization (nvidia-smi, 0.2 s) mean "
+            f"{statistics.mean(utils):.1f}% median "
+            f"{statistics.median(utils):.1f}% over {len(utils)} samples; "
+            f"wire rx {rx / window / 1e6:.1f} MB/s tx "
+            f"{tx / window / 1e6:.1f} MB/s; spawn to release "
+            f"{'%.2f s' % ready if ready is not None else 'n/a (threads)'};"
+            f" peak card memory {card_peak:.0f} MiB (before the run "
+            f"{card0:.0f}), parent "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB "
+            f"allocated; peak host RSS of the process tree "
+            f"{rss_peak / 2**30:.2f} GiB, host memory in use +"
+            f"{host_peak / 2**30:.2f} GiB; test_acc "
+            f"{res.final()['test_acc']:.4f}; events {events}")
+        if spec.transport == "proc":
+            # 25 contexts on the card: a child that computed on the host
+            # would add none
+            check(card_peak - card0 > 25 * 100,
+                  f"{label}: card memory grew {card_peak} - {card0} MiB, "
+                  "too little for 25 worker processes on the card")
+        if label == "proc sync sgd":
+            check(res.num_updates == 10 and a["applied"] == 250,
+                  f"{label}: {res.num_updates} rounds, expected 10 of 25")
+            final = trainer.last_params
+            check(all(torch.equal(final[k], inproc_sync_params[k])
+                      for k in final),
+                  "proc sync final params differ from inproc sync #1's")
+            log("[cluster-wire] proc sync sgd: final params bitwise equal "
+                "to [cluster]'s inproc sync sgd #1")
+        if label == "proc hybrid adamw faults":
+            for kind in ("kill", "respawn", "checkpoint", "restore"):
+                check(kind in events, f"{label}: no {kind} event: {events}")
+            kill = next(e for e in res.extra["events"]
+                        if e["event"] == "kill")
+            check(kill["sigkill"] is True, f"{label}: kill was no SIGKILL")
+            st = runtime.server.snapshot_opt_state()
+            check(all(bool(torch.isfinite(torch.as_tensor(st[m])).all())
+                      for m in ("mu", "nu")), f"{label}: moments not finite")
+        if spec.transport == "socket":
+            conns = spec.cluster_workers
+            check(rx == hello * conns + grad_frame * a["computed"],
+                  f"{label}: wire.rx_bytes {rx} != {hello} x {conns} + "
+                  f"{grad_frame} x {a['computed']}")
+            log(f"[cluster-wire] socket async sgd: wire.rx_bytes {rx} = "
+                f"{hello} x {conns} connections + {grad_frame} x "
+                f"{a['computed']} computed")
+    return dict(ha.LAUNCHES)
 
 
 # ------------------------------------------------------- serving path
@@ -733,6 +975,10 @@ def time_lm_kernels(torch, D: int):
             lambda x=x: F.rms_norm(x, (D,), scale_bf16, 1e-5),
             2 * nbytes(x) + nbytes(scale), 4 * n * D)
     out = time_cases(torch, timer, rms_cases)
+    # the kernel alone (profiler) at the shape the path launches most
+    decode = f"rmsnorm decode N={SERVE['batch']}"
+    out[decode]["kernel_only_ms"] = kernel_only_ms(
+        torch, rms_cases[decode][0], "rmsnorm_kernel")
 
     # the serve path's two shapes, then every head dim at one mid-size
     # causal shape
@@ -758,6 +1004,10 @@ def time_lm_kernels(torch, D: int):
             torch, Timer(torch, reps=5) if big else timer, case,
             plain_timer=Timer(torch, reps=2) if big else None,
             peak=BF16_FLOPS_PER_S))
+        if label == "long prefill":
+            name = f"flash {label} S={S}"
+            out[name]["kernel_only_ms"] = kernel_only_ms(
+                torch, case[name][0], "flash_fwd_bf16_kernel", reps=10)
         del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
     return out
@@ -961,9 +1211,13 @@ def main() -> int:
     cross_check_small(torch)
     launches, _ = drive_main_path(torch)
     log(f"[phase] simulator path done at {time.time() - t_start:.1f} s")
-    for name, n in drive_cluster_path(torch).items():
+    cluster_launches, rates, sync_params = drive_cluster_path(torch)
+    for name, n in cluster_launches.items():
         launches[name] += n
     log(f"[phase] cluster path done at {time.time() - t_start:.1f} s")
+    for name, n in drive_wire_path(torch, P, rates, sync_params).items():
+        launches[name] += n
+    log(f"[phase] cluster-wire path done at {time.time() - t_start:.1f} s")
 
     D = get_config(ARCH).d_model
     errs.update(compare_lm_kernels(torch, D))
@@ -974,6 +1228,11 @@ def main() -> int:
                        ("flash_attention",
                         f"flash long prefill S={LONG_S}")):
         times[name] = dict(lm_times[case], timed_at=case)
+        t = times[name]
+        log(f"[time] {name:15s} kernel alone {t['kernel_only_ms']:.6f} ms "
+            f"cold (profiler) at {case} = "
+            f"{100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of bound; "
+            f"wrapper call {t['ms']:.6f} ms (CUDA events)")
     cross_check_serve_small(torch)
     serve_launches, _ = drive_serve_path(torch)
     launches.update(serve_launches)

@@ -3,8 +3,9 @@
 Subcommands:
   run       execute an ExperimentSpec (flags and/or --spec JSON file) and
             emit a RunResult JSON: ``--backend sim`` (the simulator) or
-            ``--backend cluster`` (the wall-clock parameter server with
-            worker threads, ``--transport inproc``)
+            ``--backend cluster`` (the wall-clock parameter server:
+            ``--transport inproc`` worker threads, ``socket`` threads over
+            TCP, ``proc`` worker processes on the same device)
   simulate  alias for ``run --backend sim`` (paper-faithful simulator);
             ``--smoke`` picks a seconds-scale configuration
   serve     greedy decode on a registry model (the model stack's serving
@@ -25,6 +26,9 @@ Examples:
   python -m repro_torch run --backend cluster --arch mlp --device cpu \\
       --cluster-workers 4 --wall-budget 5 --straggler 0:0.1 --kill 1:2 \\
       --respawn-after 0.5 --ckpt-every 1 --ckpt-dir /tmp/ck --quiet
+  python -m repro_torch run --backend cluster --arch mlp --device cpu \\
+      --transport proc --cluster-workers 2 --wall-budget 4 --kill 1:1 \\
+      --respawn-after 0.5 --quiet
 """
 from __future__ import annotations
 
@@ -64,8 +68,9 @@ _SPEC_FLAGS = [
     ("--cluster-workers", "cluster_workers", int,
      "cluster: worker count (threads)"),
     ("--transport", "transport", str,
-     "cluster: worker wire — inproc (threads+queue, the one ported; "
-     "socket, proc and host come with ROADMAP A10)"),
+     "cluster: worker wire — inproc (threads+queue), socket (threads "
+     "over TCP slab frames) or proc (one process per worker over Unix "
+     "sockets; SIGKILL faults); host comes with ROADMAP A10b"),
     ("--wall-budget", "wall_budget_s", float,
      "cluster: wall-clock training budget (real seconds)"),
     ("--wall-sample-every", "wall_sample_every_s", float,

@@ -13,10 +13,10 @@ package loads in the other:
 
 The port runs ``backend="sim"`` and ``backend="cluster"``; ``spmd`` is
 recognised and refused with :class:`NotImplementedError` until its
-slice lands.  The cluster backend runs the ``inproc`` transport; the
-other transports' fields (``listen``, ``heartbeat_s`` ...) are kept and
-validated so the reference's JSON loads, and a run on them is refused
-when it is built (ROADMAP A10).
+slice lands.  The cluster backend runs the ``inproc``, ``socket`` and
+``proc`` transports; the ``host`` transport's fields (``listen``,
+``heartbeat_s`` ...) are kept and validated so the reference's JSON
+loads, and a run on it is refused when it is built (ROADMAP A10b).
 """
 from __future__ import annotations
 

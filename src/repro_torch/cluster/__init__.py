@@ -5,17 +5,20 @@ server in *virtual* time, this package runs it for real: worker threads
 computing gradients concurrently against one live server, with stale
 reads, server contention, stragglers, worker kill/respawn and server
 checkpoint/restore.  A port of ``src/repro/cluster`` with its
-in-process transport; the wire transports (``socket``, ``proc``,
-``host``) come with ROADMAP A10.
+in-process, ``socket`` and ``proc`` transports; ``host`` (remote
+workers joining a leader) comes with ROADMAP A10b.
 
 Pieces:
   * :class:`~repro_torch.cluster.transport.InProcTransport` — threads +
     a bounded queue, carrying gradient/params slabs;
+  * :mod:`~repro_torch.cluster.mptransport` — the same channels as slab
+    frames over sockets (``SocketTransport``), and one worker process
+    per worker (``ProcTransport``);
   * :class:`~repro_torch.cluster.server.ParameterServer` — live params
     and the slab aggregator (the flush kernels) driven by K(t), under a
     lock;
-  * :class:`~repro_torch.cluster.worker.Worker` — one thread per worker,
-    real gradients on a deterministic data shard;
+  * :class:`~repro_torch.cluster.worker.Worker` — one thread (or
+    process) per worker, real gradients on a deterministic data shard;
   * :class:`~repro_torch.cluster.faults.FaultPlan` — stragglers, kills,
     respawns, the checkpoint cadence;
   * :class:`~repro_torch.cluster.runtime.ClusterRuntime` — wiring and
@@ -32,6 +35,9 @@ from repro_torch.cluster.transport import (TRANSPORTS,  # noqa: F401
                                            ParamsMsg, Transport)
 
 _LAZY = {
+    "SocketTransport": "repro_torch.cluster.mptransport",
+    "SocketWorkerClient": "repro_torch.cluster.mptransport",
+    "ProcTransport": "repro_torch.cluster.mptransport",
     "ParameterServer": "repro_torch.cluster.server",
     "Worker": "repro_torch.cluster.worker",
     "ClusterRuntime": "repro_torch.cluster.runtime",

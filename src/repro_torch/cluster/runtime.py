@@ -1,15 +1,29 @@
 """The wall-clock cluster runtime: server + workers + faults + metrics.
 
-A port of ``src/repro/cluster/runtime.py`` for the in-process transport.
-:class:`ClusterRuntime` wires one :class:`~repro_torch.cluster.server.
-ParameterServer`, a fleet of worker threads, an
-:class:`~repro_torch.cluster.transport.InProcTransport` and the
-:class:`~repro_torch.cluster.faults.FaultPlan` injector, then runs until
-a wall-clock budget elapses or an applied-gradient budget is hit.  The
-params, the data and every gradient live on ``device`` (``cuda`` unless
-the caller asks for the CPU); the flushes run the port's flush kernels.
-The ``socket``, ``proc`` and ``host`` transports come with ROADMAP A10,
-the trace and Prometheus exports with A11.
+A port of ``src/repro/cluster/runtime.py``.  :class:`ClusterRuntime`
+wires one :class:`~repro_torch.cluster.server.ParameterServer`, a worker
+fleet, a transport and the :class:`~repro_torch.cluster.faults.
+FaultPlan` injector, then runs until a wall-clock budget elapses or an
+applied-gradient budget is hit.  The params, the data and every
+gradient live on ``device`` (``cuda`` unless the caller asks for the
+CPU); the flushes run the port's flush kernels.
+
+Three transports (``transport_kind``, = ``ExperimentSpec.transport``):
+
+  * ``inproc`` — worker *threads* and an in-process queue (the parity
+    baseline): gradient compute shares one interpreter lock;
+  * ``socket`` — worker threads, but every message crosses a real TCP
+    socket as a length-prefixed slab frame;
+  * ``proc``   — one OS *process* per worker over Unix-domain sockets
+    (:mod:`repro_torch.cluster.mptransport`), computing on the parent's
+    device: on the card, the children share it.  FaultPlan kills are
+    SIGKILL, and the fleet-ready barrier starts the clock only once
+    every child has built its data, warmed a gradient and connected.
+    Needs ``spec_dict``: a child rebuilds the workload from the spec
+    through ``SIM_WORKLOADS``.
+
+``host`` (remote workers joining a listening leader) comes with ROADMAP
+A10b, the trace and Prometheus exports with A11.
 
 Pieces that run concurrently with training:
 
@@ -46,6 +60,8 @@ import torch
 from repro_torch.checkpoint import (latest_step, load_opt_state,
                                     restore_checkpoint, save_checkpoint)
 from repro_torch.cluster.faults import FaultPlan
+from repro_torch.cluster.mptransport import (ProcTransport, ProcWorkerConfig,
+                                             SocketTransport, torch_flags)
 from repro_torch.cluster.server import ParameterServer
 from repro_torch.cluster.transport import TRANSPORTS, InProcTransport
 from repro_torch.cluster.worker import Worker, wait_for
@@ -59,6 +75,10 @@ from repro_torch.optim.slab_form import SlabOptimizer
 
 _log = logging.getLogger("repro_torch.cluster.runtime")
 
+# how long the fleet barrier waits for every worker process to connect:
+# 25 children start in about 100 s on 8 host cores (PERF.md)
+PROC_READY_TIMEOUT_S = 300.0
+
 
 def check_ported(transport_kind: str, trace: Optional[str] = None,
                  prom_port: Optional[int] = None) -> None:
@@ -66,11 +86,12 @@ def check_ported(transport_kind: str, trace: Optional[str] = None,
     if transport_kind not in TRANSPORTS:
         raise ValueError(f"transport_kind must be one of {TRANSPORTS},"
                          f" got {transport_kind!r}")
-    if transport_kind != "inproc":
+    if transport_kind == "host":
         raise NotImplementedError(
-            f"the cluster backend's {transport_kind!r} transport is not "
-            "ported to repro_torch yet: it comes with ROADMAP A10 (wire "
-            "transports); use transport='inproc'")
+            "the cluster backend's 'host' transport is not ported to "
+            "repro_torch yet: it comes with ROADMAP A10b (multi-host "
+            "leader and join); use transport='inproc', 'socket' or "
+            "'proc'")
     if trace or prom_port is not None:
         raise NotImplementedError(
             "the cluster runtime's trace and Prometheus exports are not "
@@ -94,9 +115,15 @@ class ClusterResult:
     events: List[Dict[str, Any]]   # kills, respawns, checkpoints, restores
     final_params: Any            # host (CPU) tensors
     wall_s: float
+    # the serving-plane report, shape-stable across transports: the
+    # serving plane itself is A11, so it holds no client yet
+    serving: Optional[Dict[str, Any]] = None
     # the telemetry summary plus a ledger_check block cross-checking its
     # counters against the conservation ledger
     telemetry: Optional[Dict[str, Any]] = None
+    # proc: seconds from the first spawn to the barrier's release (the
+    # children's start-up, data and warm-up gradient)
+    fleet_ready_s: Optional[float] = None
 
 
 class ClusterRuntime:
@@ -112,6 +139,7 @@ class ClusterRuntime:
                  faults: FaultPlan = FaultPlan(),
                  accuracy_fn: Optional[Callable] = None,
                  transport_kind: str = "inproc",
+                 spec_dict: Optional[Dict[str, Any]] = None,
                  slab_dtype: str = "f32",
                  optimizer: Optional[SlabOptimizer] = None,
                  verbose: bool = False,
@@ -124,6 +152,13 @@ class ClusterRuntime:
             raise ValueError(f"mode must be sync, async or hybrid, got "
                              f"{mode!r}")
         check_ported(transport_kind, trace, prom_port)
+        if transport_kind == "proc" and spec_dict is None:
+            raise ValueError(
+                'transport_kind="proc" needs spec_dict (an ExperimentSpec'
+                " dict): worker processes rebuild the workload from it "
+                "through the SIM_WORKLOADS registry — run through "
+                "ClusterTrainer / repro_torch.api.run(spec) with "
+                'spec.transport="proc"')
         if mode == "async":
             schedule = constant_schedule(num_workers, 1)
         if mode == "hybrid" and schedule is None:
@@ -161,6 +196,8 @@ class ClusterRuntime:
         self.max_gradients = max_gradients
         self.seed = seed
         self.faults = faults
+        self.transport_kind = transport_kind
+        self.spec_dict = spec_dict
         self.ckpt_dir = ckpt_dir
         self.resume_from = resume_from
         self.verbose = verbose
@@ -180,9 +217,21 @@ class ClusterRuntime:
         self._grad = _grad_slab
         self._acc = accuracy_fn
         # bounded gradient channel = backpressure: a worker whose
-        # gradient the server can't take yet blocks
-        self.transport = InProcTransport(grad_capacity=max(4,
-                                                           2 * num_workers))
+        # gradient the server can't take yet blocks — on a queue for
+        # thread workers, on socket flow control otherwise
+        cap = max(4, 2 * num_workers)
+        if transport_kind == "socket":
+            self.transport = SocketTransport(cap, family="tcp",
+                                             slab_dtype=self.slab_dtype,
+                                             device=self.device)
+        elif transport_kind == "proc":
+            self.transport = ProcTransport(cap, family="unix",
+                                           slab_dtype=self.slab_dtype,
+                                           device=self.device)
+        else:
+            self.transport = InProcTransport(grad_capacity=cap)
+        # the socket hubs count wire bytes on the live bus
+        self.transport.obs = self.obs
         self._stop = threading.Event()
         self._workers: Dict[int, Worker] = {}
         self._all_workers: List[Worker] = []
@@ -229,16 +278,62 @@ class ClusterRuntime:
     def _spawn(self, wid: int) -> None:
         gen = self._generation.get(wid, -1) + 1
         self._generation[wid] = gen
+        if self.transport_kind == "proc":
+            # membership follows the connection, not the spawn: the
+            # hub's on_worker_ready hook registers this worker when its
+            # HELLO arrives, so a sync barrier never waits seconds of
+            # child start-up for a worker that cannot contribute yet
+            self.transport.spawn_worker(ProcWorkerConfig(
+                spec=self.spec_dict, worker_id=wid, generation=gen,
+                num_workers=self.num_workers, mode=self.mode,
+                straggle_s=self.faults.straggle_s(wid), seed=self.seed,
+                batch=self.batch, device=self.device.type,
+                # on the CPU a child splits its work as the parent does
+                # (the same reductions, bit for bit); on the card it
+                # needs no more than one host thread
+                threads=torch.get_num_threads()
+                if self.device.type == "cpu" else 1,
+                flags=torch_flags()))
+            return
+        wtrans: Any = self.transport
+        if self.transport_kind == "socket":
+            wtrans = self.transport.connect(wid, gen)
         w = Worker(wid, grad_fn=self._grad, batches=self._batches(wid, gen),
-                   transport=self.transport, mode=self.mode,
+                   transport=wtrans, mode=self.mode,
                    straggle_s=self.faults.straggle_s(wid),
                    generation=gen, obs=self.obs)
+        if wtrans is not self.transport:
+            w.endpoint = wtrans         # flushed + closed at shutdown
+            # a dead connection stops the worker; a kill or the shutdown
+            # setting the stop event wakes the endpoint's waits
+            w.stop_event = wtrans.closed
         self._workers[wid] = w
         self._all_workers.append(w)
         self.server.register(wid)
         w.start()
 
+    def _on_remote_ready(self, wid: int, gen: int) -> None:
+        # hub reader thread: a worker process said HELLO.  Only its
+        # current generation registers: an orphan HELLO from a process
+        # the injector superseded must not revive a killed worker id
+        if self._generation.get(wid) == gen:
+            self.server.register(wid)
+
+    def _on_remote_gone(self, wid: int, gen: int) -> None:
+        # hub reader thread: a worker's connection died (kill, crash,
+        # shutdown).  Deregistering here (idempotent) closes the race
+        # where a HELLO lands between the injector's kill and the
+        # process dying: a registered-but-dead worker would stall every
+        # later sync round
+        if self._generation.get(wid) == gen:
+            self.server.deregister(wid)
+
     def _kill(self, wid: int) -> None:
+        if self.transport_kind == "proc":
+            sigkilled = self.transport.kill_worker(wid)
+            self.server.deregister(wid)
+            self._log_event("kill", worker=wid, sigkill=sigkilled)
+            return
         w = self._workers.get(wid)
         if w is not None:
             w.stop_event.set()
@@ -305,17 +400,61 @@ class ClusterRuntime:
             snaps.append((target, version, slab))
             i += 1
 
-    def _wind_down(self) -> int:
-        """Join the stopped workers (a send blocked on the bounded queue
-        gives up within 0.05 s of the stop), then drain what they sent
-        but the server never ingested into the ``in_flight`` count.
-        Afterwards the channel is empty, so the ledger is exact."""
-        for w in self._all_workers:
-            w.join(timeout=10.0)
+    def _wind_down(self) -> "tuple[int, List[str]]":
+        """Fleet teardown with the gradient channel kept flowing.
+
+        Joins the worker threads and processes, flushes the socket
+        endpoints and quiesces the transport, all while draining the
+        gradient channel into the ``in_flight`` count: a backpressured
+        sender can finish its last frame only if the server side keeps
+        making room.  Afterwards every complete frame has been received
+        and counted and the channel is empty, so the ledger is exact.
+        Returns ``(in_flight, proc_errors)``."""
         in_flight = 0
-        while self.transport.recv_gradient(timeout=0) is not None:
-            in_flight += 1
-        return in_flight
+        deadline = time.monotonic() + 15.0
+
+        def drain() -> None:
+            nonlocal in_flight
+            while self.transport.recv_gradient(timeout=0) is not None:
+                in_flight += 1
+
+        for w in self._all_workers:     # prompt: all waits see stop
+            w.join(timeout=10.0)
+        proc_errors: List[str] = []
+        if self.transport_kind == "proc":
+            while self.transport.procs_alive():
+                drain()
+                # a child still starting up (a respawn racing the end of
+                # the budget) has no connection to get the shutdown EOF
+                # on: SIGKILL it; it has sent nothing
+                self.transport.kill_unconnected()
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+            proc_errors = self.transport.join_workers(timeout=5.0)
+        # socket endpoints: push out accepted-but-unshipped gradients
+        # (already counted as computed), then hang up so the hub reader
+        # sees EOF and can quiesce
+        endpoints = [w.endpoint for w in self._all_workers
+                     if w.endpoint is not None]
+        unflushed = list(endpoints)
+        while unflushed and time.monotonic() < deadline:
+            drain()
+            # an endpoint whose sender died can never flush its rest
+            unflushed = [ep for ep in unflushed
+                         if not ep.flush(0.05) and ep.can_flush()]
+        for ep in endpoints:
+            ep.close()
+        while True:
+            drain()
+            if self.transport.quiesce(timeout=0.1):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    "transport failed to quiesce within 15s — the "
+                    "conservation ledger would be approximate")
+        drain()
+        return in_flight, proc_errors
 
     # -------------------------------------------------------------- run
     def run(self) -> ClusterResult:
@@ -324,7 +463,25 @@ class ClusterRuntime:
         finally:
             self.transport.close()
 
+    def _await_fleet(self) -> None:
+        """Hold the clock until every child has connected (HELLO ==
+        warm); fail fast on a child that died during start-up, e.g. one
+        that could not open its device."""
+        deadline = time.monotonic() + PROC_READY_TIMEOUT_S
+        while not self.transport.wait_for_workers(self.num_workers,
+                                                  timeout=1.0):
+            dead = self.transport.dead_workers()
+            if dead:
+                raise RuntimeError("worker process(es) died before the "
+                                   "fleet was ready:\n" + "\n".join(dead))
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"only {sorted(self.transport.live_workers())} of "
+                    f"{self.num_workers} workers connected within "
+                    f"{PROC_READY_TIMEOUT_S}s")
+
     def _run(self) -> ClusterResult:
+        self._t0 = time.monotonic()     # provisional, reset at the start
         start_version = 0
         start_params = self.init_params
         resume_opt_state = None
@@ -338,9 +495,16 @@ class ClusterRuntime:
         # one gradient before the clock starts, so the budget measures
         # contention, not set-up (cuDNN's first convolution, the first
         # launches); the server's construction builds, loads and runs
-        # the flush kernel once
-        x, y = next(self._batches(0, 0))
-        wait_for(self._grad(self.codec.encode(start_params), x, y))
+        # the flush kernel once.  Worker processes warm their own
+        proc = self.transport_kind == "proc"
+        if proc:
+            # hold BEFORE the server's construction-time publish: a
+            # child connecting early idles in fetch_params instead of
+            # banking gradients before the clock starts
+            self.transport.hold_params()
+        else:
+            x, y = next(self._batches(0, 0))
+            wait_for(self._grad(self.codec.encode(start_params), x, y))
         self.server = ParameterServer(
             start_params, lr=self.lr, mode=self.mode,
             transport=self.transport, num_workers=self.num_workers,
@@ -358,8 +522,21 @@ class ClusterRuntime:
 
         snaps: List = []
         threads: List[threading.Thread] = []
+        fleet_ready_s = None
         try:
+            if proc:
+                # spawn the fleet and hold the clock until every child
+                # is warm and connected
+                self.transport.on_worker_ready = self._on_remote_ready
+                self.transport.on_worker_gone = self._on_remote_gone
+                t_spawn = time.monotonic()
+                for wid in range(self.num_workers):
+                    self._spawn(wid)
+                self._await_fleet()
+                fleet_ready_s = time.monotonic() - t_spawn
             self._t0 = time.monotonic()
+            if proc:
+                self.transport.release_params()     # the starting gun
             if start_version:
                 self._log_event("resume", step=start_version,
                                 path=self.resume_from)
@@ -373,8 +550,9 @@ class ClusterRuntime:
                 threads.append(self._guarded(self._restorer, "restore"))
             for t in threads:
                 t.start()
-            for wid in range(self.num_workers):
-                self._spawn(wid)
+            if not proc:
+                for wid in range(self.num_workers):
+                    self._spawn(wid)
 
             deadline = self._t0 + self.wall_budget_s
             next_q = 0.0            # queue-depth sampling grid (~5 Hz)
@@ -398,12 +576,17 @@ class ClusterRuntime:
             self._stop.set()
             for t in threads:
                 t.join(timeout=10.0)
+            if proc:
+                # EOF on the params direction tells each worker process
+                # to stop; its in-flight gradient frames still drain
+                self.transport.half_close_workers()
             for w in self._all_workers:
                 w.stop_event.set()
 
-        in_flight = self._wind_down()
+        in_flight, proc_errors = self._wind_down()
         errors = [f"worker {w.worker_id}.{w.generation}:\n{w.error}"
                   for w in self._all_workers if w.error]
+        errors += proc_errors
         errors += self._control_errors
         # a thread that outlived its join would keep changing the state
         # the ledger is about to report
@@ -411,8 +594,8 @@ class ClusterRuntime:
                    for t in (*self._all_workers, *threads)
                    if t.is_alive()]
         if errors:
-            raise RuntimeError("cluster thread(s) crashed or hung:\n"
-                               + "\n".join(errors))
+            raise RuntimeError("cluster thread(s)/process(es) crashed "
+                               "or hung:\n" + "\n".join(errors))
         leftover = self.transport.pending_gradients()
         if leftover:
             raise RuntimeError(f"{leftover} gradients appeared after the "
@@ -420,12 +603,27 @@ class ClusterRuntime:
 
         accounting: Dict[str, Any] = self.server.accounting()
         accounting["in_flight"] = in_flight
-        accounting["computed"] = sum(w.sent for w in self._all_workers)
-        per_worker: Dict[str, int] = {}
-        for w in self._all_workers:     # all generations of each id
-            key = str(w.worker_id)
-            per_worker[key] = per_worker.get(key, 0) + w.sent
-        accounting["computed_per_worker"] = per_worker
+        rejected = 0
+        if self.transport_kind in ("socket", "proc"):
+            # "computed" = complete frames that reached the hub: exact
+            # under every failure, since whatever a killed worker had
+            # not finished sending died with it, like a thread worker
+            # killed before its send
+            received = self.transport.received_counts()
+            accounting["computed"] = sum(received.values())
+            accounting["computed_per_worker"] = {
+                str(wid): received.get(wid, 0)
+                for wid in sorted(set(range(self.num_workers))
+                                  | set(received))}
+            accounting["torn_frames"] = self.transport.torn_frames
+            rejected = self.transport.rejected_peers
+        else:
+            accounting["computed"] = sum(w.sent for w in self._all_workers)
+            per_worker: Dict[str, int] = {}
+            for w in self._all_workers:     # all generations of each id
+                key = str(w.worker_id)
+                per_worker[key] = per_worker.get(key, 0) + w.sent
+            accounting["computed_per_worker"] = per_worker
 
         # ---------------------------------- evaluate the metric snapshots
         times, tr, te, acc = [], [], [], []
@@ -465,4 +663,8 @@ class ClusterRuntime:
             num_updates=accounting["updates"], num_gradients=applied,
             mode=self.mode, start_version=start_version,
             accounting=accounting, events=list(self.events),
-            final_params=final_params, wall_s=wall_s, telemetry=telemetry)
+            final_params=final_params, wall_s=wall_s,
+            serving={"clients": 0, "rejected_peers": rejected,
+                     "serve_every": 1, "stats_clients": 0,
+                     "per_client": []},
+            telemetry=telemetry, fleet_ready_s=fleet_ready_s)

@@ -264,6 +264,13 @@ class ParameterServer:
             opt_state = self.agg.opt_state_host()
         return version, self.codec.decode_host(pub), applied, opt_state
 
+    def snapshot_opt_state(self):
+        """Host copies of the moment slabs and the update count (``None``
+        for sgd), taken under the lock: the moments are updated in place,
+        so a concurrent flush would change them mid-copy."""
+        with self.lock:
+            return self.agg.opt_state_host()
+
     def restore(self, params, step: int, opt_state=None) -> None:
         """Restore into the running server: replace the live params and
         version (so K(t) continues from ``step``) and discard the staged

@@ -4,19 +4,25 @@
 ``src/repro/cluster/trainer.py``.  ``spec.arch`` names the simulator's
 workloads (``mlp``, ``cnn-mnist``, ``cnn-cifar``, or one added with
 ``register_sim_workload``): one spec re-targets the simulator and the
-real concurrent cluster.  ``spec.transport`` must be ``inproc`` (worker
-threads and a queue); the wire transports come with ROADMAP A10.
+real concurrent cluster.  ``spec.transport`` is ``inproc`` (worker
+threads and a queue), ``socket`` (worker threads over TCP) or ``proc``
+(worker processes over Unix sockets, computing on the same device);
+``host`` comes with ROADMAP A10b.
 
 The reported ``num_gradients`` is the server's applied-gradient counter,
 exactly; ``extra["accounting"]`` carries the conservation ledger
 (computed == applied + dropped + buffered + pending + in-flight),
-``extra["events"]`` the fault/checkpoint timeline and
-``extra["telemetry"]`` the bus's summary with its ``ledger_check``.
+``extra["events"]`` the fault/checkpoint timeline,
+``extra["telemetry"]`` the bus's summary with its ``ledger_check``,
+``extra["serving"]`` the serving plane's report (no clients until A11)
+and, on ``proc``, ``extra["fleet_ready_s"]`` the seconds from the first
+spawn to the barrier's release.
 
 On CUDA the trainer turns TF32 off (as the simulator's does) and makes
 cuDNN pick deterministic convolution algorithms
 (``torch.backends.cudnn.deterministic = True``, ``benchmark = False``),
-so a sync run under ``max_gradients`` repeats bit for bit.
+so a sync run under ``max_gradients`` repeats bit for bit; ``proc``
+children copy these switches from the parent.
 """
 from __future__ import annotations
 
@@ -32,12 +38,6 @@ from repro_torch.api.spec import ExperimentSpec
 from repro_torch.cluster.runtime import ClusterRuntime, check_ported
 from repro_torch.convert import Device, resolve_device
 from repro_torch.core.simulator import data_to
-
-# the cluster backend has no serving plane in process: its report has
-# the reference's keys, empty
-_NO_SERVING = {"clients": 0, "rejected_peers": 0, "serve_every": 1,
-               "stats_clients": 0, "per_client": []}
-
 
 class ClusterTrainer:
     """Trainer for ``backend="cluster"``.
@@ -107,7 +107,10 @@ class ClusterTrainer:
             staleness_decay=spec.staleness_decay,
             max_gradients=spec.max_gradients, seed=spec.seed,
             faults=spec.faults, accuracy_fn=accuracy_fn,
-            transport_kind=spec.transport, slab_dtype=spec.slab_dtype,
+            transport_kind=spec.transport,
+            # worker processes rebuild the workload from the spec
+            spec_dict=spec.to_dict() if spec.transport == "proc" else None,
+            slab_dtype=spec.slab_dtype,
             optimizer=spec.slab_optimizer(), ckpt_dir=ckpt_dir,
             resume_from=self.resume_from, verbose=self.verbose,
             device=self.device)
@@ -128,9 +131,10 @@ class ClusterTrainer:
                                         wall_s=time.time() - t0)
         name = torch.cuda.get_device_name(self.device) \
             if self.device.type == "cuda" else "cpu"
-        result.extra.update(serving=dict(_NO_SERVING),
-                            telemetry=cres.telemetry,
+        result.extra.update(serving=cres.serving, telemetry=cres.telemetry,
                             device=str(self.device), device_name=name)
+        if cres.fleet_ready_s is not None:
+            result.extra["fleet_ready_s"] = cres.fleet_ready_s
         return result
 
     def run(self, spec: ExperimentSpec) -> RunResult:

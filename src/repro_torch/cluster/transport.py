@@ -17,10 +17,10 @@ aggregation buffer.
 
 A port of ``src/repro/cluster/transport.py``.  :class:`Transport` is the
 interface; :class:`InProcTransport` is the in-process (threads + queue)
-implementation, the only one ported so far: the socket, process and
-multi-host transports come with ROADMAP A10.  All blocking calls take
-timeouts, and nothing assumes the payloads share an address space
-beyond the payload field itself.
+implementation, and :mod:`repro_torch.cluster.mptransport` holds the
+socket and process ones (the multi-host transport comes with ROADMAP
+A10b).  All blocking calls take timeouts, and nothing assumes the
+payloads share an address space beyond the payload field itself.
 
 **Timeout contract** (uniform across every method and implementation):
 
@@ -39,7 +39,8 @@ import threading
 from typing import Any, Optional, Protocol
 
 # the spec-facing transport names (ExperimentSpec.transport / --transport);
-# the port runs inproc and refuses the other three until ROADMAP A10:
+# the port runs inproc, socket and proc, and refuses host until ROADMAP
+# A10b:
 #   inproc — worker threads + queue: one address space, GIL-shared compute
 #   socket — worker threads, but every message crosses a real TCP socket
 #            (length-prefixed slab frames): the wire format is physical
@@ -130,6 +131,27 @@ class Transport(Protocol):
     def close(self) -> None:
         """Release transport resources (sockets, threads, processes).
         Idempotent."""
+        ...
+
+
+class Endpoint(Transport, Protocol):
+    """A worker's own end of a connection to the server (the socket
+    transports' :class:`~repro_torch.cluster.mptransport.
+    SocketWorkerClient`): what the runtime needs beyond the channel to
+    stop a worker and account for its last gradients."""
+
+    closed: threading.Event     # set when the connection dies; the
+    #                             worker's stop event
+
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Block until every gradient ``send_gradient`` accepted is on
+        the wire (the ledger already counts them as computed); ``False``
+        if some are still queued when the timeout elapses."""
+        ...
+
+    def can_flush(self) -> bool:
+        """Whether queued gradients can still reach the wire (the
+        connection's sender is alive)."""
         ...
 
 

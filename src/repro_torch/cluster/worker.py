@@ -1,4 +1,4 @@
-"""A cluster worker: one thread computing real gradients.
+"""A cluster worker: one thread (or one process) computing real gradients.
 
 A port of ``src/repro/cluster/worker.py``.  Each worker owns a
 deterministic minibatch stream over its shard of the training data
@@ -27,9 +27,13 @@ Policy differences live entirely in *when* a worker blocks:
 ``straggle_s`` adds a sleep per gradient; ``stop_event`` is the
 cooperative kill switch the fault injector and the runtime's shutdown
 both set, so neither a crashed server nor a kill can leave a worker in
-the bounded-send retry loop.  A killed worker's gradient in hand is
-lost *before* send, so the ledger (sent == applied + dropped + buffered
-+ pending + in-flight) holds.  Every transport wait is a short positive
+the bounded-send retry loop.  A worker on a socket transport talks
+through its own :class:`~repro_torch.cluster.transport.Endpoint`
+(``endpoint``, flushed and closed at shutdown) and its stop event is
+the endpoint's ``closed``, so a dead connection stops it too; a worker
+process runs the loop inline (:meth:`run`), not as a thread.  A killed
+worker's gradient in hand is lost *before* send, so the ledger (sent ==
+applied + dropped + buffered + pending + in-flight) holds.  Every transport wait is a short positive
 timeout, and each iteration re-checks ``stop_event``.
 """
 from __future__ import annotations
@@ -41,7 +45,7 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
-from repro_torch.cluster.transport import GradientMsg, Transport
+from repro_torch.cluster.transport import Endpoint, GradientMsg, Transport
 from repro_torch.obs.telemetry import NULL
 
 
@@ -73,6 +77,7 @@ class Worker(threading.Thread):
         self.stop_event = threading.Event()
         self.sent = 0            # gradients actually handed to the server
         self.error: Optional[str] = None
+        self.endpoint: Optional[Endpoint] = None
         self.obs = obs if obs is not None else NULL
 
     def run(self) -> None:

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
+_CHUNK_ROWS = 4096
+
 
 def _class_image_dataset(n_train: int, n_test: int, shape, num_classes: int,
                          seed: int, noise: float):
@@ -31,8 +33,16 @@ def _class_image_dataset(n_train: int, n_test: int, shape, num_classes: int,
     def make(n, seed2):
         r = np.random.default_rng(seed2)
         y = r.integers(0, num_classes, size=n)
-        x = templates[y] + noise * r.normal(size=(n, H, W, C)).astype(np.float32)
-        return x.astype(np.float32), y.astype(np.int32)
+        # drawn in row chunks: the generator's stream and the elementwise
+        # sum are those of one draw of all n rows, bitwise, without the
+        # float64 temporaries of all n rows at once (25 worker processes
+        # build this set side by side)
+        x = np.empty((n, H, W, C), np.float32)
+        for lo in range(0, n, _CHUNK_ROWS):
+            hi = min(n, lo + _CHUNK_ROWS)
+            x[lo:hi] = templates[y[lo:hi]] + noise * r.normal(
+                size=(hi - lo, H, W, C)).astype(np.float32)
+        return x, y.astype(np.int32)
 
     x_tr, y_tr = make(n_train, seed + 1)
     x_te, y_te = make(n_test, seed + 2)

@@ -46,14 +46,14 @@ def test_spec_loads_reference_json(fields):
 
 @pytest.mark.parametrize("backend", ["spmd", "cluster"])
 def test_unported_backends_refuse(backend):
-    """spmd is refused by the spec; the cluster backend runs in process,
-    and a run on its wire transports is refused when it is built."""
+    """spmd is refused by the spec; the cluster backend runs, and a run
+    on its host transport is refused when it is built."""
     if backend == "spmd":
         with pytest.raises(NotImplementedError, match=backend):
             ExperimentSpec(backend=backend)
         return
-    spec = ExperimentSpec(backend=backend, transport="socket")
-    with pytest.raises(NotImplementedError, match=f"{backend}.*A10"):
+    spec = ExperimentSpec(backend=backend, transport="host")
+    with pytest.raises(NotImplementedError, match=f"{backend}.*A10b"):
         run(spec, device="cpu")
 
 

@@ -1,10 +1,12 @@
 """The port's CUDA kernels (the three flushes, rmsnorm and
 flash_attention) against their plain PyTorch versions, on the card, and
-a small cluster run on the card against the same run on the CPU.
+small cluster runs on the card: against the same run on the CPU, and
+with worker processes against worker threads.
 
 Marked ``cuda``: they skip on a host without a CUDA device.  The file
 imports nothing of JAX, so it also runs where only the port is
-installed:
+installed (its proc test spawns worker processes that open the card
+too):
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 Shapes are the main paths': K = 25 staging rows of the cnn-cifar slab
 for the flushes, h2o-danube-1.8b's widths for rmsnorm and attention.
@@ -141,6 +143,29 @@ def test_cuda_cluster_sync_matches_cpu(cuda):
     for k in cparams:
         torch.testing.assert_close(gparams[k], cparams[k], rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_proc_sync_matches_inproc(cuda):
+    """4 worker processes sharing the card against 4 worker threads, the
+    same small mlp sync run: bitwise equal final params, every update
+    through the flush kernel in the parent."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.cluster.trainer import ClusterTrainer
+    base = ExperimentSpec(arch="mlp", backend="cluster", mode="sync",
+                          schedule=None, cluster_workers=4, batch=16,
+                          wall_budget_s=60.0, max_gradients=40)
+    finals = {}
+    for transport in ("inproc", "proc"):
+        trainer = ClusterTrainer(device=cuda)
+        before = ha.LAUNCHES["flush"]
+        res = trainer.run(base.with_(transport=transport))
+        a = res.extra["accounting"]
+        assert res.num_updates == 10 and a["applied"] == 40
+        assert ha.LAUNCHES["flush"] - before == 10 + 1
+        finals[transport] = trainer.last_params
+    for k in finals["inproc"]:
+        assert torch.equal(finals["inproc"][k], finals["proc"][k]), k
 
 
 @pytest.mark.cuda

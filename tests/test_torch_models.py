@@ -83,6 +83,8 @@ def test_conv_layout_is_nhwc_hwio(arch):
     ("random_classification", dict(n=500)),
     ("mnist_like", dict(n_train=64, n_test=16)),
     ("cifar10_like", dict(n_train=64, n_test=16)),
+    # past one generation chunk (4096 rows)
+    ("mnist_like", dict(n_train=4100, n_test=16)),
 ])
 def test_datasets_identical(name, kw):
     for a, b in zip(getattr(tsyn, name)(seed=3, **kw),
