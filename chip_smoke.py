@@ -145,17 +145,20 @@ class Timer:
 
 def kernel_only_ms(torch, fn, kernel: str, reps: int = 50) -> float:
     """Median device duration of the kernel named ``kernel`` over the
-    last ``reps`` of ``reps + 10`` cold calls of ``fn``, from the
+    last ``reps`` of ``reps + 30`` cold calls of ``fn``, from the
     profiler's raw trace: the kernel alone, without the gaps the CUDA
-    events around a call also time.  The first calls are spares: the
-    tracer can miss kernels that run just after it starts."""
+    events around a call also time.  The tracer can miss kernels that
+    run just after it starts (12 of 60 calls once, after the long traced
+    cluster runs): the calls queue behind a 0.1 s device sleep, and the
+    first ones are spares."""
     from torch.profiler import ProfilerActivity, profile
     scrub = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + 10):
+        torch.cuda._sleep(int(2e8))
+        for _ in range(reps + 30):
             scrub.sum()
             fn()
         torch.cuda.synchronize()
@@ -164,7 +167,7 @@ def kernel_only_ms(torch, fn, kernel: str, reps: int = 50) -> float:
                  if e.device_type() == torch.autograd.DeviceType.CUDA
                  and kernel in e.name()]
     check(len(durations) >= reps, f"{kernel}: {len(durations)} kernels "
-          f"in the trace of {reps + 10} calls")
+          f"in the trace of {reps + 30} calls")
     return statistics.median(d for _, d in sorted(durations)[-reps:]) / 1e3
 
 
@@ -699,6 +702,21 @@ class CardMonitor:
             self.host.append((time.time(), tree_rss_bytes(me),
                               host_used_bytes()))
 
+    def window(self, runtime, window: float, label: str):
+        """Over the run's training window (the ``window`` seconds since
+        the clock's start, ``runtime._t0``): the card's utilization
+        samples; over the whole run: the card's peak memory in use, the
+        process tree's peak RSS and the host's peak memory in use above
+        the start."""
+        t1 = time.time() - (time.monotonic() - runtime._t0 - window)
+        t0 = t1 - window
+        utils = [u for t, u, _ in self.card if t0 <= t <= t1]
+        check(len(utils) > 0, f"{label}: no utilization sample in the "
+              "training window")
+        return (utils, max(m for _, _, m in self.card),
+                max(r for _, r, _ in self.host),
+                max(h for _, _, h in self.host) - self.host_before)
+
     def stop(self):
         self._stop.set()
         self._smi.terminate()
@@ -752,6 +770,7 @@ def wire_runs(torch, ckpt_dir: str, P: int, inproc_rates,
     ]
     hello, grad_frame = 5 + 14, 5 + 16 + 4 * P
     ha.reset_launch_counts()
+    rates = {}
     for label, spec, kernel, twin in runs:
         before = dict(ha.LAUNCHES)
         runtime = trainer.build_runtime(spec)
@@ -773,19 +792,12 @@ def wire_runs(torch, ckpt_dir: str, P: int, inproc_rates,
         check(all(math.isfinite(x) for x in losses) and len(losses) > 0,
               f"{label}: non-finite or missing losses")
         window = res.extra["serve_wall_s"]
-        # the training window on the wall clock the samples carry
-        t1 = time.time() - (time.monotonic() - runtime._t0 - window)
-        t0 = t1 - window
-        utils = [u for t, u, _ in monitor.card if t0 <= t <= t1]
-        check(len(utils) > 0, f"{label}: no utilization sample in the "
-              "training window")
-        card_peak = max(m for _, _, m in monitor.card)
-        rss_peak = max(r for _, r, _ in monitor.host)
-        host_peak = max(h for _, _, h in monitor.host) - monitor.host_before
+        utils, card_peak, rss_peak, host_peak = monitor.window(
+            runtime, window, label)
         counters = res.extra["telemetry"]["counters"]
         rx, tx = counters.get("wire.rx_bytes", 0), \
             counters.get("wire.tx_bytes", 0)
-        rate = res.num_gradients / window
+        rate = rates[label] = res.num_gradients / window
         events = [e["event"] for e in res.extra["events"]]
         ready = res.extra.get("fleet_ready_s")
         log(f"[cluster-wire] cnn-cifar {label:25s} {res.num_gradients} "
@@ -844,6 +856,319 @@ def wire_runs(torch, ckpt_dir: str, P: int, inproc_rates,
             log(f"[cluster-wire] socket async sgd: wire.rx_bytes {rx} = "
                 f"{hello} x {conns} connections + {grad_frame} x "
                 f"{a['computed']} computed")
+    return dict(ha.LAUNCHES), rates
+
+
+# ------------------------------------------------ cluster over hosts
+
+HOST_SEED, HOST_MAX = 20, 25     # the elastic run's seed fleet and ceiling
+HOST_KILLED = 3                  # the seed worker whose connection is cut
+# the elastic run ends once its checks can be read (a cap, never reached
+# in a healthy run): 20 joiners start in 80-100 s before the clock, and
+# 5 more, spawned at the first applied gradient, take about 21 s of one
+# core each (python -m repro_torch.profile_spawn) on cores the 20
+# training processes share
+HOST_BUDGET_S = 300.0
+HOST_GROW_TIMEOUT_S = 240.0
+
+
+def grown_flush_check(torch, P: int):
+    """The flush kernels on a staging buffer grown from 20 to 25 rows,
+    as elastic admission grows it mid-run: the staged rows survive the
+    resize, and ``flush`` and ``flush_adamw`` read the new buffer,
+    bitwise equal to their plain versions on the same tensors."""
+    from repro_torch.core.slab import SlabAggregator, slab_codec
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.kernels import ref
+    from repro_torch.optim import bias_correction
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = {"slab": torch.randn(P, device="cuda", generator=gen)}
+    agg = SlabAggregator(slab_codec(params), params, HOST_SEED)
+    rows = torch.randn(HOST_MAX, P, device="cuda", generator=gen)
+    for i in range(HOST_SEED):
+        agg.stage(rows[i], i)
+    agg.grow(HOST_MAX)
+    for i in range(HOST_SEED, HOST_MAX):
+        agg.stage(rows[i], i)
+    (staging,) = agg._staging
+    check(tuple(staging.shape) == (HOST_MAX, P)
+          and torch.equal(staging, rows),
+          "the grown staging buffer lost or changed a staged row")
+    w = torch.rand(HOST_MAX, device="cuda", generator=gen) + 0.1
+    wn = w / w.sum()
+    errs = {}
+    got, want = ha.flush(staging, w), ref.flush_ref(staging, w)
+    check(torch.equal(got, want), "flush on the grown buffer differs from "
+          "its plain version")
+    check(not torch.equal(got, ref.flush_ref(staging[:HOST_SEED],
+                                             w[:HOST_SEED])),
+          "flush on the grown buffer ignored the new rows")
+    errs["flush"] = max_err(torch, got, want)
+    bc1, bc2 = bias_correction(torch.tensor(3, dtype=torch.int32,
+                                            device="cuda"), 0.9, 0.95)
+    p = torch.randn(P, device="cuda", generator=gen)
+    mu = 0.1 * torch.randn(P, device="cuda", generator=gen)
+    nu = 0.01 * torch.randn(P, device="cuda", generator=gen).abs()
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+    want = ref.flush_adamw_ref(staging, wn, p, mu, nu, bc1, bc2, 0.01, **kw)
+    got = ha.flush_adamw(staging, wn, p.clone(), mu.clone(), nu.clone(),
+                         bc1, bc2, 0.01, **kw)
+    for part, a, b in zip(("params", "mu", "nu"), got, want):
+        check(torch.equal(a, b), f"flush_adamw {part} on the grown buffer "
+              "differs from its plain version")
+    errs["flush_adamw"] = max(max_err(torch, a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    log(f"[cluster-host] staging grown {HOST_SEED} -> {HOST_MAX} rows at "
+        f"P={P}: staged rows kept; flush and flush_adamw bitwise equal to "
+        f"their plain versions over all {HOST_MAX} rows (max_abs_err "
+        f"{errs['flush']:.1e}, {errs['flush_adamw']:.1e})")
+    return errs
+
+
+def drive_host_path(torch, P: int, inproc_rates, wire_rates,
+                    inproc_sync_params):
+    """cnn-cifar at full width through ``ClusterTrainer`` on the ``host``
+    transport: a leader on 127.0.0.1 and ``python -m repro_torch join``
+    processes sharing the card (sync with 25 joiners; hybrid AdamW whose
+    fleet grows from 20 to 25 while it trains, with a connection cut
+    and a rejoin).  Returns the flush kernels' launches over both runs."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-host-") as ckpt_dir:
+        return host_runs(torch, ckpt_dir, P, inproc_rates, wire_rates,
+                         inproc_sync_params)
+
+
+def wait_joiners(procs, label: str, timeout_s: float = 120.0):
+    """Every joiner's exit code (a joiner still running is killed and
+    reported); all must be 0."""
+    codes = {}
+    deadline = time.monotonic() + timeout_s
+    for wid, p in procs.items():
+        try:
+            codes[wid] = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            codes[wid] = "stranded"
+    bad = {w: c for w, c in codes.items() if c != 0}
+    check(not bad, f"{label}: joiners exited {bad}")
+    return codes
+
+
+class ElasticDirector:
+    """What the elastic run's operator does, from a thread beside the
+    leader: spawn the late joiners once the first gradient is applied,
+    wait for the fleet to reach the ceiling and flush at K 25, cut one
+    seed worker's connection, wait for its rejoin at the next
+    generation and a few more updates, then end the run."""
+
+    def __init__(self, runtime, spawn):
+        import threading
+        self.runtime, self.spawn = runtime, spawn
+        self.late = {}
+        self.error = None
+        self.marks = {}
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _poll(self, predicate, timeout_s: float, what: str) -> None:
+        deadline = time.monotonic() + timeout_s
+        while not predicate():
+            check(time.monotonic() < deadline, f"timed out waiting: {what}")
+            time.sleep(0.05)
+
+    def _run(self):
+        from repro_torch.kernels import hybrid_aggregate as ha
+        rt = self.runtime
+        try:
+            self._poll(lambda: getattr(rt, "server", None) is not None
+                       and rt.server.applied > 0, 600.0,
+                       "the first applied gradient")
+            t_late = time.monotonic()
+            self.marks["release_to_late_spawn_s"] = t_late - rt._t0
+            for wid in range(HOST_SEED, HOST_MAX):
+                self.late[wid] = self.spawn(wid)
+            self._poll(lambda: rt.fleet_size == HOST_MAX,
+                       HOST_GROW_TIMEOUT_S, f"the fleet to grow to "
+                       f"{HOST_MAX}")
+            self.marks["late_spawn_to_grown_s"] = time.monotonic() - t_late
+            self._poll(lambda: ha.LAUNCHES_BY_K.get(
+                ("flush_adamw", HOST_MAX), 0) > 0, 60.0,
+                f"a flush_adamw launch at K {HOST_MAX}")
+            self.marks["cut"] = rt.transport.kill_worker(HOST_KILLED)
+            t_cut = time.monotonic()
+            self._poll(lambda: any(
+                e["event"] == "member_join" and e["worker"] == HOST_KILLED
+                and e["generation"] == 1 for e in list(rt.events)), 60.0,
+                f"worker {HOST_KILLED} to rejoin at generation 1")
+            self.marks["cut_to_rejoin_s"] = time.monotonic() - t_cut
+            mark = rt.server.applied
+            self._poll(lambda: rt.server.applied >= mark + 500, 60.0,
+                       "500 more gradients after the rejoin")
+        except Exception as e:          # raised in the main thread
+            self.error = e
+        finally:
+            server = getattr(rt, "server", None)
+            if server is not None:
+                server.done.set()       # end the run
+
+
+def host_runs(torch, ckpt_dir: str, P: int, inproc_rates, wire_rates,
+              inproc_sync_params):
+    from repro_torch.api import ExperimentSpec, FaultPlan
+    from repro_torch.cluster.hostlink import spawn_join_process
+    from repro_torch.cluster.trainer import ClusterTrainer
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.profile_sim import profiled
+
+    trainer = ClusterTrainer(ckpt_dir=ckpt_dir, device="cuda")
+    base = ExperimentSpec(arch="cnn-cifar", backend="cluster", smoke=False,
+                          seed=0, lr=0.01, batch=32, cluster_workers=25,
+                          transport="host", listen="127.0.0.1:0",
+                          heartbeat_s=2.0, wall_sample_every_s=1.0)
+    runs = [  # label, spec, kernel, the inproc and proc runs of the mode
+        ("host sync sgd", base.with_(
+            mode="sync", schedule=None, max_gradients=250,
+            wall_budget_s=60.0), "flush", "sync sgd #1", "proc sync sgd"),
+        ("host elastic hybrid adamw", base.with_(
+            mode="hybrid", schedule=CLUSTER_SCHEDULE, optimizer="adamw",
+            cluster_workers=HOST_SEED, max_workers=HOST_MAX,
+            wall_budget_s=HOST_BUDGET_S, wall_sample_every_s=5.0,
+            faults=FaultPlan(checkpoint_every_s=2.0)),
+         "flush_adamw", "hybrid adamw faults", "proc hybrid adamw faults"),
+    ]
+    ha.reset_launch_counts()
+    for label, spec, kernel, twin, wire_twin in runs:
+        elastic = spec.max_workers is not None
+        before = dict(ha.LAUNCHES)
+        before_k = dict(ha.LAUNCHES_BY_K)
+        runtime = trainer.build_runtime(spec)
+        addr = runtime.listen_address
+
+        def spawn(wid=None):
+            # the seed worker whose connection is cut rejoins; no other
+            # joiner outlives its session
+            return spawn_join_process(
+                addr, worker_id=wid, device="cuda", connect_timeout=600.0,
+                reconnect_s=30.0 if elastic and wid == HOST_KILLED else 0)
+
+        torch.cuda.reset_peak_memory_stats()
+        monitor = CardMonitor()
+        t_spawn = time.monotonic()
+        procs = {w: spawn(w if elastic else None)
+                 for w in range(spec.cluster_workers)}
+        director = ElasticDirector(runtime, spawn) if elastic else None
+        try:
+            if director is not None:
+                director.thread.start()
+            res, prof = profiled(lambda: trainer.finish(runtime, spec),
+                                 host_ops=False)
+        finally:
+            if director is not None:
+                director.thread.join(timeout=120)
+                procs.update(director.late)
+            codes = wait_joiners(procs, label)
+            monitor.stop()
+        if director is not None and director.error is not None:
+            raise director.error
+        delta = {k: ha.LAUNCHES[k] - before[k] for k in ha.LAUNCHES}
+        by_k = {kk: n - before_k.get(kk, 0)
+                for kk, n in ha.LAUNCHES_BY_K.items()
+                if kk[0] == kernel and n > before_k.get(kk, 0)}
+        a = check_ledger(res, label)
+        check("torn_frames" in a, f"{label}: no torn_frames in {a}")
+        check(delta[kernel] == res.num_updates + 1
+              and sum(delta.values()) == delta[kernel],
+              f"{label}: launches {delta} vs {res.num_updates} updates")
+        losses = res.metrics["train_loss"] + res.metrics["test_loss"]
+        check(all(math.isfinite(x) for x in losses) and len(losses) > 0,
+              f"{label}: non-finite or missing losses")
+        window = res.extra["serve_wall_s"]
+        utils, card_peak, rss_peak, host_peak = monitor.window(
+            runtime, window, label)
+        counters = res.extra["telemetry"]["counters"]
+        rx, tx = counters.get("wire.rx_bytes", 0), \
+            counters.get("wire.tx_bytes", 0)
+        pings = counters.get("wire.pings", 0)
+        check(pings > 0, f"{label}: the leader sent no PING")
+        rate = res.num_gradients / window
+        events = res.extra["events"]
+        kinds = [e["event"] for e in events]
+        spawn_to_release = runtime._t0 - t_spawn
+        per_k = dict(sorted((k, n) for (_, k), n in by_k.items()))
+        log(f"[cluster-host] cnn-cifar {label:26s} {res.num_gradients} "
+            f"grads in {window:.2f} s ({rate:.1f} grads/s; inproc "
+            f"'{twin}' {inproc_rates[twin]:.1f}, proc '{wire_twin}' "
+            f"{wire_rates[wire_twin]:.1f} grads/s in this call), "
+            f"{res.num_updates} updates, {a['dropped']} dropped, "
+            f"{a['in_flight']} in flight, torn frames {a['torn_frames']}; "
+            f"ledger computed {a['computed']} == applied {a['applied']} + "
+            f"dropped {a['dropped']} + buffered {a['buffered']} + pending "
+            f"{a['pending_round']} + in flight {a['in_flight']}; {kernel} "
+            f"launches {delta[kernel]} = {res.num_updates} updates + 1 "
+            f"warm-up, by staging rows K {per_k}; "
+            f"parent's flush kernels "
+            f"{prof['device_s_by_group'].get('flush kernels', 0.0):.6f} s "
+            f"device time; card utilization (nvidia-smi, 0.2 s) mean "
+            f"{statistics.mean(utils):.1f}% median "
+            f"{statistics.median(utils):.1f}% over {len(utils)} samples; "
+            f"wire rx {rx / window / 1e6:.1f} MB/s tx "
+            f"{tx / window / 1e6:.1f} MB/s; PINGs sent {pings}; first "
+            f"spawn to release {spawn_to_release:.2f} s (barrier "
+            f"{res.extra['fleet_ready_s']:.2f} s); peak card memory "
+            f"{card_peak:.0f} MiB (before the run {monitor.card_before:.0f})"
+            f", parent {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB "
+            f"allocated; peak host RSS of the process tree "
+            f"{rss_peak / 2**30:.2f} GiB, host memory in use +"
+            f"{host_peak / 2**30:.2f} GiB; joiner exit codes "
+            f"{sorted(set(codes.values()))} x {len(codes)}; test_acc "
+            f"{res.final()['test_acc']:.4f}; events {sorted(set(kinds))}")
+        check(card_peak - monitor.card_before > spec.cluster_workers * 100,
+              f"{label}: card memory grew {card_peak} - "
+              f"{monitor.card_before} MiB, too little for the joiners")
+        if not elastic:
+            check(res.num_updates == 10 and a["applied"] == 250,
+                  f"{label}: {res.num_updates} rounds, expected 10 of 25")
+            check(kinds.count("member_join") == 25,
+                  f"{label}: {kinds.count('member_join')} joins, not 25")
+            final = trainer.last_params
+            check(all(torch.equal(final[k], inproc_sync_params[k])
+                      for k in final),
+                  "host sync final params differ from inproc sync #1's")
+            log("[cluster-host] host sync sgd: final params bitwise equal "
+                "to [cluster]'s inproc sync sgd #1")
+            continue
+        grows = [e for e in events if e["event"] == "fleet_grow"]
+        check(grows and min(e["from_workers"] for e in grows) == HOST_SEED
+              and max(e["to_workers"] for e in grows) == HOST_MAX
+              and runtime.fleet_size == HOST_MAX,
+              f"{label}: the fleet did not grow {HOST_SEED} -> {HOST_MAX}: "
+              f"{grows}")
+        rejoin = [e for e in events if e["event"] == "member_join"
+                  and e["worker"] == HOST_KILLED]
+        check([e["generation"] for e in rejoin] == [0, 1],
+              f"{label}: worker {HOST_KILLED} joined as {rejoin}")
+        check(director.marks["cut"] is True,
+              f"{label}: no live connection of worker {HOST_KILLED} cut")
+        check("member_gone" in kinds, f"{label}: no member_gone event")
+        check(kinds.count("checkpoint") >= 2,
+              f"{label}: {kinds.count('checkpoint')} checkpoints")
+        check(by_k.get((kernel, HOST_SEED), 0) >= 1
+              and by_k.get((kernel, HOST_MAX), 0) >= 1,
+              f"{label}: {kernel} launches by K {by_k}")
+        check(set(a["computed_per_worker"]) ==
+              {str(w) for w in range(HOST_MAX)},
+              f"{label}: per-worker ledger {a['computed_per_worker']}")
+        st = runtime.server.snapshot_opt_state()
+        check(all(bool(torch.isfinite(torch.as_tensor(st[m])).all())
+                  for m in ("mu", "nu")), f"{label}: moments not finite")
+        log(f"[cluster-host] elastic: fleet_grow {HOST_SEED} -> {HOST_MAX} "
+            f"in {len(grows)} step(s); late joiners spawned "
+            f"{director.marks['release_to_late_spawn_s']:.2f} s after the "
+            f"release, admitted {director.marks['late_spawn_to_grown_s']:.2f}"
+            f" s later; worker {HOST_KILLED}'s connection cut, rejoined at "
+            f"generation 1 after {director.marks['cut_to_rejoin_s']:.2f} s; "
+            f"{kinds.count('checkpoint')} checkpoints; moments finite")
     return dict(ha.LAUNCHES)
 
 
@@ -1215,9 +1540,17 @@ def main() -> int:
     for name, n in cluster_launches.items():
         launches[name] += n
     log(f"[phase] cluster path done at {time.time() - t_start:.1f} s")
-    for name, n in drive_wire_path(torch, P, rates, sync_params).items():
+    wire_launches, wire_rates = drive_wire_path(torch, P, rates,
+                                                sync_params)
+    for name, n in wire_launches.items():
         launches[name] += n
     log(f"[phase] cluster-wire path done at {time.time() - t_start:.1f} s")
+    for name, err in grown_flush_check(torch, P).items():
+        errs[name] = max(errs[name], err)
+    for name, n in drive_host_path(torch, P, rates, wire_rates,
+                                   sync_params).items():
+        launches[name] += n
+    log(f"[phase] cluster-host path done at {time.time() - t_start:.1f} s")
 
     D = get_config(ARCH).d_model
     errs.update(compare_lm_kernels(torch, D))

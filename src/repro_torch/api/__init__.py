@@ -6,6 +6,11 @@
                           schedule="step:300", horizon=2.0)
     result = run(spec)                  # on cuda; run(spec, "cpu") on a CPU
     print(result.averaged())
+
+A ``backend="cluster"`` spec with ``transport="host"`` makes this
+process the multi-host leader: it binds ``spec.listen`` and waits for
+``python -m repro_torch join HOST:PORT`` workers
+(:mod:`repro_torch.cluster.hostlink`).
 """
 from repro_torch.api.result import RunResult
 from repro_torch.api.schedules import (SCHEDULE_FAMILIES, ScheduleFamily,

@@ -5,17 +5,24 @@ Subcommands:
             emit a RunResult JSON: ``--backend sim`` (the simulator) or
             ``--backend cluster`` (the wall-clock parameter server:
             ``--transport inproc`` worker threads, ``socket`` threads over
-            TCP, ``proc`` worker processes on the same device)
+            TCP, ``proc`` worker processes on the same device, ``host``
+            a leader that binds ``--listen`` and admits ``join`` workers)
   simulate  alias for ``run --backend sim`` (paper-faithful simulator);
             ``--smoke`` picks a seconds-scale configuration
   serve     greedy decode on a registry model (the model stack's serving
             path: rmsnorm and flash_attention kernels); ``--smoke`` picks
-            the reduced same-family config
+            the reduced same-family config.  With ``--listen HOST:PORT``
+            it is the multi-host cluster *leader* instead (= ``run
+            --backend cluster --transport host``)
+  join      join a cluster leader as one or more workers: the spec
+            arrives over the wire, the workload is rebuilt here
+            (repro_torch.cluster.hostlink)
   schedules list the registered threshold-schedule families
 
-Every run and serve takes ``--device {cuda,cpu}`` (default ``cuda``); without
-``--device cpu`` a host with no CUDA is an error, never a CPU run.
-The spec and pool flags are those of ``python -m repro``.
+Every run, serve and join takes ``--device {cuda,cpu}`` (default
+``cuda``); without ``--device cpu`` a host with no CUDA is an error,
+never a CPU run.  The spec and pool flags are those of ``python -m
+repro``.
 
 Examples:
   python -m repro_torch simulate --smoke
@@ -29,12 +36,17 @@ Examples:
   python -m repro_torch run --backend cluster --arch mlp --device cpu \\
       --transport proc --cluster-workers 2 --wall-budget 4 --kill 1:1 \\
       --respawn-after 0.5 --quiet
+  # terminal 1 (leader), terminal 2+ (workers, possibly other machines):
+  python -m repro_torch serve --listen 0.0.0.0:5555 --arch mlp \\
+      --cluster-workers 2 --wall-budget 30
+  python -m repro_torch join LEADER_HOST:5555 --workers 2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -69,14 +81,26 @@ _SPEC_FLAGS = [
      "cluster: worker count (threads)"),
     ("--transport", "transport", str,
      "cluster: worker wire — inproc (threads+queue), socket (threads "
-     "over TCP slab frames) or proc (one process per worker over Unix "
-     "sockets; SIGKILL faults); host comes with ROADMAP A10b"),
+     "over TCP slab frames), proc (one process per worker over Unix "
+     "sockets; SIGKILL faults) or host (bind --listen and wait for "
+     "`repro_torch join` workers, possibly from other machines)"),
+    ("--listen", "listen", str,
+     "cluster host transport: leader bind address HOST:PORT (port 0 = "
+     "pick one; the resolved address is printed and recorded in the "
+     "run's events)"),
     ("--wall-budget", "wall_budget_s", float,
      "cluster: wall-clock training budget (real seconds)"),
     ("--wall-sample-every", "wall_sample_every_s", float,
      "cluster: metric grid spacing (real seconds)"),
     ("--max-gradients", "max_gradients", int,
      "cluster: stop after N applied gradients"),
+    ("--heartbeat", "heartbeat_s", float,
+     "cluster host transport: leader-liveness PING cadence in seconds "
+     "(0 disables; workers size their hung-leader watchdog from it)"),
+    ("--max-workers", "max_workers", int,
+     "cluster host transport: elastic admission ceiling — join workers "
+     "beyond --cluster-workers grow the fleet while the run goes on, up "
+     "to this many ids (default: --cluster-workers, fixed membership)"),
     ("--slab-dtype", "slab_dtype", str,
      "cluster: gradient/params slab precision on the staging buffer "
      "and the wire — f32 (default) | bf16 (master params and the flush "
@@ -136,6 +160,12 @@ def _add_spec_flags(ap: argparse.ArgumentParser, backend_flag: bool):
                     help="write the resolved ExperimentSpec JSON here")
     ap.add_argument("--quiet", action="store_true",
                     help="print only the result summary")
+    ap.add_argument("--join-secret", default=None, metavar="SECRET",
+                    help="cluster host transport: require joiners to "
+                         "prove this shared secret (HMAC challenge/"
+                         "response on JOIN); an invocation credential, "
+                         "never written into the spec (env: "
+                         "REPRO_JOIN_SECRET)")
 
 
 def _build_spec(args, backend: Optional[str]) -> ExperimentSpec:
@@ -179,9 +209,12 @@ def _cmd_run(args, forced_backend: Optional[str] = None) -> int:
         spec.save(args.save_spec)
     if spec.backend == "cluster":
         from repro_torch.cluster.trainer import ClusterTrainer
-        trainer = ClusterTrainer(ckpt_dir=args.ckpt_dir,
-                                 resume_from=args.resume_from,
-                                 verbose=not args.quiet, device=args.device)
+        trainer = ClusterTrainer(
+            ckpt_dir=args.ckpt_dir, resume_from=args.resume_from,
+            verbose=not args.quiet,
+            join_secret=args.join_secret
+            or os.environ.get("REPRO_JOIN_SECRET") or None,
+            device=args.device)
     else:
         from repro_torch.api.trainers import get_trainer
         trainer = get_trainer(spec.backend, device=args.device)
@@ -208,8 +241,94 @@ def _cmd_simulate(args) -> int:
     return _cmd_run(args, forced_backend="sim")
 
 
+def _cmd_join(rest: List[str]) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch join",
+        description="join a cluster leader as one or more workers — the "
+                    "experiment spec arrives over the wire in the leader "
+                    "handshake, so this host only needs the repro_torch "
+                    "package (repro_torch.cluster.hostlink)")
+    ap.add_argument("address", metavar="HOST:PORT",
+                    help="the leader's listen address "
+                         "(serve --listen HOST:PORT)")
+    ap.add_argument("--worker-id", type=int, default=None,
+                    help="request a specific worker id / data shard "
+                         "(default: the leader leases the lowest free "
+                         "one)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="join this many workers, one OS process each "
+                         "(default 1)")
+    ap.add_argument("--connect-timeout", "--join-timeout",
+                    dest="connect_timeout", type=float, default=60.0,
+                    help="keep retrying the leader (refused/busy, with "
+                         "jittered backoff) for this many seconds before "
+                         "exiting 4 with the leader's reason")
+    ap.add_argument("--join-secret", default=None, metavar="SECRET",
+                    help="shared secret for a leader started with "
+                         "--join-secret (answers its HMAC challenge; "
+                         "env: REPRO_JOIN_SECRET)")
+    ap.add_argument("--reconnect", dest="reconnect_s", type=float,
+                    default=5.0, metavar="SECONDS",
+                    help="after a mid-run connection drop, try to rejoin "
+                         "the same worker-id lease for this many seconds "
+                         "before giving up cleanly (default 5; 0 "
+                         "disables)")
+    ap.add_argument("--quiet", action="store_true",
+                    help="suppress join progress logs")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where this host computes its gradients "
+                         "(default cuda; a host without CUDA needs "
+                         "--device cpu, and exits 2 without it)")
+    args = ap.parse_args(rest)
+    from repro_torch.cluster.hostlink import join_main
+    code = join_main(args.address, worker_id=args.worker_id,
+                     workers=args.workers,
+                     connect_timeout=args.connect_timeout,
+                     verbose=not args.quiet,
+                     secret=args.join_secret
+                     or os.environ.get("REPRO_JOIN_SECRET") or None,
+                     reconnect_s=args.reconnect_s, device=args.device)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # no interpreter teardown: everything is flushed, and unwinding the
+    # worker's threads and a CUDA context gains nothing (as a proc child)
+    os._exit(code)
+
+
+def _cmd_serve_leader(rest: List[str]) -> int:
+    """``serve --listen HOST:PORT``: the multi-host leader, sugar for
+    ``run --backend cluster --transport host --listen ...``."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch serve --listen HOST:PORT",
+        description="multi-host cluster leader: bind HOST:PORT, wait for "
+                    "`repro_torch join` workers, train, report")
+    _add_spec_flags(ap, backend_flag=False)
+    args = ap.parse_args(rest)
+    if args.transport not in (None, "host"):
+        # --listen means something only on the host transport: training
+        # locally while joiners dial a port nobody bound is the worst
+        # failure
+        print(f"error: --listen is the host transport's bind address and "
+              f"cannot be combined with --transport {args.transport} "
+              "(drop --transport, or use `run --backend cluster`)",
+              file=sys.stderr)
+        return 2
+    args.transport = "host"
+    try:
+        return _cmd_run(args, forced_backend="cluster")
+    except (ValueError, FileNotFoundError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "join":
+        # dispatched before the main parse (positional HOST:PORT)
+        return _cmd_join(argv[1:])
+    if argv and argv[0] == "serve" and any(
+            a == "--listen" or a.startswith("--listen=") for a in argv[1:]):
+        return _cmd_serve_leader(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -220,9 +339,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                            help="run the paper-faithful simulator backend")
     _add_spec_flags(p_sim, backend_flag=False)
     p_serve = sub.add_parser("serve", help="greedy decode on a registry "
-                             "model (prefill replayed through decode)")
+                             "model (prefill replayed through decode); "
+                             "with --listen HOST:PORT the multi-host "
+                             "cluster leader")
     from repro_torch.launch import serve
     serve.add_args(p_serve)
+    sub.add_parser("join", help="join a cluster leader as one or more "
+                                "workers (join HOST:PORT --workers N)",
+                   add_help=False)
     sub.add_parser("schedules", help="list threshold-schedule families")
     args = ap.parse_args(argv)
 

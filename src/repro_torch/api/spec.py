@@ -13,16 +13,17 @@ package loads in the other:
 
 The port runs ``backend="sim"`` and ``backend="cluster"``; ``spmd`` is
 recognised and refused with :class:`NotImplementedError` until its
-slice lands.  The cluster backend runs the ``inproc``, ``socket`` and
-``proc`` transports; the ``host`` transport's fields (``listen``,
-``heartbeat_s`` ...) are kept and validated so the reference's JSON
-loads, and a run on it is refused when it is built (ROADMAP A10b).
+slice lands.  The cluster backend runs all four transports: ``inproc``,
+``socket``, ``proc`` and ``host`` (``listen``, ``heartbeat_s`` and the
+elastic ceiling ``max_workers`` are the host transport's).
+``serve_every`` is kept and validated so the reference's JSON loads;
+the serving plane it tunes comes with ROADMAP A11.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 from repro_torch.api.schedules import parse_schedule
 from repro_torch.cluster.faults import FaultPlan
@@ -34,25 +35,6 @@ BACKENDS = ("sim", "spmd", "cluster")
 PORTED_BACKENDS = ("sim", "cluster")
 MODES = ("sync", "async", "hybrid")
 FLUSH_MODES = ("sum", "mean")
-
-
-def parse_hostport(s: str, default_host: str = "127.0.0.1"
-                   ) -> Tuple[str, int]:
-    """``"HOST:PORT"`` / ``":PORT"`` / ``"PORT"`` -> ``(host, port)``
-    (the reference's ``cluster/hostlink.py`` check of ``listen``)."""
-    s = str(s).strip()
-    host, sep, port_s = s.rpartition(":")
-    if not sep:
-        host, port_s = "", s
-    host = host or default_host
-    try:
-        port = int(port_s)
-    except ValueError:
-        raise ValueError(f"invalid listen address {s!r}: expected "
-                         "HOST:PORT (e.g. 0.0.0.0:5555, :0)") from None
-    if not 0 <= port < 65536:
-        raise ValueError(f"invalid port {port} in listen address {s!r}")
-    return host, port
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +123,7 @@ class ExperimentSpec:
             raise ValueError(f"transport must be one of {TRANSPORTS}, "
                              f"got {self.transport!r}")
         if self.transport == "host":
+            from repro_torch.cluster.hostlink import parse_hostport
             parse_hostport(self.listen)
         if isinstance(self.pool, dict):   # from_json convenience
             object.__setattr__(self, "pool", WorkerPool(**self.pool))

@@ -4,9 +4,10 @@ Where :mod:`repro_torch.core.simulator` runs the paper's parameter
 server in *virtual* time, this package runs it for real: worker threads
 computing gradients concurrently against one live server, with stale
 reads, server contention, stragglers, worker kill/respawn and server
-checkpoint/restore.  A port of ``src/repro/cluster`` with its
-in-process, ``socket`` and ``proc`` transports; ``host`` (remote
-workers joining a leader) comes with ROADMAP A10b.
+checkpoint/restore.  A port of ``src/repro/cluster`` with all four of
+its transports: in-process, ``socket``, ``proc`` and ``host`` (remote
+workers joining a listening leader, the fleet growing while the run
+goes on).
 
 Pieces:
   * :class:`~repro_torch.cluster.transport.InProcTransport` — threads +
@@ -14,6 +15,10 @@ Pieces:
   * :mod:`~repro_torch.cluster.mptransport` — the same channels as slab
     frames over sockets (``SocketTransport``), and one worker process
     per worker (``ProcTransport``);
+  * :mod:`~repro_torch.cluster.hostlink` — the multi-host leader
+    (``HostTransport``: worker-id leases, the generation fence, HMAC
+    admission, elastic growth) and the joiner's side (``join_main``,
+    ``spawn_join_process``);
   * :class:`~repro_torch.cluster.server.ParameterServer` — live params
     and the slab aggregator (the flush kernels) driven by K(t), under a
     lock;
@@ -38,6 +43,12 @@ _LAZY = {
     "SocketTransport": "repro_torch.cluster.mptransport",
     "SocketWorkerClient": "repro_torch.cluster.mptransport",
     "ProcTransport": "repro_torch.cluster.mptransport",
+    "WireProtocolError": "repro_torch.cluster.mptransport",
+    "HostTransport": "repro_torch.cluster.hostlink",
+    "negotiate_join": "repro_torch.cluster.hostlink",
+    "run_joined_worker": "repro_torch.cluster.hostlink",
+    "join_main": "repro_torch.cluster.hostlink",
+    "spawn_join_process": "repro_torch.cluster.hostlink",
     "ParameterServer": "repro_torch.cluster.server",
     "Worker": "repro_torch.cluster.worker",
     "ClusterRuntime": "repro_torch.cluster.runtime",

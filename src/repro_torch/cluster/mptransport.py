@@ -1,7 +1,6 @@
 """Multi-process slab transport: sockets + one process per worker.
 
-A port of the ``socket`` and ``proc`` half of
-``src/repro/cluster/mptransport.py``.  :class:`SocketTransport`
+A port of ``src/repro/cluster/mptransport.py``.  :class:`SocketTransport`
 implements the :class:`~repro_torch.cluster.transport.Transport`
 protocol over real sockets (TCP or Unix-domain): the server side is a
 *hub* — a listener plus one reader/writer thread pair per accepted
@@ -14,6 +13,8 @@ runs each worker in its own OS process, so stale parameter reads,
 stragglers and SIGKILL worker death are physical across address spaces
 and no interpreter lock is shared.  Children compute on the parent's
 device: on the card, several processes share one GPU by time-slicing.
+The multi-host hub that leases worker ids to joiners is
+:class:`~repro_torch.cluster.hostlink.HostTransport`.
 
 **Wire format** — the reference's protocol v1, byte for byte (the two
 packages' hubs and clients talk to each other)::
@@ -22,23 +23,39 @@ packages' hubs and clients talk to each other)::
     header  := !BI            (type: u8, payload length: u32)
     HELLO   := !IHIi          magic, proto, worker_id, generation
     HELLO'  := !IHIiB         ... + slab dtype code (non-f32 peers only)
+    JOIN    := !IHi           magic, proto, requested worker id (-1=auto)
+    WELCOME := !IH json       magic, proto, lease + spec JSON  (hub ->)
     REJECT  := !IH utf-8      magic, proto, readable reason   (hub ->)
     GRAD    := !IiQ raw-slab  worker_id, version, seq
     PARAMS  := !ii  raw-slab  version, restore-epoch          (hub ->)
+    PING    := !IH            magic, proto — leader liveness  (hub ->)
+    PONG    := !IH            magic, proto — liveness reply
+    CHALLENGE := !IH nonce    magic, proto, 32-byte nonce    (hub ->)
+    AUTH    := !IH digest     magic, proto, HMAC-SHA256(secret, nonce)
 
 ``raw-slab`` is the ``(P_pad,)`` slab as little-endian ``<f4``, or for
 a bf16 connection (negotiated by the one trailing byte of HELLO') the
 raw little-endian bf16 bit patterns (``<u2``: the ``int16`` view of a
-``torch.bfloat16`` tensor).  The reference's JOIN, WELCOME, CHALLENGE,
-AUTH, PING, PONG (the multi-host transport, ROADMAP A10b), SERVE and
-STATS (the serving and stats planes, A11) frames are recognised, and a
-peer that sends one is rejected with a REJECT naming where it comes.
+``torch.bfloat16`` tensor).  The reference's SERVE and STATS frames
+(the serving and stats planes, ROADMAP A11) are recognised, and a peer
+that sends one is rejected with a REJECT naming that item.
 
-The first frame on every accepted connection must be a HELLO carrying
-the protocol magic and version: a stray client is rejected with a
-logged, readable error and a best-effort REJECT frame
+The first frame on every accepted connection must be a HELLO or JOIN
+carrying the protocol magic and version: a stray client is rejected
+with a logged, readable error and a best-effort REJECT frame
 (:attr:`SocketTransport.rejected_peers` counts them), never admitted to
 the fleet.  Frame lengths are validated before any payload is read.
+The plain hub answers every control frame as the reference's plain hub
+does: a JOIN or AUTH with a REJECT (only the multi-host hub leases ids
+or issues challenges), a first frame of any other type with a REJECT,
+and a PONG, or an unknown frame after HELLO, not at all.
+
+**Liveness**: with ``heartbeat_s > 0`` the hub PINGs every
+authenticated connection on that cadence.  A client replies PONG and
+takes *any* frame as proof of life: with ``heartbeat_timeout_s > 0`` it
+closes the connection, with a readable :attr:`SocketWorkerClient.
+stall_reason`, when no frame arrived for that long (a hung leader holds
+its sockets open, so EOF alone cannot show it).
 
 **Payloads on the card**: a GRAD payload is received straight into a
 pinned host tensor and staged with one asynchronous host-to-device copy
@@ -71,6 +88,9 @@ workers idle in ``fetch_params``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import hmac
+import json
 import logging
 import os
 import queue
@@ -98,7 +118,8 @@ _PROTO_VERSION = 1
 _HDR = struct.Struct("!BI")          # frame type, payload length
 _HELLO = struct.Struct("!IHIi")      # magic, proto, worker_id, generation
 _HELLO_DT = struct.Struct("!IHIiB")  # ... + slab dtype code (non-f32 only)
-_CTRL = struct.Struct("!IH")         # magic, proto (REJECT prefix)
+_JOIN = struct.Struct("!IHi")        # magic, proto, requested id (-1=auto)
+_CTRL = struct.Struct("!IH")         # magic, proto (control frame prefix)
 _GRAD = struct.Struct("!IiQ")        # worker_id, version, seq
 _PARAMS = struct.Struct("!ii")       # version, restore epoch
 
@@ -110,17 +131,15 @@ _F_CHALLENGE, _F_AUTH = 11, 12
 
 # frames of the reference's protocol this port does not serve yet:
 # type -> (name, the ROADMAP item that brings it)
-_NOT_YET = {_F_JOIN: ("JOIN", "A10b"), _F_WELCOME: ("WELCOME", "A10b"),
-            _F_CHALLENGE: ("CHALLENGE", "A10b"), _F_AUTH: ("AUTH", "A10b"),
-            _F_PING: ("PING", "A10b"), _F_PONG: ("PONG", "A10b"),
-            _F_SERVE: ("SERVE", "A11"), _F_STATS: ("STATS", "A11")}
+_NOT_YET = {_F_SERVE: ("SERVE", "A11"), _F_STATS: ("STATS", "A11")}
+
+# HMAC-SHA256 over the challenge nonce: both sides fixed-size
+_AUTH_NONCE_LEN = 32
+_AUTH_DIGEST_LEN = 32
 
 # one frame must fit in memory several times over; anything bigger is a
 # corrupted header (a reader that lost frame sync), not a real slab
 _MAX_FRAME = 1 << 30
-# the largest control frame (JOIN ... STATS) the hub reads before its
-# REJECT: a WELCOME spec, a STATS payload
-_MAX_CTRL = 1 << 16
 
 _DT_F32, _DT_BF16 = 0, 1             # HELLO' slab dtype codes
 _DT_NAMES = {_DT_F32: "f32", _DT_BF16: "bf16"}
@@ -130,6 +149,11 @@ _TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # the integer type whose bits one wire element carries (numpy has no
 # bf16): a little-endian int32 image of an f32 slab is its <f4 image
 _BITS = {"f32": torch.int32, "bf16": torch.int16}
+
+
+class WireProtocolError(RuntimeError):
+    """A peer violated the slab wire protocol (bad magic, version
+    mismatch, malformed handshake, rejected join)."""
 
 
 def _recv_into(sock: socket.socket, view: memoryview) -> Tuple[bool, bool]:
@@ -209,10 +233,46 @@ def _hello_frame(worker_id: int, generation: int,
                              generation, _DT_CODES[slab_dtype]))
 
 
-def _reject_frame(reason: str) -> bytes:
-    body = reason.encode("utf-8")
-    return (_HDR.pack(_F_REJECT, _CTRL.size + len(body))
+def _join_frame(requested_id: int) -> bytes:
+    return (_HDR.pack(_F_JOIN, _JOIN.size)
+            + _JOIN.pack(_MAGIC, _PROTO_VERSION, requested_id))
+
+
+def _ctrl_frame(ftype: int, body: bytes) -> bytes:
+    return (_HDR.pack(ftype, _CTRL.size + len(body))
             + _CTRL.pack(_MAGIC, _PROTO_VERSION) + body)
+
+
+def _welcome_frame(cfg: Dict[str, Any]) -> bytes:
+    return _ctrl_frame(_F_WELCOME, json.dumps(cfg).encode("utf-8"))
+
+
+def _reject_frame(reason: str) -> bytes:
+    return _ctrl_frame(_F_REJECT, reason.encode("utf-8"))
+
+
+def _challenge_frame(nonce: bytes) -> bytes:
+    """Authenticated-JOIN challenge (hub ->): prove you hold the shared
+    join secret before the lease is granted."""
+    return _ctrl_frame(_F_CHALLENGE, nonce)
+
+
+def _auth_frame(digest: bytes) -> bytes:
+    """Challenge response (client ->): HMAC-SHA256(secret, nonce)."""
+    return _ctrl_frame(_F_AUTH, digest)
+
+
+def _auth_digest(secret: str, nonce: bytes) -> bytes:
+    return hmac.new(secret.encode("utf-8"), nonce,
+                    hashlib.sha256).digest()
+
+
+def _ping_frame() -> bytes:
+    return _ctrl_frame(_F_PING, b"")
+
+
+def _pong_frame() -> bytes:
+    return _ctrl_frame(_F_PONG, b"")
 
 
 def _peer_error(magic: int, proto: int) -> Optional[str]:
@@ -236,8 +296,9 @@ def _configure(sock: socket.socket) -> None:
 
 
 class _Conn:
-    """One accepted worker connection: a reader thread (gradients in)
-    and a writer thread (coalesced params broadcast out)."""
+    """One accepted worker connection: a reader thread (gradients and
+    control frames in) and a writer thread (coalesced params broadcast
+    out)."""
 
     def __init__(self, hub: "SocketTransport", sock: socket.socket):
         self.hub = hub
@@ -248,13 +309,22 @@ class _Conn:
         # HELLO carried a dtype byte.  It decodes GRAD, validates GRAD
         # lengths and picks the encoded PARAMS frame the writer pushes
         self.slab_dtype = "f32"
+        self.authenticated = False          # valid HELLO or JOIN seen
+        self.leased_wid: Optional[int] = None   # set by a JOIN lease
+        # authenticated-JOIN state (hubs with a join secret): a JOIN is
+        # parked as pending_join while the CHALLENGE round-trips; the
+        # lease is granted only once the AUTH digest verifies
+        self.awaiting_auth = False          # CHALLENGE sent, AUTH due
+        self.auth_ok = False                # digest verified
+        self.auth_nonce: Optional[bytes] = None
+        self.pending_join: Optional[int] = None
         self.closed = threading.Event()
         self._params_ev = threading.Event()
         self._last_sent: Optional[bytes] = None
         self._lock = threading.Lock()       # close() idempotence
         self._wlock = threading.Lock()      # whole frames only: the
-        #                                     writer thread and a REJECT
-        #                                     share one socket
+        #                                     writer thread and control
+        #                                     replies share one socket
         _configure(sock)
         self.reader = threading.Thread(target=self._read_loop,
                                        name="hub-reader", daemon=True)
@@ -263,25 +333,48 @@ class _Conn:
         self.reader.start()
         self.writer.start()
 
-    # ------------------------------------------------------- gradients in
+    # ------------------------------------------------------- frames in
     def _frame_error(self, ftype: int, n: int) -> Optional[str]:
         """Header-level validation, BEFORE the payload is read: a
         garbage header must never commit the reader to a garbage-sized
-        read."""
-        if ftype in _NOT_YET:
-            # read before the REJECT (see _read_loop) if it is small
-            return None if n <= _MAX_CTRL else \
-                f"{_NOT_YET[ftype][0]} frame has length {n}"
+        read.  The reasons are the reference hub's, word for word."""
         if ftype == _F_HELLO:
             if self.worker_id is not None:
                 return ("repeated HELLO on one connection — a peer "
-                        "identifies itself exactly once")
+                        "identifies itself exactly once (a re-HELLO "
+                        "under another id would ghost-register the "
+                        "first one in the sync barrier)")
             return None if n in (_HELLO.size, _HELLO_DT.size) else \
                 (f"HELLO frame has length {n}, expected {_HELLO.size} "
                  f"or {_HELLO_DT.size}")
-        if self.worker_id is None:
-            return (f"first frame has type {ftype}, not HELLO — peer is "
-                    "not speaking the repro slab protocol")
+        if ftype == _F_JOIN:
+            if self.authenticated:
+                return ("JOIN on an already-authenticated connection — "
+                        "one connection holds at most one lease")
+            return None if n == _JOIN.size else \
+                f"JOIN frame has length {n}, expected {_JOIN.size}"
+        if ftype in _NOT_YET:
+            name = _NOT_YET[ftype][0]
+            if self.authenticated:
+                return (f"{name} on an already-authenticated connection "
+                        "— a trainer cannot demote itself to a reader "
+                        "mid-stream")
+            return None if n == _CTRL.size else \
+                f"{name} frame has length {n}, expected {_CTRL.size}"
+        if ftype == _F_AUTH:
+            if self.authenticated:
+                return ("AUTH on an already-authenticated connection — "
+                        "the challenge round-trips exactly once")
+            if not self.awaiting_auth:
+                return ("unexpected AUTH frame — this connection has "
+                        "no challenge outstanding")
+            return None if n == _CTRL.size + _AUTH_DIGEST_LEN else \
+                (f"AUTH frame has length {n}, expected "
+                 f"{_CTRL.size + _AUTH_DIGEST_LEN}")
+        if not self.authenticated:
+            return (f"first frame has type {ftype}, not "
+                    "HELLO/JOIN/SERVE/STATS — peer is not speaking the "
+                    "repro slab protocol")
         if n > _MAX_FRAME:
             return (f"frame length {n} exceeds the {_MAX_FRAME}-byte "
                     "maximum — peer lost frame sync")
@@ -303,6 +396,10 @@ class _Conn:
                     break                       # else: clean EOF
                 ftype, n = _HDR.unpack(hdr)
                 err = self._frame_error(ftype, n)
+                if err is None and ftype == _F_GRAD \
+                        and self.worker_id is None:
+                    err = ("GRAD frame before HELLO — the peer never "
+                           "identified itself")
                 if err is not None:
                     hub._reject(self, err)
                     break
@@ -315,38 +412,64 @@ class _Conn:
                     hub._note_torn()            # died mid-frame: discard
                     break
                 hub.obs.count("wire.rx_bytes", _HDR.size + n)
-                if ftype in _NOT_YET:
-                    # rejected only now, with the frame read: closing
-                    # over unread bytes resets the connection, and the
-                    # peer would lose the REJECT
-                    name, item = _NOT_YET[ftype]
-                    hub._reject(self, f"{name} frames are not served by "
-                                "the repro_torch hub yet: they come with "
-                                f"ROADMAP {item}")
+                err = self._control(ftype, payload)
+                if err is not None:
+                    hub._reject(self, err)
                     break
-                if ftype == _F_HELLO:
-                    if n == _HELLO_DT.size:
-                        magic, proto, wid, gen, dtc = \
-                            _HELLO_DT.unpack(payload)
-                    else:
-                        magic, proto, wid, gen = _HELLO.unpack(payload)
-                        dtc = _DT_F32           # bare v1 HELLO: f32
-                    err = _peer_error(magic, proto)
-                    if err is None and dtc not in _DT_NAMES:
-                        err = (f"unknown slab dtype code {dtc} in HELLO — "
-                               "peer is from a newer build negotiating a "
-                               "dtype this hub does not speak")
-                    if err is not None:
-                        hub._reject(self, err)
-                        break
-                    # before admission: the first params push must
-                    # already use the negotiated encoding
-                    self.slab_dtype = _DT_NAMES[dtc]
-                    hub._admit(self, wid, gen)
-                # other frame types are ignored (forward compat)
         finally:
             self.close()
             hub._conn_closed(self)
+
+    def _control(self, ftype: int, payload: bytes) -> Optional[str]:
+        """Act on one validated non-GRAD frame; a reject reason, or
+        None.  PONG (liveness: receipt alone is the signal) and frame
+        types this hub does not act on are ignored (forward compat)."""
+        hub = self.hub
+        if ftype == _F_HELLO:
+            if len(payload) == _HELLO_DT.size:
+                magic, proto, wid, gen, dtc = _HELLO_DT.unpack(payload)
+            else:
+                magic, proto, wid, gen = _HELLO.unpack(payload)
+                dtc = _DT_F32               # bare v1 HELLO: f32
+            err = _peer_error(magic, proto)
+            if err is None and dtc not in _DT_NAMES:
+                err = (f"unknown slab dtype code {dtc} in HELLO — peer is "
+                       "from a newer build negotiating a dtype this hub "
+                       "does not speak")
+            if err is None:
+                # before admission: the first params push must already
+                # use the negotiated encoding
+                self.slab_dtype = _DT_NAMES[dtc]
+                # the hook claims worker_id inside the hub's admission
+                # lock: concurrent admissions for one id see each other
+                err = hub._admit_hello(self, wid, gen)
+            if err is None:
+                self.authenticated = True
+                hub._on_hello(self)
+            return err
+        if ftype == _F_JOIN:
+            magic, proto, req = _JOIN.unpack(payload)
+            err = _peer_error(magic, proto) or hub._on_join(self, req)
+            # a secret-bearing hub parks the JOIN behind a CHALLENGE:
+            # the connection stays unauthenticated (no broadcast, no
+            # lease) until AUTH lands
+            if err is None:
+                self.authenticated = not self.awaiting_auth
+            return err
+        if ftype == _F_AUTH:
+            magic, proto = _CTRL.unpack(payload[:_CTRL.size])
+            err = _peer_error(magic, proto) \
+                or hub._on_auth(self, payload[_CTRL.size:])
+            if err is None:
+                self.authenticated = True
+            return err
+        if ftype in _NOT_YET:
+            name, item = _NOT_YET[ftype]
+            magic, proto = _CTRL.unpack(payload)
+            return _peer_error(magic, proto) or (
+                f"{name} frames are not served by the repro_torch hub "
+                f"yet: they come with ROADMAP {item}")
+        return None
 
     def _read_grad(self, n: int) -> bool:
         """One GRAD payload into the hub queue; False when the sender
@@ -399,11 +522,12 @@ class _Conn:
             if not self._params_ev.wait(0.2):
                 continue
             self._params_ev.clear()
-            # never broadcast the model to a peer that has not said
-            # HELLO (admission re-arms the push); latest only, in this
-            # connection's dtype — one frame object per (version, dtype),
-            # so the identity check skips a version already sent
-            if self.worker_id is None:
+            # never broadcast the model to a peer that has not
+            # authenticated (HELLO or a granted JOIN; a HELLO re-arms the
+            # push); latest only, in this connection's dtype — one frame
+            # object per (version, dtype), so the identity check skips a
+            # version already sent
+            if not self.authenticated:
                 continue
             frame = self.hub._pub_frame_for(self.slab_dtype)
             if frame is None or frame is self._last_sent:
@@ -451,7 +575,8 @@ class SocketTransport:
     ``(host, port)`` (port 0 picks one; the resolved address is
     :attr:`address`), Unix mode a socket in a fresh temporary directory.
     Received gradient slabs land on ``device`` (``cuda`` unless the
-    caller asks for the CPU).
+    caller asks for the CPU).  ``heartbeat_s > 0`` PINGs every
+    authenticated connection on that cadence (0: no PINGs).
     """
 
     # the telemetry bus; the runtime swaps in its live bus before the
@@ -460,7 +585,8 @@ class SocketTransport:
 
     def __init__(self, grad_capacity: int = 0, *, family: str = "unix",
                  host: str = "127.0.0.1", port: int = 0,
-                 slab_dtype: str = "f32", device: Device = None):
+                 heartbeat_s: float = 0.0, slab_dtype: str = "f32",
+                 device: Device = None):
         if family not in ("unix", "tcp"):
             raise ValueError(f"family must be unix or tcp, got {family!r}")
         if slab_dtype not in _DT_CODES:
@@ -471,6 +597,7 @@ class SocketTransport:
         # the RUN's slab dtype: what connect() hands in-process workers;
         # each connection may still negotiate its own through HELLO'
         self.slab_dtype = slab_dtype
+        self.heartbeat_s = float(heartbeat_s)
         self._sockdir: Optional[str] = None
         if family == "unix":
             self._sockdir = tempfile.mkdtemp(prefix="repro-torch-hub-")
@@ -513,6 +640,12 @@ class SocketTransport:
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="hub-accept", daemon=True)
         self._accept_thread.start()
+        self._hb_thread: Optional[threading.Thread] = None
+        if self.heartbeat_s > 0:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, name="hub-heartbeat",
+                daemon=True)
+            self._hb_thread.start()
 
     # ------------------------------------------------------- accept side
     def _accept_loop(self) -> None:
@@ -531,14 +664,53 @@ class SocketTransport:
                 # starting up) gets its EOF at once and stops
                 conn.half_close()
 
-    def _admit(self, conn: _Conn, worker_id: int, generation: int) -> None:
+    def _admit_hello(self, conn: _Conn, worker_id: int,
+                     generation: int) -> Optional[str]:
+        """Membership policy hook: a reject reason, or None to admit.
+        On admit the hook claims ``conn.worker_id``/``generation``
+        inside its own critical section, so concurrent admissions for
+        one id see each other.  The plain hub admits every well-formed
+        HELLO; :class:`~repro_torch.cluster.hostlink.HostTransport`
+        fences stale generations and duplicate ids here."""
         with self._conns_cond:
             conn.worker_id, conn.generation = worker_id, generation
+        return None
+
+    def _on_join(self, conn: _Conn, requested_id: int) -> Optional[str]:
+        """JOIN (lease negotiation) hook: only the multi-host hub
+        leases ids; the plain hub tells the peer to HELLO directly."""
+        return ("this hub does not negotiate worker-id leases (not a "
+                "host transport) — connect with HELLO")
+
+    def _on_auth(self, conn: _Conn, digest: bytes) -> Optional[str]:
+        """AUTH (challenge response) hook: only a hub that issued a
+        CHALLENGE can verify one."""
+        return "unexpected AUTH frame — this hub issued no challenge"
+
+    def _on_hello(self, conn: _Conn) -> None:
+        with self._conns_cond:
             self._conns_cond.notify_all()
+        # re-arm the params push: a JOIN handshake may have consumed a
+        # pre-HELLO push on the client side (the negotiator reads frames
+        # until WELCOME), and a coalescing writer would never resend it
         conn._last_sent = None
         conn.notify_params()
         if self.on_worker_ready is not None:
-            self.on_worker_ready(worker_id, generation)
+            self.on_worker_ready(conn.worker_id, conn.generation)
+
+    def _heartbeat_loop(self) -> None:
+        """PING every authenticated connection on the heartbeat cadence
+        (``wire.pings`` counts those sent).  A short lock timeout keeps a
+        writer wedged against one stalled peer from delaying the others'
+        liveness."""
+        frame = _ping_frame()
+        while not self._closed.wait(self.heartbeat_s):
+            with self._conns_cond:
+                conns = [c for c in self._conns
+                         if c.authenticated and not c.closed.is_set()]
+            for conn in conns:
+                if conn.send_frame(frame, lock_timeout=0.2):
+                    self.obs.count("wire.pings")
 
     def _reject(self, conn: _Conn, reason: str) -> None:
         """Turn away a peer with a readable error: logged, counted, and a
@@ -760,6 +932,8 @@ class SocketTransport:
         for conn in conns:
             conn.close()
         self._accept_thread.join(timeout=2.0)
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=2.0)
         if self.family == "unix":
             try:
                 os.unlink(self.address)
@@ -791,11 +965,20 @@ class SocketWorkerClient:
     :attr:`closed` is set when the connection dies (hub shutdown, kill,
     network error); runtimes make it the worker's stop event, so a dead
     hub never leaves a live worker spinning.
+
+    ``heartbeat_timeout_s > 0`` arms a liveness watchdog: when *no*
+    frame (params, PING, anything) arrived for that long, the leader is
+    declared hung, :attr:`stall_reason` says so and the connection
+    closes, which stops the worker as a dead hub does.  ``sock`` adopts
+    an already-connected socket (the one a JOIN handshake leased the
+    worker id on) instead of dialing ``address``.
     """
 
     def __init__(self, address: Any, worker_id: int, *,
                  generation: int = 0, family: str = "unix",
                  connect_timeout: float = 10.0,
+                 heartbeat_timeout_s: float = 0.0,
+                 sock: Optional[socket.socket] = None,
                  slab_dtype: str = "f32", device: Device = None):
         if slab_dtype not in _DT_CODES:
             raise ValueError(f"slab_dtype must be one of "
@@ -805,13 +988,17 @@ class SocketWorkerClient:
         self.generation = generation
         self.slab_dtype = slab_dtype
         self.reject_reason: Optional[str] = None
-        if family == "unix":
-            sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-            sock.settimeout(connect_timeout)
-            sock.connect(address)
-        else:
-            sock = socket.create_connection(tuple(address),
-                                            timeout=connect_timeout)
+        self.stall_reason: Optional[str] = None
+        self.heartbeat_timeout_s = float(heartbeat_timeout_s)
+        self._last_rx = time.monotonic()
+        if sock is None:
+            if family == "unix":
+                sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                sock.settimeout(connect_timeout)
+                sock.connect(address)
+            else:
+                sock = socket.create_connection(tuple(address),
+                                                timeout=connect_timeout)
         sock.settimeout(None)
         _configure(sock)
         self.sock = sock
@@ -822,6 +1009,9 @@ class SocketWorkerClient:
             queue.Queue(maxsize=_SEND_CAPACITY)
         self._close_lock = threading.Lock()
         self._closed_once = False
+        self._wlock = threading.Lock()      # whole frames only: the
+        #                                     sender thread and PONG
+        #                                     replies share one socket
         self.sock.sendall(_hello_frame(worker_id, generation, slab_dtype))
         self._reader = threading.Thread(
             target=self._read_loop, name=f"client-reader-{worker_id}",
@@ -831,6 +1021,10 @@ class SocketWorkerClient:
             daemon=True)
         self._reader.start()
         self._sender.start()
+        if self.heartbeat_timeout_s > 0:
+            threading.Thread(target=self._watchdog_loop,
+                             name=f"client-watchdog-{worker_id}",
+                             daemon=True).start()
 
     # ------------------------------------------------------ wire threads
     def _read_loop(self) -> None:
@@ -851,6 +1045,7 @@ class SocketWorkerClient:
                         self.device)
                     if slab is None:
                         break
+                    self._last_rx = time.monotonic()
                     version, epoch = _PARAMS.unpack(head)
                     with self._cond:
                         self._cell = ParamsMsg(version, slab, epoch=epoch)
@@ -859,7 +1054,16 @@ class SocketWorkerClient:
                 payload, _ = _recv_exact(self.sock, n)
                 if payload is None:
                     break
-                if ftype == _F_REJECT:
+                self._last_rx = time.monotonic()
+                if ftype == _F_PING:
+                    # best effort: the hub only needs bytes to flow back,
+                    # and a send error shows on the next gradient anyway
+                    with self._wlock:
+                        try:
+                            self.sock.sendall(_pong_frame())
+                        except OSError:
+                            break
+                elif ftype == _F_REJECT:
                     reason = payload[_CTRL.size:].decode(
                         "utf-8", "replace") if n >= _CTRL.size else ""
                     self.reject_reason = reason or "rejected by hub"
@@ -880,13 +1084,32 @@ class SocketWorkerClient:
                     return
                 continue
             try:
-                self.sock.sendall(_grad_frame(msg, self.slab_dtype))
+                frame = _grad_frame(msg, self.slab_dtype)
+                with self._wlock:
+                    self.sock.sendall(frame)
             except OSError:
                 # accepted but never shipped: no task_done(), so flush()
                 # cannot claim it landed
                 self._mark_closed()
                 return
             self._sendq.task_done()
+
+    def _watchdog_loop(self) -> None:
+        """Declare the leader hung when no frame of any kind arrived
+        within ``heartbeat_timeout_s``, then close, so every blocked
+        path (fetch_params, the worker loop) unwinds promptly."""
+        timeout = self.heartbeat_timeout_s
+        while not self.closed.wait(min(timeout / 4.0, 1.0)):
+            idle = time.monotonic() - self._last_rx
+            if idle > timeout:
+                self.stall_reason = (
+                    f"no frames from the hub for {idle:.1f}s (liveness "
+                    f"timeout {timeout:.1f}s) — the leader looks hung; "
+                    "giving up on this connection")
+                _log.warning("worker %d.%d: %s", self.worker_id,
+                             self.generation, self.stall_reason)
+                self.close()
+                return
 
     def _mark_closed(self) -> None:
         self.closed.set()
@@ -1001,6 +1224,14 @@ _TORCH_FLAGS = {
     "cudnn.deterministic": (torch.backends.cudnn, "deterministic"),
     "cudnn.benchmark": (torch.backends.cudnn, "benchmark"),
 }
+
+
+# the values of those switches ClusterTrainer sets on the card, and a
+# joiner on the card sets for itself: float32 products in full float32,
+# deterministic convolution algorithms (a sync run repeats bit for bit)
+CUDA_DETERMINISTIC = {"cudnn.allow_tf32": False,
+                      "cuda.matmul.allow_tf32": False,
+                      "cudnn.deterministic": True, "cudnn.benchmark": False}
 
 
 def torch_flags() -> Dict[str, bool]:

@@ -8,7 +8,7 @@ applied-gradient budget is hit.  The params, the data and every
 gradient live on ``device`` (``cuda`` unless the caller asks for the
 CPU); the flushes run the port's flush kernels.
 
-Three transports (``transport_kind``, = ``ExperimentSpec.transport``):
+Four transports (``transport_kind``, = ``ExperimentSpec.transport``):
 
   * ``inproc`` — worker *threads* and an in-process queue (the parity
     baseline): gradient compute shares one interpreter lock;
@@ -20,10 +20,19 @@ Three transports (``transport_kind``, = ``ExperimentSpec.transport``):
     SIGKILL, and the fleet-ready barrier starts the clock only once
     every child has built its data, warmed a gradient and connected.
     Needs ``spec_dict``: a child rebuilds the workload from the spec
-    through ``SIM_WORKLOADS``.
+    through ``SIM_WORKLOADS``;
+  * ``host``   — the multi-host mode (:mod:`repro_torch.cluster.
+    hostlink`): the server binds ``listen`` (``HOST:PORT``) and *waits*
+    for workers to join with ``python -m repro_torch join HOST:PORT``.
+    The spec travels to them in the handshake, worker ids are leased
+    with a generation fence, and the barrier is "every seed worker has
+    joined".  With ``max_workers`` above ``num_workers`` the fleet grows
+    while the run goes on: the staging buffer and the K(t) schedule
+    follow it.  Kills cut the worker's connection; respawns are refused
+    (replacement capacity rejoins from its own host).  Needs
+    ``spec_dict``.
 
-``host`` (remote workers joining a listening leader) comes with ROADMAP
-A10b, the trace and Prometheus exports with A11.
+The trace and Prometheus exports come with ROADMAP A11.
 
 Pieces that run concurrently with training:
 
@@ -49,6 +58,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import sys
 import threading
 import time
 import traceback
@@ -60,6 +70,7 @@ import torch
 from repro_torch.checkpoint import (latest_step, load_opt_state,
                                     restore_checkpoint, save_checkpoint)
 from repro_torch.cluster.faults import FaultPlan
+from repro_torch.cluster.hostlink import HostTransport, parse_hostport
 from repro_torch.cluster.mptransport import (ProcTransport, ProcWorkerConfig,
                                              SocketTransport, torch_flags)
 from repro_torch.cluster.server import ParameterServer
@@ -75,23 +86,15 @@ from repro_torch.optim.slab_form import SlabOptimizer
 
 _log = logging.getLogger("repro_torch.cluster.runtime")
 
-# how long the fleet barrier waits for every worker process to connect:
-# 25 children start in about 100 s on 8 host cores (PERF.md)
+# how long the fleet barrier waits for every worker to connect, unless
+# the caller says otherwise: 25 worker processes start in about 100 s on
+# 8 host cores (PERF.md), so the reference's 180 s is too close
 PROC_READY_TIMEOUT_S = 300.0
 
 
-def check_ported(transport_kind: str, trace: Optional[str] = None,
+def check_ported(trace: Optional[str] = None,
                  prom_port: Optional[int] = None) -> None:
     """Refuse what the port does not run yet, naming where it comes."""
-    if transport_kind not in TRANSPORTS:
-        raise ValueError(f"transport_kind must be one of {TRANSPORTS},"
-                         f" got {transport_kind!r}")
-    if transport_kind == "host":
-        raise NotImplementedError(
-            "the cluster backend's 'host' transport is not ported to "
-            "repro_torch yet: it comes with ROADMAP A10b (multi-host "
-            "leader and join); use transport='inproc', 'socket' or "
-            "'proc'")
     if trace or prom_port is not None:
         raise NotImplementedError(
             "the cluster runtime's trace and Prometheus exports are not "
@@ -121,8 +124,9 @@ class ClusterResult:
     # the telemetry summary plus a ledger_check block cross-checking its
     # counters against the conservation ledger
     telemetry: Optional[Dict[str, Any]] = None
-    # proc: seconds from the first spawn to the barrier's release (the
-    # children's start-up, data and warm-up gradient)
+    # proc and host: seconds from the barrier's start (the first spawn,
+    # or listening) to its release: the workers' start-up, data and
+    # warm-up gradient
     fleet_ready_s: Optional[float] = None
 
 
@@ -138,10 +142,17 @@ class ClusterRuntime:
                  max_gradients: Optional[int] = None, seed: int = 0,
                  faults: FaultPlan = FaultPlan(),
                  accuracy_fn: Optional[Callable] = None,
+                 transport: Optional[Any] = None,
                  transport_kind: str = "inproc",
                  spec_dict: Optional[Dict[str, Any]] = None,
+                 listen: Optional[str] = None,
+                 heartbeat_s: float = 2.0,
+                 max_workers: Optional[int] = None,
+                 join_secret: Optional[str] = None,
+                 lease_grace_s: float = 2.0,
                  slab_dtype: str = "f32",
                  optimizer: Optional[SlabOptimizer] = None,
+                 proc_ready_timeout_s: float = PROC_READY_TIMEOUT_S,
                  verbose: bool = False,
                  ckpt_dir: Optional[str] = None,
                  resume_from: Optional[str] = None,
@@ -151,7 +162,10 @@ class ClusterRuntime:
         if mode not in ("sync", "async", "hybrid"):
             raise ValueError(f"mode must be sync, async or hybrid, got "
                              f"{mode!r}")
-        check_ported(transport_kind, trace, prom_port)
+        check_ported(trace, prom_port)
+        if transport_kind not in TRANSPORTS:
+            raise ValueError(f"transport_kind must be one of {TRANSPORTS},"
+                             f" got {transport_kind!r}")
         if transport_kind == "proc" and spec_dict is None:
             raise ValueError(
                 'transport_kind="proc" needs spec_dict (an ExperimentSpec'
@@ -159,11 +173,36 @@ class ClusterRuntime:
                 "through the SIM_WORKLOADS registry — run through "
                 "ClusterTrainer / repro_torch.api.run(spec) with "
                 'spec.transport="proc"')
+        if transport_kind == "host" and spec_dict is None \
+                and transport is None:
+            raise ValueError(
+                'transport_kind="host" needs spec_dict (an ExperimentSpec'
+                " dict): it is what joining hosts receive in the leader "
+                "handshake and rebuild their workload from — run through "
+                "ClusterTrainer / repro_torch.api.run(spec) with "
+                'spec.transport="host"')
+        if transport_kind == "host" and faults.respawn_after_s > 0:
+            raise ValueError(
+                "the host transport cannot respawn remote workers (the "
+                "leader does not own the remote machine) — drop "
+                "respawn_after_s and rejoin replacement capacity with "
+                "`python -m repro_torch join` instead")
         if mode == "async":
             schedule = constant_schedule(num_workers, 1)
         if mode == "hybrid" and schedule is None:
             raise ValueError("hybrid mode needs a schedule")
-        faults.validate_worker_ids(num_workers)
+        # elastic admission is the host transport's: the others own
+        # their whole fleet from the start
+        if max_workers is not None and transport_kind != "host":
+            raise ValueError(
+                "max_workers (elastic admission) requires "
+                'transport_kind="host" — the other transports spawn '
+                "their entire fleet up front")
+        self.max_workers = max(num_workers, int(max_workers
+                                                or num_workers))
+        # faults may name any admissible worker id, an elastic one that
+        # has not joined yet included (a kill then finds nobody)
+        faults.validate_worker_ids(self.max_workers)
         if (faults.checkpoint_every_s > 0 or faults.restore_at_s > 0) \
                 and not ckpt_dir:
             raise ValueError(
@@ -188,6 +227,11 @@ class ClusterRuntime:
         self.lr = lr
         self.batch = batch
         self.num_workers = num_workers
+        # the *current* fleet size: seeded at num_workers, grown by
+        # admission up to max_workers (host only); the K(t) schedule and
+        # the staging buffer follow it
+        self.fleet_size = num_workers
+        self._fleet_lock = threading.Lock()
         self.wall_budget_s = wall_budget_s
         self.sample_every_s = sample_every_s
         self.schedule = schedule
@@ -198,6 +242,7 @@ class ClusterRuntime:
         self.faults = faults
         self.transport_kind = transport_kind
         self.spec_dict = spec_dict
+        self.proc_ready_timeout_s = float(proc_ready_timeout_s)
         self.ckpt_dir = ckpt_dir
         self.resume_from = resume_from
         self.verbose = verbose
@@ -220,7 +265,10 @@ class ClusterRuntime:
         # gradient the server can't take yet blocks — on a queue for
         # thread workers, on socket flow control otherwise
         cap = max(4, 2 * num_workers)
-        if transport_kind == "socket":
+        self._own_transport = transport is None
+        if transport is not None:
+            self.transport = transport
+        elif transport_kind == "socket":
             self.transport = SocketTransport(cap, family="tcp",
                                              slab_dtype=self.slab_dtype,
                                              device=self.device)
@@ -228,10 +276,24 @@ class ClusterRuntime:
             self.transport = ProcTransport(cap, family="unix",
                                            slab_dtype=self.slab_dtype,
                                            device=self.device)
+        elif transport_kind == "host":
+            bind_host, bind_port = parse_hostport(listen or "127.0.0.1:0")
+            self.transport = HostTransport(
+                cap, host=bind_host, port=bind_port,
+                num_workers=num_workers,
+                welcome_config={"spec": spec_dict},
+                heartbeat_s=heartbeat_s, max_workers=self.max_workers,
+                join_secret=join_secret, lease_grace_s=lease_grace_s,
+                slab_dtype=self.slab_dtype, device=self.device)
         else:
             self.transport = InProcTransport(grad_capacity=cap)
         # the socket hubs count wire bytes on the live bus
         self.transport.obs = self.obs
+        # the resolved bind address (host): port 0 in `listen` is the
+        # real ephemeral port by now
+        self.listen_address: Optional[Any] = \
+            tuple(self.transport.address) \
+            if transport_kind == "host" else None
         self._stop = threading.Event()
         self._workers: Dict[int, Worker] = {}
         self._all_workers: List[Worker] = []
@@ -312,10 +374,46 @@ class ClusterRuntime:
         self.server.register(wid)
         w.start()
 
+    def _grow_fleet_to(self, n: int) -> None:
+        """Online admission: a joiner beyond the current fleet grows the
+        server's staging buffer and re-derives the K(t) schedule for the
+        new fleet *before* it registers, so a sync round that fills at
+        once already has a row for every live member.  The ledger is
+        untouched: staged rows survive the resize."""
+        with self._fleet_lock:
+            if n <= self.fleet_size:
+                return
+            old = self.fleet_size
+            schedule = None
+            if self.mode == "async":
+                schedule = constant_schedule(n, 1)
+            elif self.mode == "hybrid" and self.spec_dict \
+                    and self.spec_dict.get("schedule"):
+                from repro_torch.api.schedules import parse_schedule
+                schedule = parse_schedule(self.spec_dict["schedule"], n)
+            self.server.grow_fleet(n, schedule)
+            self.fleet_size = n
+        self.obs.gauge("fleet_size", n)
+        self.obs.count("members.admitted_beyond_seed", n - old)
+        self._log_event("fleet_grow", from_workers=old, to_workers=n)
+
     def _on_remote_ready(self, wid: int, gen: int) -> None:
-        # hub reader thread: a worker process said HELLO.  Only its
-        # current generation registers: an orphan HELLO from a process
-        # the injector superseded must not revive a killed worker id
+        # hub reader thread: a worker said HELLO.  A spawned (proc)
+        # worker registers only at its exact generation, so an orphan
+        # HELLO from a process the injector superseded cannot revive a
+        # killed id.  A joined (host) worker's generation is leased by
+        # the hub, which fences older ones: any newer one is the
+        # legitimate holder of the shard
+        if self.transport_kind == "host":
+            if gen >= self._generation.get(wid, -1):
+                self._grow_fleet_to(wid + 1)
+                self._generation[wid] = gen
+                self.server.register(wid)
+                self.obs.count("members.joined")
+                self.obs.gauge("live_workers", len(self.server.live))
+                self._log_event("member_join", worker=wid,
+                                generation=gen)
+            return
         if self._generation.get(wid) == gen:
             self.server.register(wid)
 
@@ -327,12 +425,24 @@ class ClusterRuntime:
         # later sync round
         if self._generation.get(wid) == gen:
             self.server.deregister(wid)
+            if self.transport_kind == "host":
+                self.obs.count("members.departed")
+                self.obs.gauge("live_workers", len(self.server.live))
+                self._log_event("member_gone", worker=wid,
+                                generation=gen)
 
     def _kill(self, wid: int) -> None:
         if self.transport_kind == "proc":
             sigkilled = self.transport.kill_worker(wid)
             self.server.deregister(wid)
             self._log_event("kill", worker=wid, sigkill=sigkilled)
+            return
+        if self.transport_kind == "host":
+            # the one fault a leader can inflict on a remote host: cut
+            # the connection (the worker exits cleanly on EOF)
+            cut = self.transport.kill_worker(wid)
+            self.server.deregister(wid)
+            self._log_event("kill", worker=wid, connection_cut=cut)
             return
         w = self._workers.get(wid)
         if w is not None:
@@ -461,24 +571,43 @@ class ClusterRuntime:
         try:
             return self._run()
         finally:
-            self.transport.close()
+            if self._own_transport:
+                self.transport.close()
 
     def _await_fleet(self) -> None:
-        """Hold the clock until every child has connected (HELLO ==
-        warm); fail fast on a child that died during start-up, e.g. one
-        that could not open its device."""
-        deadline = time.monotonic() + PROC_READY_TIMEOUT_S
-        while not self.transport.wait_for_workers(self.num_workers,
-                                                  timeout=1.0):
-            dead = self.transport.dead_workers()
-            if dead:
-                raise RuntimeError("worker process(es) died before the "
-                                   "fleet was ready:\n" + "\n".join(dead))
-            if time.monotonic() > deadline:
+        """Hold the clock until the seed fleet has connected (HELLO ==
+        warm), at most ``proc_ready_timeout_s``; on ``proc`` fail fast
+        on a child that died during start-up, e.g. one that could not
+        open its device."""
+        deadline = time.monotonic() + self.proc_ready_timeout_s
+        while not self.transport.wait_for_workers(
+                self.num_workers,
+                timeout=min(1.0, max(0.0, deadline - time.monotonic()))):
+            if self.transport_kind == "proc":
+                dead = self.transport.dead_workers()
+                if dead:
+                    raise RuntimeError(
+                        "worker process(es) died before the fleet was "
+                        "ready:\n" + "\n".join(dead))
+            if time.monotonic() >= deadline:
                 raise RuntimeError(
                     f"only {sorted(self.transport.live_workers())} of "
                     f"{self.num_workers} workers connected within "
-                    f"{PROC_READY_TIMEOUT_S}s")
+                    f"{self.proc_ready_timeout_s}s")
+
+    def _announce(self) -> None:
+        """Tell whoever starts the joiners where to send them."""
+        bind_host, bind_port = self.listen_address
+        self._log_event("listening", host=bind_host, port=int(bind_port),
+                        expected_workers=self.num_workers)
+        # a wildcard bind is not a dialable address: the hint names a
+        # host the workers can reach
+        adv_host = bind_host if bind_host not in ("0.0.0.0", "::", "") \
+            else "<LEADER_HOST>"
+        print(f"[cluster] leader listening on {bind_host}:{bind_port} — "
+              f"waiting for {self.num_workers} worker(s) to join "
+              f"(python -m repro_torch join {adv_host}:{bind_port})",
+              file=sys.stderr, flush=True)
 
     def _run(self) -> ClusterResult:
         self._t0 = time.monotonic()     # provisional, reset at the start
@@ -495,11 +624,12 @@ class ClusterRuntime:
         # one gradient before the clock starts, so the budget measures
         # contention, not set-up (cuDNN's first convolution, the first
         # launches); the server's construction builds, loads and runs
-        # the flush kernel once.  Worker processes warm their own
-        proc = self.transport_kind == "proc"
-        if proc:
+        # the flush kernel once.  Worker processes and joined hosts warm
+        # their own
+        remote = self.transport_kind in ("proc", "host")
+        if remote:
             # hold BEFORE the server's construction-time publish: a
-            # child connecting early idles in fetch_params instead of
+            # worker connecting early idles in fetch_params instead of
             # banking gradients before the clock starts
             self.transport.hold_params()
         else:
@@ -524,18 +654,27 @@ class ClusterRuntime:
         threads: List[threading.Thread] = []
         fleet_ready_s = None
         try:
-            if proc:
-                # spawn the fleet and hold the clock until every child
+            if remote:
+                # assemble the fleet (spawn it, or advertise and wait
+                # for joins) and hold the clock until every seed worker
                 # is warm and connected
                 self.transport.on_worker_ready = self._on_remote_ready
                 self.transport.on_worker_gone = self._on_remote_gone
                 t_spawn = time.monotonic()
-                for wid in range(self.num_workers):
-                    self._spawn(wid)
+                if self.transport_kind == "proc":
+                    for wid in range(self.num_workers):
+                        self._spawn(wid)
+                else:
+                    # joiners may have said HELLO before the hooks
+                    # existed: register them now
+                    for wid, gen in \
+                            self.transport.connected_workers().items():
+                        self._on_remote_ready(wid, gen)
+                    self._announce()
                 self._await_fleet()
                 fleet_ready_s = time.monotonic() - t_spawn
             self._t0 = time.monotonic()
-            if proc:
+            if remote:
                 self.transport.release_params()     # the starting gun
             if start_version:
                 self._log_event("resume", step=start_version,
@@ -550,7 +689,7 @@ class ClusterRuntime:
                 threads.append(self._guarded(self._restorer, "restore"))
             for t in threads:
                 t.start()
-            if not proc:
+            if not remote:
                 for wid in range(self.num_workers):
                     self._spawn(wid)
 
@@ -576,9 +715,10 @@ class ClusterRuntime:
             self._stop.set()
             for t in threads:
                 t.join(timeout=10.0)
-            if proc:
+            if remote:
                 # EOF on the params direction tells each worker process
-                # to stop; its in-flight gradient frames still drain
+                # (spawned or joined) to stop; its in-flight gradient
+                # frames still drain
                 self.transport.half_close_workers()
             for w in self._all_workers:
                 w.stop_event.set()
@@ -604,16 +744,18 @@ class ClusterRuntime:
         accounting: Dict[str, Any] = self.server.accounting()
         accounting["in_flight"] = in_flight
         rejected = 0
-        if self.transport_kind in ("socket", "proc"):
+        if self.transport_kind in ("socket", "proc", "host"):
             # "computed" = complete frames that reached the hub: exact
             # under every failure, since whatever a killed worker had
             # not finished sending died with it, like a thread worker
             # killed before its send
             received = self.transport.received_counts()
             accounting["computed"] = sum(received.values())
+            # an elastic fleet may have grown past the seed: a column
+            # for every member that ever existed
             accounting["computed_per_worker"] = {
                 str(wid): received.get(wid, 0)
-                for wid in sorted(set(range(self.num_workers))
+                for wid in sorted(set(range(self.fleet_size))
                                   | set(received))}
             accounting["torn_frames"] = self.transport.torn_frames
             rejected = self.transport.rejected_peers

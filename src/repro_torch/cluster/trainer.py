@@ -5,24 +5,27 @@
 workloads (``mlp``, ``cnn-mnist``, ``cnn-cifar``, or one added with
 ``register_sim_workload``): one spec re-targets the simulator and the
 real concurrent cluster.  ``spec.transport`` is ``inproc`` (worker
-threads and a queue), ``socket`` (worker threads over TCP) or ``proc``
-(worker processes over Unix sockets, computing on the same device);
-``host`` comes with ROADMAP A10b.
+threads and a queue), ``socket`` (worker threads over TCP), ``proc``
+(worker processes over Unix sockets, computing on the same device) or
+``host`` (the leader binds ``spec.listen`` and admits workers started
+with ``python -m repro_torch join``, up to ``spec.max_workers``).
 
 The reported ``num_gradients`` is the server's applied-gradient counter,
 exactly; ``extra["accounting"]`` carries the conservation ledger
 (computed == applied + dropped + buffered + pending + in-flight),
-``extra["events"]`` the fault/checkpoint timeline,
+``extra["events"]`` the fault/checkpoint/membership timeline,
 ``extra["telemetry"]`` the bus's summary with its ``ledger_check``,
-``extra["serving"]`` the serving plane's report (no clients until A11)
-and, on ``proc``, ``extra["fleet_ready_s"]`` the seconds from the first
-spawn to the barrier's release.
+``extra["serving"]`` the serving plane's report (no clients until A11),
+on ``proc`` and ``host`` ``extra["fleet_ready_s"]`` the seconds from the
+barrier's start to its release, and on ``host`` ``extra["listen"]`` the
+resolved ``HOST:PORT``.
 
 On CUDA the trainer turns TF32 off (as the simulator's does) and makes
 cuDNN pick deterministic convolution algorithms
 (``torch.backends.cudnn.deterministic = True``, ``benchmark = False``),
 so a sync run under ``max_gradients`` repeats bit for bit; ``proc``
-children copy these switches from the parent.
+children copy these switches from the parent, and joiners on the card
+set the same ones.
 """
 from __future__ import annotations
 
@@ -35,7 +38,10 @@ import torch
 from repro_torch.api.result import RunResult
 from repro_torch.api.schedules import parse_schedule
 from repro_torch.api.spec import ExperimentSpec
-from repro_torch.cluster.runtime import ClusterRuntime, check_ported
+from repro_torch.cluster.mptransport import (CUDA_DETERMINISTIC,
+                                             set_torch_flags)
+from repro_torch.cluster.runtime import (PROC_READY_TIMEOUT_S,
+                                         ClusterRuntime, check_ported)
 from repro_torch.convert import Device, resolve_device
 from repro_torch.core.simulator import data_to
 
@@ -50,22 +56,24 @@ class ClusterTrainer:
     parameters of the last run are kept on ``self.last_params`` (CPU
     tensors).  ``device`` defaults to ``cuda`` and raises when there is
     none.  The workload and its data are built and moved to the device
-    once per ``(arch, seed, smoke)``."""
+    once per ``(arch, seed, smoke)``.  ``join_secret`` makes a ``host``
+    leader challenge every JOIN (an invocation setting, like the
+    checkpoint directory: never a spec field, so it never travels in
+    WELCOME)."""
 
     def __init__(self, ckpt_dir: Optional[str] = None,
                  resume_from: Optional[str] = None, verbose: bool = False,
                  trace: Optional[str] = None,
-                 prom_port: Optional[int] = None, device: Device = None):
-        check_ported("inproc", trace, prom_port)
+                 prom_port: Optional[int] = None,
+                 join_secret: Optional[str] = None, device: Device = None):
+        check_ported(trace, prom_port)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
+            set_torch_flags(CUDA_DETERMINISTIC)
         self.ckpt_dir = ckpt_dir
         self.resume_from = resume_from
         self.verbose = verbose
+        self.join_secret = join_secret
         self.last_params = None
         self._workload: Tuple[Optional[tuple], Any] = (None, None)
 
@@ -89,7 +97,6 @@ class ClusterTrainer:
 
     def build_runtime(self, spec: ExperimentSpec) -> ClusterRuntime:
         """Construct (but do not run) the runtime for ``spec``."""
-        check_ported(spec.transport)
         loss_fn, init_params, data, accuracy_fn = self._build(spec)
         schedule = None
         if spec.mode == "hybrid":
@@ -108,10 +115,19 @@ class ClusterTrainer:
             max_gradients=spec.max_gradients, seed=spec.seed,
             faults=spec.faults, accuracy_fn=accuracy_fn,
             transport_kind=spec.transport,
-            # worker processes rebuild the workload from the spec
-            spec_dict=spec.to_dict() if spec.transport == "proc" else None,
+            # worker processes and joining hosts rebuild the workload
+            # from the spec
+            spec_dict=spec.to_dict()
+            if spec.transport in ("proc", "host") else None,
+            listen=spec.listen, heartbeat_s=spec.heartbeat_s,
+            max_workers=spec.max_workers, join_secret=self.join_secret,
             slab_dtype=spec.slab_dtype,
-            optimizer=spec.slab_optimizer(), ckpt_dir=ckpt_dir,
+            optimizer=spec.slab_optimizer(),
+            # joined hosts are started by hand, perhaps on other
+            # machines: the reference gives them ten minutes
+            proc_ready_timeout_s=600.0 if spec.transport == "host"
+            else PROC_READY_TIMEOUT_S,
+            ckpt_dir=ckpt_dir,
             resume_from=self.resume_from, verbose=self.verbose,
             device=self.device)
         if ckpt_dir is not None and self.ckpt_dir is None:
@@ -135,6 +151,9 @@ class ClusterTrainer:
                             device=str(self.device), device_name=name)
         if cres.fleet_ready_s is not None:
             result.extra["fleet_ready_s"] = cres.fleet_ready_s
+        if runtime.listen_address is not None:
+            bind_host, bind_port = runtime.listen_address
+            result.extra["listen"] = f"{bind_host}:{bind_port}"
         return result
 
     def run(self, spec: ExperimentSpec) -> RunResult:

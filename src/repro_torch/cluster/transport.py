@@ -17,9 +17,9 @@ aggregation buffer.
 
 A port of ``src/repro/cluster/transport.py``.  :class:`Transport` is the
 interface; :class:`InProcTransport` is the in-process (threads + queue)
-implementation, and :mod:`repro_torch.cluster.mptransport` holds the
-socket and process ones (the multi-host transport comes with ROADMAP
-A10b).  All blocking calls take timeouts, and nothing assumes the
+implementation, :mod:`repro_torch.cluster.mptransport` holds the
+socket and process ones and :mod:`repro_torch.cluster.hostlink` the
+multi-host one.  All blocking calls take timeouts, and nothing assumes the
 payloads share an address space beyond the payload field itself.
 
 **Timeout contract** (uniform across every method and implementation):
@@ -38,16 +38,14 @@ import queue
 import threading
 from typing import Any, Optional, Protocol
 
-# the spec-facing transport names (ExperimentSpec.transport / --transport);
-# the port runs inproc, socket and proc, and refuses host until ROADMAP
-# A10b:
+# the spec-facing transport names (ExperimentSpec.transport / --transport):
 #   inproc — worker threads + queue: one address space, GIL-shared compute
 #   socket — worker threads, but every message crosses a real TCP socket
 #            (length-prefixed slab frames): the wire format is physical
 #   proc   — one OS process per worker over Unix-domain sockets: stale
 #            reads, stragglers, and SIGKILL worker death are physical
 #   host   — the leader binds a routable --listen HOST:PORT and remote
-#            workers join it themselves (`python -m repro join`): the
+#            workers join it themselves (`python -m repro_torch join`): the
 #            address, the discovery, and the machine boundary are real
 TRANSPORTS = ("inproc", "socket", "proc", "host")
 

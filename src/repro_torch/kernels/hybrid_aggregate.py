@@ -13,7 +13,8 @@ inputs, then:
 * for tensors on the CPU runs the plain PyTorch version in
   :mod:`repro_torch.kernels.ref`;
 * for CUDA tensors launches its kernel on the current stream, adds one
-  to its count in :data:`LAUNCHES`, and raises if the launch failed.
+  to its count in :data:`LAUNCHES` and to its count at this many staging
+  rows in :data:`LAUNCHES_BY_K`, and raises if the launch failed.
 
 There is no fallback from CUDA to the plain version.  No wrapper reads a
 device value on the host, so a flush never waits for the card.
@@ -37,6 +38,9 @@ MAX_K = 4096          # staging rows the kernels' shared memory takes
 
 LAUNCHES: Dict[str, int] = {"flush": 0, "flush_momentum": 0,
                             "flush_adamw": 0}
+# the same launches by (kernel, K staging rows): an elastic fleet grows
+# K while the run goes on
+LAUNCHES_BY_K: Dict[Tuple[str, int], int] = {}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P = ctypes.c_void_p
@@ -54,6 +58,7 @@ _SIGNATURES = {
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_K.clear()
 
 
 def _lib() -> ctypes.CDLL:
@@ -96,9 +101,10 @@ def _check_slab(name: str, t: torch.Tensor, P: int) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, K: int, fn, *args) -> None:
     launch(LAUNCHES, name, fn, *args,
            error_string=_lib().hybrid_error_string)
+    LAUNCHES_BY_K[name, K] = LAUNCHES_BY_K.get((name, K), 0) + 1
 
 
 def flush(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -110,7 +116,7 @@ def flush(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     out = torch.empty((P,), dtype=grads.dtype, device=grads.device)
     with torch.cuda.device(grads.device):
         fn = getattr(_lib(), f"hybrid_flush_{_SUFFIX[grads.dtype]}")
-        _launch("flush", fn, weights.data_ptr(), grads.data_ptr(),
+        _launch("flush", K, fn, weights.data_ptr(), grads.data_ptr(),
                 out.data_ptr(), K, P)
     return out
 
@@ -131,7 +137,7 @@ def flush_momentum(grads: torch.Tensor, weights: torch.Tensor,
         return ref.flush_momentum_ref(grads, weights, momentum, beta)
     with torch.cuda.device(grads.device):
         fn = getattr(_lib(), f"hybrid_flush_momentum_{_SUFFIX[grads.dtype]}")
-        _launch("flush_momentum", fn, weights.data_ptr(), grads.data_ptr(),
+        _launch("flush_momentum", K, fn, weights.data_ptr(), grads.data_ptr(),
                 momentum.data_ptr(), K, P, float(beta))
     return momentum.to(grads.dtype), momentum
 
@@ -174,7 +180,7 @@ def flush_adamw(grads, weights, params, mu, nu, bc1, bc2, scale, *,
                for x in _scalar(name, v, grads.device)]
     with torch.cuda.device(grads.device):
         fn = getattr(_lib(), f"hybrid_flush_adamw_{_SUFFIX[grads.dtype]}")
-        _launch("flush_adamw", fn, weights.data_ptr(), *scalars,
+        _launch("flush_adamw", K, fn, weights.data_ptr(), *scalars,
                 grads.data_ptr(), params.data_ptr(), mu.data_ptr(),
                 nu.data_ptr(), K, P, b1, 1 - b1, b2, 1 - b2, eps,
                 weight_decay)

@@ -46,15 +46,19 @@ def test_spec_loads_reference_json(fields):
 
 @pytest.mark.parametrize("backend", ["spmd", "cluster"])
 def test_unported_backends_refuse(backend):
-    """spmd is refused by the spec; the cluster backend runs, and a run
-    on its host transport is refused when it is built."""
+    """spmd is refused by the spec; the cluster backend runs on all four
+    transports, and its trace and Prometheus exports are refused naming
+    ROADMAP A11 when the trainer is built."""
     if backend == "spmd":
         with pytest.raises(NotImplementedError, match=backend):
             ExperimentSpec(backend=backend)
         return
+    from repro_torch.cluster.trainer import ClusterTrainer
     spec = ExperimentSpec(backend=backend, transport="host")
-    with pytest.raises(NotImplementedError, match=f"{backend}.*A10b"):
-        run(spec, device="cpu")
+    assert spec.transport == "host"
+    for kw in (dict(trace="t.json"), dict(prom_port=9391)):
+        with pytest.raises(NotImplementedError, match="A11"):
+            ClusterTrainer(device="cpu", **kw)
 
 
 def test_spec_validation_matches_reference():

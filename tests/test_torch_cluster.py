@@ -220,10 +220,21 @@ def test_unknown_cluster_workload():
 
 @pytest.mark.parametrize("transport", ["host"])
 def test_wire_transports_refused_naming_a10(transport):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        _run(_cluster_spec(transport=transport))
+    """The host transport runs (tests/test_torch_hostlink.py); what it
+    refuses is the reference's: a respawn (the leader does not own the
+    remote machine) and, off host, an elastic ceiling.  The trace and
+    Prometheus exports stay refused, naming ROADMAP A11."""
+    with pytest.raises(ValueError, match="cannot respawn"):
+        _run(_cluster_spec(transport=transport,
+                           faults=FaultPlan(kill=((1, 0.5),),
+                                            respawn_after_s=0.2)))
+    with pytest.raises(ValueError, match="max_workers"):
+        ClusterRuntime(lambda p, x, y: 0.0, None, (None,) * 4,
+                       mode="async", max_workers=4, device=CPU)
     with pytest.raises(NotImplementedError, match="A11"):
         ClusterTrainer(device=CPU, trace="t.json")
+    with pytest.raises(NotImplementedError, match="A11"):
+        ClusterTrainer(device=CPU, prom_port=9391)
 
 
 # ------------------------------------------------------ fault injection
@@ -655,11 +666,22 @@ def test_cli_cluster_run_with_faults(tmp_path):
     assert summary["num_gradients"] == res.num_gradients
 
 
-def test_cli_cluster_wire_transport_refused(monkeypatch):
+def test_cli_cluster_wire_transport_refused(monkeypatch, capsys):
+    """What the CLI refuses on the host transport, readably and with
+    exit 2: a respawn, an elastic ceiling off host, and ``serve
+    --listen`` with another transport."""
     from repro_torch.api.cli import main
-    with pytest.raises(NotImplementedError, match="A10b"):
-        main(["run", "--backend", "cluster", "--transport", "host",
-              "--device", "cpu", "--quiet"])
+    assert main(["run", "--backend", "cluster", "--transport", "host",
+                 "--kill", "1:1", "--respawn-after", "0.5",
+                 "--device", "cpu", "--quiet"]) == 2
+    assert "cannot respawn" in capsys.readouterr().err
+    assert main(["run", "--backend", "cluster", "--transport", "proc",
+                 "--max-workers", "4", "--device", "cpu",
+                 "--quiet"]) == 2
+    assert "max_workers" in capsys.readouterr().err
+    assert main(["serve", "--listen", "127.0.0.1:0", "--transport",
+                 "proc", "--device", "cpu"]) == 2
+    assert "--listen" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["run", "--backend", "cluster", "--quiet"])

@@ -169,6 +169,78 @@ def test_cuda_proc_sync_matches_inproc(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_host_sync_matches_inproc(cuda):
+    """4 joined workers (``python -m repro_torch join --device cuda``, one
+    process each) sharing the card with their leader, against 4 worker
+    threads, the same small mlp sync run: bitwise equal final params,
+    every joiner exits 0, every update through the flush kernel in the
+    leader."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.cluster.hostlink import spawn_join_process
+    from repro_torch.cluster.trainer import ClusterTrainer
+    base = ExperimentSpec(arch="mlp", backend="cluster", mode="sync",
+                          schedule=None, cluster_workers=4, batch=16,
+                          wall_budget_s=60.0, max_gradients=40)
+    finals = {}
+    for transport in ("inproc", "host"):
+        spec = base.with_(transport=transport, listen="127.0.0.1:0")
+        trainer = ClusterTrainer(device=cuda)
+        runtime = trainer.build_runtime(spec)
+        procs = [spawn_join_process(runtime.listen_address, device="cuda",
+                                    reconnect_s=0)
+                 for _ in range(4 if transport == "host" else 0)]
+        before = ha.LAUNCHES["flush"]
+        try:
+            res = trainer.finish(runtime, spec)
+        finally:
+            codes = [p.wait(timeout=120) for p in procs]
+        assert codes == [0] * len(procs), codes
+        a = res.extra["accounting"]
+        assert res.num_updates == 10 and a["applied"] == 40
+        assert res.extra["telemetry"]["ledger_check"]["consistent"]
+        assert ha.LAUNCHES["flush"] - before == 10 + 1
+        finals[transport] = trainer.last_params
+    for k in finals["inproc"]:
+        assert torch.equal(finals["inproc"][k], finals["host"][k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_flush_reads_a_grown_staging_buffer(cuda):
+    """A 20-row aggregator grown to 25 rows on the card keeps its staged
+    rows, and the flush and AdamW kernels read the new buffer: bitwise
+    equal to their plain versions over all 25 rows, one launch each,
+    counted at K 25."""
+    from repro_torch.core.slab import SlabAggregator, slab_codec
+    params = {"w": torch.randn(3 * TILE_P, device=cuda)}
+    agg = SlabAggregator(slab_codec(params), params, 20)
+    rows = torch.randn(25, 3 * TILE_P, device=cuda)
+    for i in range(20):
+        agg.stage(rows[i], i)
+    agg.grow(25)
+    for i in range(20, 25):
+        agg.stage(rows[i], i)
+    (staging,) = agg._staging
+    assert staging.shape == (25, 3 * TILE_P) and torch.equal(staging, rows)
+    w = torch.rand(25, device=cuda) + 0.1
+    wn = w / w.sum()
+    before = ha.LAUNCHES_BY_K.get(("flush", 25), 0)
+    assert torch.equal(ha.flush(staging, w), tref.flush_ref(staging, w))
+    assert ha.LAUNCHES_BY_K[("flush", 25)] == before + 1
+    p = torch.randn(3 * TILE_P, device=cuda)
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    # the bias corrections as the aggregator passes them: device scalars
+    bc1, bc2 = bias_correction(torch.tensor(3, dtype=torch.int32,
+                                            device=cuda), 0.9, 0.95)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)
+    want = tref.flush_adamw_ref(staging, wn, p, mu, nu, bc1, bc2, 0.01, **kw)
+    got = ha.flush_adamw(staging, wn, p.clone(), mu.clone(), nu.clone(),
+                         bc1, bc2, 0.01, **kw)
+    assert ha.LAUNCHES_BY_K[("flush_adamw", 25)] >= 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
 def test_cuda_aggregator_matches_cpu(cuda, opt):
     """The aggregator's flushes on the card (kernels) against the same

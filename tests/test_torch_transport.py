@@ -301,20 +301,52 @@ def _reject_reason(reply: bytes) -> str:
                  tmp._HDR.size + n].decode("utf-8")
 
 
-@pytest.mark.parametrize("ftype,item", sorted(
-    (t, item) for t, (_, item) in tmp._NOT_YET.items()))
+def _first_frame(ftype: int) -> bytes:
+    """A well-formed frame of each control type, as a peer's first."""
+    if ftype == tmp._F_JOIN:
+        return jmp._join_frame(-1)
+    if ftype == tmp._F_AUTH:
+        return jmp._auth_frame(jmp._auth_digest("s", b"\x00" * 32))
+    if ftype == tmp._F_WELCOME:
+        return jmp._welcome_frame({"worker_id": 0})
+    if ftype == tmp._F_CHALLENGE:
+        return jmp._challenge_frame(b"\x01" * 32)
+    return jmp._ctrl_frame(ftype, b"")
+
+
+# every control frame of protocol v1 and the ROADMAP item that brought
+# it to the port (A10b) or brings it (A11)
+_CONTROL_FRAMES = sorted(
+    [(t, "A10b") for t in (tmp._F_JOIN, tmp._F_WELCOME, tmp._F_PING,
+                          tmp._F_PONG, tmp._F_CHALLENGE, tmp._F_AUTH)]
+    + [(t, item) for t, (_, item) in tmp._NOT_YET.items()])
+
+
+@pytest.mark.parametrize("ftype,item", _CONTROL_FRAMES)
 def test_frames_not_served_yet_are_rejected_naming_their_item(ftype, item):
-    """JOIN, WELCOME, CHALLENGE, AUTH, PING, PONG (the multi-host
-    transport) and SERVE, STATS (the serving planes) are recognised and
-    answered with a REJECT naming the ROADMAP item that brings them."""
+    """A control frame as a peer's first, sent to the plain hub.  JOIN,
+    WELCOME, CHALLENGE, AUTH, PING and PONG (A10b) are answered exactly
+    as the reference's plain hub answers them: the same REJECT, byte
+    for byte.  SERVE and STATS (the serving planes) are answered with a
+    REJECT naming A11, the ROADMAP item that brings them."""
+    frame = _first_frame(ftype)
     hub = SocketTransport(4, family="unix", device=CPU)
     try:
-        body = struct.pack("!IH", tmp._MAGIC, 1)
-        reply = _raw_peer(hub, tmp._HDR.pack(ftype, len(body)) + body)
-        assert item in _reject_reason(reply)
+        reply = _raw_peer(hub, frame)
         assert hub.rejected_peers == 1 and hub.live_workers() == set()
     finally:
         hub.close()
+    if item == "A11":
+        assert item in _reject_reason(reply)
+        return
+    ref = jmp.SocketTransport(4, family="unix")
+    try:
+        want = _raw_peer(ref, frame)
+        assert ref.rejected_peers == 1
+    finally:
+        ref.close()
+    assert _reject_reason(reply) == _reject_reason(want)
+    assert reply == want
 
 
 # ------------------------------------------- interop with the reference
