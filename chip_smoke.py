@@ -13,7 +13,8 @@ main paths:
 - the simulator: ``SimulatorTrainer`` on ``cnn-cifar`` at its published
   widths, the paper's 25 workers, through async, sync and hybrid (SGD,
   momentum, AdamW), checking that every flush went through the flush
-  kernels;
+  kernels; then ``lm-tiny`` (4,096 sequences of 16) hybrid, its final
+  params slab against the same run on the CPU;
 - the cluster: ``ClusterTrainer`` (``backend="cluster"``, in-process
   transport) on ``cnn-cifar`` at its published widths with 25 worker
   threads and batch 32 — sync twice (bitwise equal), async, hybrid, and
@@ -28,6 +29,18 @@ main paths:
   frames the ledger implies), with the card's utilization as
   ``nvidia-smi`` samples it, the wire bytes, the fleet's start-up and
   the peak host and card memory;
+- the cluster over hosts: ``transport="host"``, ``repro_torch join``
+  processes sharing the card (sync with a ``top`` stats reader attached,
+  bitwise equal to the in-process sync run; an elastic hybrid AdamW run
+  that grows from 20 to 25 joiners, with its Prometheus endpoint scraped
+  twice and ``top`` reading it), and the proc hybrid AdamW run traced:
+  the parent's ``grad_rx``, ``flush`` and ``publish`` span seconds as
+  shares of the training window;
+- the serving plane: an ``lm-tiny`` host leader (hybrid AdamW,
+  ``serve_every=2``) with 8 ``repro_torch join`` processes, 2 ``python -m
+  repro_torch infer`` processes and one in-process ``ServeClient`` that
+  greedy-decodes successive params versions through the rmsnorm kernel
+  while the flush kernels update them;
 - serving: ``greedy_generate`` on h2o-danube-1.8b at its published
   widths and depth (batch 4, prompt 32, gen 16) and ``prefill_step`` on
   the 32-token prompts and on one 8192-token sequence, checking that
@@ -71,6 +84,16 @@ LONG_S = 8192                    # the long prefill: twice the 4096 window
 # round differently.  tests/test_torch_lm.py holds a 24-layer bf16 model
 # to the same bound on the CPU, where the two differ by 0.047-0.055
 PREFILL_DECODE_ATOL = 0.25
+LM_P = 98_304                    # lm-tiny's params slab, padded
+LM_TEST_SEQS, LM_SEQ = 512, 16   # ... its held-out sequences, full width
+SERVE_WORKERS = 8                # [cluster-serve]: joined workers
+SERVE_EVERY = 2                  # ... and its serve clients' down-sampling
+INFER_PROCS, INFER_REQUESTS = 2, 4
+SERVE_DECODES = 3                # params versions the in-process client reads
+# the serving run ends once every client is done (a cap, never reached in
+# a healthy run)
+SERVE_BUDGET_S = 240.0
+SERVE_MIN_S = 6.0                # ... and lasts at least this long
 TPU = "src/repro/kernels/hybrid_aggregate.py"
 CSRC = "src/repro_torch/csrc"
 PORTED = {   # name -> (CUDA source, TPU kernel it replaces: file:line)
@@ -271,15 +294,16 @@ def hold(torch, name, got, want, rtol, atol, case):
     return err
 
 
-def compare_kernels(torch, P: int):
-    """Each flush kernel against its plain version on the card, twice."""
+def compare_kernels(torch, P: int, K: int = K_MAX):
+    """Each flush kernel against its plain version on the card, twice,
+    at K staging rows of a P-element slab."""
     from repro_torch.kernels import hybrid_aggregate as ha
     from repro_torch.kernels import ref
     from repro_torch.optim import bias_correction
 
+    log(f"[check] flush kernels at K={K} P={P}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
-    K = K_MAX
     g = torch.randn(K, P, device=dev, generator=gen)
     w = torch.rand(K, device=dev, generator=gen) + 0.1
     wn = w / w.sum()
@@ -432,7 +456,8 @@ def cross_check_small(torch):
 
 
 def drive_main_path(torch):
-    """cnn-cifar at full width through the port's own trainer."""
+    """cnn-cifar at full width through the port's own trainer, then
+    lm-tiny.  Returns every kernel's launches over the counted runs."""
     from repro_torch.api import ExperimentSpec, SimulatorTrainer
     from repro_torch.core.simulator import WorkerPool
     from repro_torch.kernels import hybrid_aggregate as ha
@@ -487,7 +512,82 @@ def drive_main_path(torch):
             f"{delta[kernel]}  train_loss {res.metrics['train_loss'][0]:.4f}"
             f" -> {res.metrics['train_loss'][-1]:.4f}  averaged {avg}")
         results.append(res)
-    return dict(ha.LAUNCHES), results
+    launches = dict(ha.LAUNCHES)
+    for name, n in drive_lm_tiny_sim(torch, trainer, base).items():
+        launches[name] = launches.get(name, 0) + n
+    return launches, results
+
+
+def drive_lm_tiny_sim(torch, trainer, base):
+    """lm-tiny at its full width (4,096 sequences of 16) through the
+    simulator, hybrid, 25 workers: every flush through the flush kernel
+    (by staging rows), the loss falls, and the final params slab allclose
+    to the same run on the CPU (f32, rtol 1e-5 / atol 1e-6).  Workers
+    differentiate the plain forward; the metrics' accuracy runs the
+    serving forward, whose norms and attention are kernels on the card.
+    Returns the launches of every kernel in this run."""
+    from repro_torch.api import SimulatorTrainer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.kernels import rmsnorm as rms
+
+    spec = base.with_(arch="lm-tiny", mode="hybrid", schedule="step:300")
+    ha.reset_launch_counts()
+    rms.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.time()
+    res = trainer.run(spec)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ha.LAUNCHES, rmsnorm=rms.LAUNCHES["rmsnorm"],
+                    flash_attention=fa.LAUNCHES["flash_attention"])
+    by_k = dict(ha.LAUNCHES_BY_K)
+    check(by_k == {("flush", K_MAX): res.num_updates} and res.num_updates
+          == launches["flush"] > 0,
+          f"lm-tiny: flush launches by K {by_k} vs {res.num_updates} "
+          "flushes")
+    tl = res.metrics["train_loss"]
+    check(all(math.isfinite(x) for x in tl) and tl[-1] < tl[0],
+          f"lm-tiny: train loss did not fall: {tl}")
+    agg = trainer.engine(spec)._agg_cache[K_MAX]
+    check(agg.params_slab.is_cuda and agg.codec.padded_size == LM_P,
+          f"lm-tiny: slab {agg.codec.padded_size} on "
+          f"{agg.params_slab.device}")
+    gpu_slab = agg.params_slab.cpu()
+    t1 = time.time()
+    cpu_trainer = SimulatorTrainer(device="cpu")
+    cres = cpu_trainer.run(spec)
+    cpu_s = time.time() - t1
+    cpu_slab = cpu_trainer.engine(spec)._agg_cache[K_MAX].params_slab
+    check((cres.num_updates, cres.num_gradients)
+          == (res.num_updates, res.num_gradients),
+          "lm-tiny: cuda and cpu runs disagree on event counts")
+    diff = max_err(torch, gpu_slab, cpu_slab)
+    check(torch.allclose(gpu_slab, cpu_slab, rtol=1e-5, atol=1e-6),
+          f"lm-tiny: cuda params slab differs from cpu's by {diff}")
+    # the metrics against the CPU run's: test_loss through the plain
+    # forward (f32, rtol 1e-5 / atol 1e-6), test_acc through the serving
+    # forward's kernels (argmax over 8,192 tokens: at most 4 tokens may
+    # flip on a near-tie, 4/8192 = 4.9e-4)
+    tgt, tcpu = res.metrics["test_loss"], cres.metrics["test_loss"]
+    agt, acpu = res.metrics["test_acc"], cres.metrics["test_acc"]
+    acc_diff = max(abs(a - b) for a, b in zip(agt, acpu))
+    check(len(tgt) == len(tcpu) and all(math.isclose(
+        a, b, rel_tol=1e-5, abs_tol=1e-6) for a, b in zip(tgt, tcpu)),
+          f"lm-tiny: test_loss {tgt} vs the CPU run's {tcpu}")
+    check(len(agt) == len(acpu) and acc_diff <= 4 / (LM_TEST_SEQS * LM_SEQ),
+          f"lm-tiny: test_acc {agt} vs the CPU run's {acpu}")
+    log(f"[sim] lm-tiny  hybrid           wall {res.wall_s:.2f} s "
+        f"({wall:.2f} s with the dataset's build)  {res.num_gradients} "
+        f"grads  {res.num_updates} flushes  flush launches by staging "
+        f"rows {by_k}  train_loss {tl[0]:.4f} -> {tl[-1]:.4f}  test_acc "
+        f"{res.metrics['test_acc'][-1]:.4f}; metrics' serving forward "
+        f"rmsnorm {launches['rmsnorm']} / flash "
+        f"{launches['flash_attention']} launches; P={LM_P} params slab "
+        f"vs the CPU run ({cpu_s:.1f} s): max diff {diff:.2e} (rtol 1e-5,"
+        f" atol 1e-6); test_acc over {len(agt)} samples max diff "
+        f"{acc_diff:.2e} (at most {4 / (LM_TEST_SEQS * LM_SEQ):.2e})")
+    return launches
 
 
 # ------------------------------------------------------- cluster path
@@ -769,10 +869,14 @@ def wire_runs(torch, ckpt_dir: str, P: int, inproc_rates,
          "async sgd"),
     ]
     hello, grad_frame = 5 + 14, 5 + 16 + 4 * P
+    traced = "proc hybrid adamw faults"
+    trace_path = os.path.join(ckpt_dir, "proc_hybrid_adamw.trace.json")
     ha.reset_launch_counts()
     rates = {}
     for label, spec, kernel, twin in runs:
         before = dict(ha.LAUNCHES)
+        # [cluster-obs]: the proc hybrid AdamW run records its timeline
+        trainer.trace = trace_path if label == traced else None
         runtime = trainer.build_runtime(spec)
         torch.cuda.reset_peak_memory_stats()
         monitor = CardMonitor()
@@ -848,6 +952,7 @@ def wire_runs(torch, ckpt_dir: str, P: int, inproc_rates,
             st = runtime.server.snapshot_opt_state()
             check(all(bool(torch.isfinite(torch.as_tensor(st[m])).all())
                       for m in ("mu", "nu")), f"{label}: moments not finite")
+            trace_shares(res, window, rate)
         if spec.transport == "socket":
             conns = spec.cluster_workers
             check(rx == hello * conns + grad_frame * a["computed"],
@@ -857,6 +962,37 @@ def wire_runs(torch, ckpt_dir: str, P: int, inproc_rates,
                 f"{hello} x {conns} connections + {grad_frame} x "
                 f"{a['computed']} computed")
     return dict(ha.LAUNCHES), rates
+
+
+def trace_shares(res, window: float, rate: float) -> None:
+    """[cluster-obs]: the traced run's Chrome trace, read back from its
+    file: the parent's ``grad_rx`` (25 hub reader threads, concurrent, so
+    their sum may pass 100%), ``flush`` and ``publish`` span seconds as
+    shares of the training window."""
+    path = res.extra["trace_path"]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    tracks = {e["args"]["name"] for e in events if e["ph"] == "M"
+              and e["name"] == "thread_name"}
+    spans = {}
+    for e in events:
+        if e["ph"] == "X":
+            n, s = spans.get(e["name"], (0, 0.0))
+            spans[e["name"]] = (n + 1, s + e["dur"] / 1e6)
+    for name in ("grad_rx", "flush", "publish"):
+        check(spans.get(name, (0, 0))[0] > 0,
+              f"traced run: no {name} span in {sorted(spans)}")
+    shares = {k: f"{spans[k][0]} spans {spans[k][1]:.4f} s = "
+                 f"{100 * spans[k][1] / window:.2f}%"
+              for k in ("grad_rx", "flush", "publish")}
+    log(f"[cluster-obs] proc hybrid adamw faults traced ({rate:.1f} grads/s"
+        f" with spans recorded): {len(events)} trace events on "
+        f"{len(tracks)} tracks written to {os.path.basename(path)}; the "
+        f"parent's span seconds over the {window:.2f} s training window: "
+        f"grad_rx {shares['grad_rx']} (summed over 25 concurrent hub "
+        f"readers; the bounded put, i.e. backpressure), flush "
+        f"{shares['flush']} (the flush's dispatch from the host: the "
+        f"kernel is enqueued, not waited for), publish {shares['publish']}")
 
 
 # ------------------------------------------------ cluster over hosts
@@ -956,12 +1092,25 @@ def wait_joiners(procs, label: str, timeout_s: float = 120.0):
     return codes
 
 
+def scrape(url: str):
+    """One Prometheus scrape: (HTTP status, repro_grads_applied_total)."""
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10.0) as r:
+        text = r.read().decode("utf-8")
+        status = r.status
+    applied = [int(line.split()[1]) for line in text.splitlines()
+               if line.startswith("repro_grads_applied_total ")]
+    check(len(applied) == 1, f"no repro_grads_applied_total in {text!r}")
+    return status, applied[0]
+
+
 class ElasticDirector:
     """What the elastic run's operator does, from a thread beside the
     leader: spawn the late joiners once the first gradient is applied,
-    wait for the fleet to reach the ceiling and flush at K 25, cut one
-    seed worker's connection, wait for its rejoin at the next
-    generation and a few more updates, then end the run."""
+    wait for the fleet to reach the ceiling and flush at K 25, scrape the
+    leader's Prometheus endpoint, cut one seed worker's connection, wait
+    for its rejoin at the next generation and a few more updates, watch
+    three ``top`` rows, scrape again, then end the run."""
 
     def __init__(self, runtime, spawn):
         import threading
@@ -995,6 +1144,7 @@ class ElasticDirector:
             self._poll(lambda: ha.LAUNCHES_BY_K.get(
                 ("flush_adamw", HOST_MAX), 0) > 0, 60.0,
                 f"a flush_adamw launch at K {HOST_MAX}")
+            self.marks["scrapes"] = [scrape(rt.prom_server.url)]
             self.marks["cut"] = rt.transport.kill_worker(HOST_KILLED)
             t_cut = time.monotonic()
             self._poll(lambda: any(
@@ -1005,6 +1155,13 @@ class ElasticDirector:
             mark = rt.server.applied
             self._poll(lambda: rt.server.applied >= mark + 500, 60.0,
                        "500 more gradients after the rejoin")
+            import io
+            from repro_torch.obs.top import top_main
+            out = io.StringIO()
+            self.marks["top"] = (top_main(tuple(rt.listen_address),
+                                          count=3, out=out),
+                                 out.getvalue().splitlines())
+            self.marks["scrapes"].append(scrape(rt.prom_server.url))
         except Exception as e:          # raised in the main thread
             self.error = e
         finally:
@@ -1019,6 +1176,7 @@ def host_runs(torch, ckpt_dir: str, P: int, inproc_rates, wire_rates,
     from repro_torch.cluster.hostlink import spawn_join_process
     from repro_torch.cluster.trainer import ClusterTrainer
     from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.obs.top import StatsClient
     from repro_torch.profile_sim import profiled
 
     trainer = ClusterTrainer(ckpt_dir=ckpt_dir, device="cuda")
@@ -1042,8 +1200,12 @@ def host_runs(torch, ckpt_dir: str, P: int, inproc_rates, wire_rates,
         elastic = spec.max_workers is not None
         before = dict(ha.LAUNCHES)
         before_k = dict(ha.LAUNCHES_BY_K)
+        # [cluster-obs]: the elastic leader serves /metrics, and a
+        # stats reader watches the sync run from its start
+        trainer.prom_port = 0 if elastic else None
         runtime = trainer.build_runtime(spec)
         addr = runtime.listen_address
+        reader = None if elastic else StatsClient(addr)
 
         def spawn(wid=None):
             # the seed worker whose connection is cut rejoins; no other
@@ -1067,6 +1229,8 @@ def host_runs(torch, ckpt_dir: str, P: int, inproc_rates, wire_rates,
             if director is not None:
                 director.thread.join(timeout=120)
                 procs.update(director.late)
+            if reader is not None:
+                reader.close()
             codes = wait_joiners(procs, label)
             monitor.stop()
         if director is not None and director.error is not None:
@@ -1135,8 +1299,19 @@ def host_runs(torch, ckpt_dir: str, P: int, inproc_rates, wire_rates,
             check(all(torch.equal(final[k], inproc_sync_params[k])
                       for k in final),
                   "host sync final params differ from inproc sync #1's")
+            serving = res.extra["serving"]
+            check(reader.pushes_seen >= 1 and serving["stats_clients"] == 1
+                  and serving["clients"] == 0,
+                  f"{label}: stats reader saw {reader.pushes_seen} pushes,"
+                  f" serving {serving}")
             log("[cluster-host] host sync sgd: final params bitwise equal "
                 "to [cluster]'s inproc sync sgd #1")
+            log(f"[cluster-obs] host sync sgd with a stats reader attached "
+                f"from the leader's bind: {reader.pushes_seen} pushes and "
+                f"{len(reader.backfill)} backfilled cells received, "
+                f"counted as stats client ({serving['stats_clients']}), "
+                f"never a serve client; final params still bitwise equal "
+                f"to inproc sync #1")
             continue
         grows = [e for e in events if e["event"] == "fleet_grow"]
         check(grows and min(e["from_workers"] for e in grows) == HOST_SEED
@@ -1162,6 +1337,22 @@ def host_runs(torch, ckpt_dir: str, P: int, inproc_rates, wire_rates,
         st = runtime.server.snapshot_opt_state()
         check(all(bool(torch.isfinite(torch.as_tensor(st[m])).all())
                   for m in ("mu", "nu")), f"{label}: moments not finite")
+        scrapes = director.marks["scrapes"]
+        top_code, top_lines = director.marks["top"]
+        rows = [ln for ln in top_lines if ln.startswith("[top] v")]
+        check([st for st, _ in scrapes] == [200, 200]
+              and scrapes[0][1] <= scrapes[1][1],
+              f"{label}: Prometheus scrapes {scrapes}")
+        check(top_code == 0 and len(rows) == 3,
+              f"{label}: top exited {top_code} with rows {top_lines}")
+        check(any(e["event"] == "prom_listening" for e in events),
+              f"{label}: no prom_listening event")
+        log(f"[cluster-obs] elastic leader's /metrics scraped twice: HTTP "
+            f"{scrapes[0][0]}, {scrapes[1][0]}; repro_grads_applied_total "
+            f"{scrapes[0][1]} -> {scrapes[1][1]}; top_main(count=3) exit "
+            f"{top_code}:")
+        for line in top_lines:
+            log(f"[cluster-obs]   {line}")
         log(f"[cluster-host] elastic: fleet_grow {HOST_SEED} -> {HOST_MAX} "
             f"in {len(grows)} step(s); late joiners spawned "
             f"{director.marks['release_to_late_spawn_s']:.2f} s after the "
@@ -1170,6 +1361,245 @@ def host_runs(torch, ckpt_dir: str, P: int, inproc_rates, wire_rates,
             f"generation 1 after {director.marks['cut_to_rejoin_s']:.2f} s; "
             f"{kinds.count('checkpoint')} checkpoints; moments finite")
     return dict(ha.LAUNCHES)
+
+
+# ------------------------------------------------ the serving plane
+
+def serve_plane_kernel_check(torch):
+    """The lm-tiny paths' kernel shapes, each against its plain version:
+    the three flushes at K 8 on lm-tiny's slab; rmsnorm at a serve
+    client's decode step (2 rows of D 64, f32); and the serving forward
+    of the metrics' accuracy (the simulator's and the cluster leader's,
+    on the 512 held-out sequences of 16): rmsnorm at 8192 rows of D 64
+    and flash_attention at B 512, S 16, 4 heads of 16, causal, f32."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+    errs = compare_kernels(torch, LM_P, K=SERVE_WORKERS)
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    errs["rmsnorm"] = 0.0
+    for n in (2, LM_TEST_SEQS * LM_SEQ):
+        x = torch.randn(n, 64, device="cuda", generator=gen)
+        scale = 1 + 0.1 * torch.randn(64, device="cuda", generator=gen)
+        (y,) = same_twice(torch, lambda: rms.rmsnorm(x, scale))
+        errs["rmsnorm"] = max(errs["rmsnorm"], hold(
+            torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale),
+            *RMS_TOL["float32"], f"N={n} D=64 float32"))
+    q, k, v = qkv(torch, 65, LM_TEST_SEQS, LM_SEQ, 4, 4, 16, "float32")
+    (o,) = same_twice(torch, lambda: fa.flash_attention(q, k, v,
+                                                         causal=True))
+    errs["flash_attention"] = hold(
+        torch, "flash_attention", o, ref.attention_ref(q, k, v, causal=True),
+        *FLASH_TOL["float32"], f"lm-tiny ({LM_TEST_SEQS},{LM_SEQ},4,4,16)")
+    return errs
+
+
+class ServeDirector:
+    """From a thread beside the lm-tiny leader: once the clock starts, an
+    in-process ``ServeClient`` with ``LMAdapter`` greedy-decodes
+    ``SERVE_DECODES`` successive params versions on the card, counting
+    its rmsnorm launches and each request's latency; once it and every
+    ``infer`` process are done, the run ends."""
+
+    def __init__(self, runtime, spec, infers):
+        import threading
+        self.runtime, self.spec, self.infers = runtime, spec, infers
+        self.error = None
+        self.decodes = []       # (version, latency s, tokens)
+        self.versions_seen = []
+        self.rmsnorm = 0
+        self.cut_short = True   # until the decodes end inside the run
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import rmsnorm as rms
+        from repro_torch.serve.client import ServeClient
+        from repro_torch.serve.workload import build_infer_adapter
+        rt = self.runtime
+        client = None
+        try:
+            client = ServeClient(rt.listen_address, device="cuda")
+            adapter = build_infer_adapter(self.spec, device="cuda")
+            cfg = adapter.cfg
+            norms_per_step = cfg.num_groups * sum(
+                len(g) for g in cfg.block_pattern) + 1
+            want = norms_per_step * (adapter.prompts.shape[1]
+                                     + adapter.gen_len)
+            last = -1
+            for i in range(SERVE_DECODES):
+                msg = client.wait_params(min_version=last + 1,
+                                         timeout=SERVE_BUDGET_S)
+                check(msg is not None, "the serve client got no fresh "
+                      f"params after version {last}")
+                last = msg.version
+                before = (rms.LAUNCHES["rmsnorm"],
+                          fa.LAUNCHES["flash_attention"])
+                t0 = time.perf_counter()
+                out = adapter.run(adapter.decode(msg.params), i)
+                dt = time.perf_counter() - t0
+                norms = rms.LAUNCHES["rmsnorm"] - before[0]
+                flash = fa.LAUNCHES["flash_attention"] - before[1]
+                # one launch for each norm of each decode step (the
+                # prompt is replayed a token at a time); decode attends
+                # to its cache with plain attention.  The leader's metric
+                # forwards run once the run has stopped, and cut_short
+                # shows it stopped after these decodes: no other launch
+                # of this process lands in the delta.
+                check(norms == want and flash == 0,
+                      f"the serve client's request {i} launched rmsnorm "
+                      f"{norms} times (want {want}) and flash {flash}")
+                self.rmsnorm += norms
+                self.decodes.append((msg.version, dt, out["tokens"]))
+            self.cut_short = rt._stop.is_set()
+            for p in self.infers:
+                p.wait(timeout=SERVE_BUDGET_S)
+            # a training window long enough to read a rate and the
+            # card's utilization from
+            while time.monotonic() - rt._t0 < SERVE_MIN_S:
+                time.sleep(0.05)
+            self.versions_seen = list(client.versions_seen)
+        except Exception as e:          # raised in the main thread
+            self.error = e
+        finally:
+            if client is not None:
+                client.close()
+            server = getattr(rt, "server", None)
+            if server is not None:
+                server.done.set()       # end the run
+
+
+def drive_serve_plane(torch):
+    """The serving plane on the card: an ``lm-tiny`` host leader (hybrid
+    AdamW, ``serve_every=2``) with ``SERVE_WORKERS`` ``python -m
+    repro_torch join`` processes training, ``INFER_PROCS`` ``python -m
+    repro_torch infer`` processes and one in-process ``ServeClient``
+    decoding through the rmsnorm kernel while the flush kernels update
+    the params.  Returns the kernels' launches in this run."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as tmp:
+        return serve_plane_run(torch, tmp)
+
+
+def serve_plane_run(torch, tmp: str):
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.cluster.hostlink import spawn_join_process
+    from repro_torch.cluster.trainer import ClusterTrainer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.serve.client import spawn_infer_process
+
+    spec = ExperimentSpec(
+        arch="lm-tiny", backend="cluster", smoke=False, seed=0, lr=0.01,
+        batch=32, cluster_workers=SERVE_WORKERS, mode="hybrid",
+        schedule=CLUSTER_SCHEDULE, optimizer="adamw", transport="host",
+        listen="127.0.0.1:0", heartbeat_s=2.0, serve_every=SERVE_EVERY,
+        wall_budget_s=SERVE_BUDGET_S, wall_sample_every_s=5.0)
+    trainer = ClusterTrainer(device="cuda")
+    runtime = trainer.build_runtime(spec)
+    addr = runtime.listen_address
+    ha.reset_launch_counts()
+    rms.reset_launch_counts()
+    fa.reset_launch_counts()
+    monitor = CardMonitor()
+    t_spawn = time.monotonic()
+    joiners = {w: spawn_join_process(addr, device="cuda",
+                                     connect_timeout=600.0, reconnect_s=0)
+               for w in range(SERVE_WORKERS)}
+    logs = [open(os.path.join(tmp, f"infer{i}.log"), "w+")
+            for i in range(INFER_PROCS)]
+    infers = [spawn_infer_process(addr, requests=INFER_REQUESTS,
+                                  device="cuda", connect_timeout=600.0,
+                                  quiet=False, stdout=f) for f in logs]
+    director = ServeDirector(runtime, spec, infers)
+    director.thread.start()
+    try:
+        res = trainer.finish(runtime, spec)
+    finally:
+        director.thread.join(timeout=120)
+        infer_codes = wait_joiners(dict(enumerate(infers)), "infer")
+        codes = wait_joiners(joiners, "[cluster-serve] joiners")
+        monitor.stop()
+    if director.error is not None:
+        raise director.error
+    launches = dict(ha.LAUNCHES, rmsnorm=rms.LAUNCHES["rmsnorm"],
+                    flash_attention=fa.LAUNCHES["flash_attention"])
+    by_k = dict(ha.LAUNCHES_BY_K)
+    a = check_ledger(res, "[cluster-serve]")
+    check(launches["flush_adamw"] == res.num_updates + 1
+          and by_k.get(("flush_adamw", SERVE_WORKERS), 0) ==
+          res.num_updates + 1 and launches["flush"] ==
+          launches["flush_momentum"] == 0,
+          f"[cluster-serve]: launches {launches}, by K {by_k}, "
+          f"{res.num_updates} updates")
+    window = res.extra["serve_wall_s"]
+    utils, card_peak, _, _ = monitor.window(runtime, window,
+                                            "[cluster-serve]")
+    serving = res.extra["serving"]
+    check(serving["clients"] == INFER_PROCS + 1
+          and serving["serve_every"] == SERVE_EVERY,
+          f"[cluster-serve]: serving {serving}")
+    skipped = sum(c["skipped_pushes"] for c in serving["per_client"])
+    check(skipped > 0, f"[cluster-serve]: no push skipped: {serving}")
+    # each infer process's report: request, version, latency
+    infer_rows = []
+    for f in logs:
+        f.seek(0)
+        rows = [(int(m.group(1)), float(m.group(2))) for m in (
+            re.search(r"params v(\d+) ([\d.]+)ms", line) for line in f)
+            if m]
+        f.close()
+        check(len(rows) == INFER_REQUESTS,
+              f"[cluster-serve]: an infer process served {rows}")
+        versions = [v for v, _ in rows]
+        check(versions == sorted(versions),
+              f"[cluster-serve]: infer versions went back: {versions}")
+        infer_rows.append(rows)
+    seen = director.versions_seen
+    versions = [v for v, _, _ in director.decodes]
+    check(len(versions) == SERVE_DECODES and versions == sorted(set(
+        versions)) and seen == sorted(set(seen)),
+          f"[cluster-serve]: in-process client decoded {versions}, saw "
+          f"{seen}")
+    check(all(v % SERVE_EVERY == 0 for v in seen),
+          f"[cluster-serve]: a down-sampled version was pushed: {seen}")
+    check(director.rmsnorm > 0 and not director.cut_short,
+          "[cluster-serve]: the serve client's decode launched no rmsnorm "
+          "kernel, or the run ended before its decodes did")
+    rate = res.num_gradients / window
+    lat = [1e3 * dt for _, dt, _ in director.decodes]
+    infer_lat = [ms for rows in infer_rows for _, ms in rows]
+    log(f"[cluster-serve] lm-tiny host hybrid adamw, {SERVE_WORKERS} joined "
+        f"processes, serve_every {SERVE_EVERY}: {res.num_gradients} grads "
+        f"in {window:.2f} s ({rate:.1f} grads/s), {res.num_updates} "
+        f"updates; ledger computed {a['computed']} == applied "
+        f"{a['applied']} + dropped {a['dropped']} + buffered "
+        f"{a['buffered']} + pending {a['pending_round']} + in flight "
+        f"{a['in_flight']}; flush_adamw launches {launches['flush_adamw']}"
+        f" = {res.num_updates} updates + 1 warm-up, by staging rows K "
+        f"{by_k}; first spawn to release {runtime._t0 - t_spawn:.2f} s; "
+        f"card utilization (nvidia-smi, 0.2 s) mean "
+        f"{statistics.mean(utils):.1f}% median "
+        f"{statistics.median(utils):.1f}% over {len(utils)} samples; peak "
+        f"card memory {card_peak:.0f} MiB; joiner exit codes "
+        f"{sorted(set(codes.values()))} x {len(codes)}, infer exit codes "
+        f"{list(infer_codes.values())}")
+    log(f"[cluster-serve] serving: {serving['clients']} clients, "
+        f"{skipped} pushes skipped by serve_every, per client "
+        f"{[(c['pushes'], c['skipped_pushes'], c['last_version']) for c in serving['per_client']]}"
+        f" (pushes, skipped, last version)")
+    log(f"[cluster-serve] in-process ServeClient (LMAdapter, batch 2, prompt"
+        f" 8, gen 8): versions {versions} decoded in "
+        f"{', '.join(f'{x:.1f}' for x in lat)} ms; rmsnorm launches "
+        f"{director.rmsnorm} ({director.rmsnorm // SERVE_DECODES} a "
+        f"request); tokens {[t for _, _, t in director.decodes]}")
+    log(f"[cluster-serve] infer processes: versions "
+        f"{[[v for v, _ in rows] for rows in infer_rows]}, latency per "
+        f"request mean {statistics.mean(infer_lat):.1f} ms median "
+        f"{statistics.median(infer_lat):.1f} ms (their own clocks, "
+        f"{len(infer_lat)} requests)")
+    return launches
 
 
 # ------------------------------------------------------- serving path
@@ -1551,9 +1981,15 @@ def main() -> int:
                                    sync_params).items():
         launches[name] += n
     log(f"[phase] cluster-host path done at {time.time() - t_start:.1f} s")
+    for name, err in serve_plane_kernel_check(torch).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    for name, n in drive_serve_plane(torch).items():
+        launches[name] += n
+    log(f"[phase] cluster-serve path done at {time.time() - t_start:.1f} s")
 
     D = get_config(ARCH).d_model
-    errs.update(compare_lm_kernels(torch, D))
+    for name, err in compare_lm_kernels(torch, D).items():
+        errs[name] = max(errs.get(name, 0.0), err)
     lm_times = time_lm_kernels(torch, D)
     # each kernel's line holds its time at the shape the path launches
     # most: rmsnorm at a decode step's rows, flash at the long prefill
@@ -1568,7 +2004,8 @@ def main() -> int:
             f"wrapper call {t['ms']:.6f} ms (CUDA events)")
     cross_check_serve_small(torch)
     serve_launches, _ = drive_serve_path(torch)
-    launches.update(serve_launches)
+    for name, n in serve_launches.items():
+        launches[name] += n
     log(f"[phase] serving path done at {time.time() - t_start:.1f} s")
     for name in PORTED:
         check(launches[name] > 0, f"{name} was never launched")

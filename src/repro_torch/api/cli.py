@@ -17,12 +17,22 @@ Subcommands:
   join      join a cluster leader as one or more workers: the spec
             arrives over the wire, the workload is rebuilt here
             (repro_torch.cluster.hostlink)
+  infer     connect to a training leader as a read-only serve client:
+            stream fresh params and run inference on every pushed
+            version (repro_torch.serve)
+  top       connect to a training leader as a read-only stats client:
+            stream live telemetry (grads/s, staleness p50/p99, ledger)
+            without perturbing the run (repro_torch.obs.top)
+  trace     run a cluster experiment with tracing on and write a Chrome
+            trace-event / Perfetto JSON timeline: sugar for ``run
+            --backend cluster --trace FILE``
   schedules list the registered threshold-schedule families
 
-Every run, serve and join takes ``--device {cuda,cpu}`` (default
+Every run, serve, join and infer takes ``--device {cuda,cpu}`` (default
 ``cuda``); without ``--device cpu`` a host with no CUDA is an error,
 never a CPU run.  The spec and pool flags are those of ``python -m
-repro``.
+repro``.  Every entry point shares one logging setup
+(:func:`setup_logging`, ``--log-level``, default warning).
 
 Examples:
   python -m repro_torch simulate --smoke
@@ -40,6 +50,10 @@ Examples:
   python -m repro_torch serve --listen 0.0.0.0:5555 --arch mlp \\
       --cluster-workers 2 --wall-budget 30
   python -m repro_torch join LEADER_HOST:5555 --workers 2
+  python -m repro_torch infer LEADER_HOST:5555 --requests 8
+  python -m repro_torch top LEADER_HOST:5555 --duration 10
+  python -m repro_torch trace /tmp/t.json --arch mlp --device cpu \
+      --transport proc --cluster-workers 2 --wall-budget 5
 """
 from __future__ import annotations
 
@@ -54,11 +68,30 @@ from repro_torch.api.schedules import schedule_help
 from repro_torch.api.spec import BACKENDS, FLUSH_MODES, MODES, ExperimentSpec
 from repro_torch.cluster.faults import parse_fault_pairs
 
+_LOG_LEVELS = ("debug", "info", "warning", "error")
+
+
+def setup_logging(level: Optional[str] = None) -> None:
+    """The logging setup every entry point shares: ``repro_torch.*``
+    logger names, one line format, stderr.  Idempotent (``basicConfig``
+    does nothing once a handler exists), and the level applies to this
+    package's loggers only."""
+    import logging
+    lvl = getattr(logging, (level or "warning").upper(), logging.WARNING)
+    logging.basicConfig(
+        level=lvl,
+        format="%(asctime)s.%(msecs)03d %(name)s %(levelname)s: "
+               "%(message)s",
+        datefmt="%H:%M:%S", stream=sys.stderr)
+    logging.getLogger("repro_torch").setLevel(lvl)
+
+
 # CLI flag -> (spec field, type, help).  Every flag defaults to None so
 # that only explicitly-passed flags override the --spec file / dataclass
 # defaults.
 _SPEC_FLAGS = [
-    ("--arch", "arch", str, "workload: mlp | cnn-mnist | cnn-cifar"),
+    ("--arch", "arch", str,
+     "workload: mlp | cnn-mnist | cnn-cifar | lm-tiny"),
     ("--mode", "mode", str, f"one of {MODES}"),
     ("--schedule", "schedule", str,
      'threshold schedule spec, e.g. "step:300"'),
@@ -96,7 +129,11 @@ _SPEC_FLAGS = [
      "cluster: stop after N applied gradients"),
     ("--heartbeat", "heartbeat_s", float,
      "cluster host transport: leader-liveness PING cadence in seconds "
-     "(0 disables; workers size their hung-leader watchdog from it)"),
+     "(0 disables; workers and serve clients size their hung-leader "
+     "watchdog from it)"),
+    ("--serve-every", "serve_every", int,
+     "serving plane: push every Nth params version to serve clients "
+     "(staleness-vs-bandwidth knob; default 1 = every version)"),
     ("--max-workers", "max_workers", int,
      "cluster host transport: elastic admission ceiling — join workers "
      "beyond --cluster-workers grow the fleet while the run goes on, up "
@@ -166,6 +203,18 @@ def _add_spec_flags(ap: argparse.ArgumentParser, backend_flag: bool):
                          "response on JOIN); an invocation credential, "
                          "never written into the spec (env: "
                          "REPRO_JOIN_SECRET)")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="cluster: write a Chrome trace-event / Perfetto "
+                         "JSON timeline of the run here (load it in "
+                         "ui.perfetto.dev or chrome://tracing)")
+    ap.add_argument("--prom-port", type=int, default=None, metavar="N",
+                    help="cluster: serve a Prometheus /metrics endpoint "
+                         "on this port while the run lasts (live ledger, "
+                         "staleness quantiles, wire byte counters; 0 = "
+                         "pick a free port, logged as a prom_listening "
+                         "event)")
+    ap.add_argument("--log-level", choices=_LOG_LEVELS, default=None,
+                    help="repro_torch.* logger level (default warning)")
 
 
 def _build_spec(args, backend: Optional[str]) -> ExperimentSpec:
@@ -203,10 +252,22 @@ def _summary(result) -> dict:
 
 
 def _cmd_run(args, forced_backend: Optional[str] = None) -> int:
+    setup_logging(args.log_level)
     spec = _build_spec(args, forced_backend or getattr(args, "backend",
                                                        None))
     if args.save_spec:
         spec.save(args.save_spec)
+    trace, prom_port = args.trace, args.prom_port
+    if trace and spec.backend != "cluster":
+        print(f"warning: --trace records the cluster runtime's "
+              f"timeline and does nothing on backend="
+              f"{spec.backend!r}; ignoring it", file=sys.stderr)
+        trace = None
+    if prom_port is not None and spec.backend != "cluster":
+        print(f"warning: --prom-port exposes the cluster runtime's "
+              f"live stats and does nothing on backend="
+              f"{spec.backend!r}; ignoring it", file=sys.stderr)
+        prom_port = None
     if spec.backend == "cluster":
         from repro_torch.cluster.trainer import ClusterTrainer
         trainer = ClusterTrainer(
@@ -214,7 +275,7 @@ def _cmd_run(args, forced_backend: Optional[str] = None) -> int:
             verbose=not args.quiet,
             join_secret=args.join_secret
             or os.environ.get("REPRO_JOIN_SECRET") or None,
-            device=args.device)
+            trace=trace, prom_port=prom_port, device=args.device)
     else:
         from repro_torch.api.trainers import get_trainer
         trainer = get_trainer(spec.backend, device=args.device)
@@ -279,7 +340,10 @@ def _cmd_join(rest: List[str]) -> int:
                     help="where this host computes its gradients "
                          "(default cuda; a host without CUDA needs "
                          "--device cpu, and exits 2 without it)")
+    ap.add_argument("--log-level", choices=_LOG_LEVELS, default=None,
+                    help="repro_torch.* logger level (default warning)")
     args = ap.parse_args(rest)
+    setup_logging(args.log_level)
     from repro_torch.cluster.hostlink import join_main
     code = join_main(args.address, worker_id=args.worker_id,
                      workers=args.workers,
@@ -293,6 +357,86 @@ def _cmd_join(rest: List[str]) -> int:
     # no interpreter teardown: everything is flushed, and unwinding the
     # worker's threads and a CUDA context gains nothing (as a proc child)
     os._exit(code)
+
+
+def _cmd_infer(rest: List[str]) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch infer",
+        description="read-only serve client: subscribe to a training "
+                    "leader's params broadcast and run inference on "
+                    "every pushed version (repro_torch.serve); the "
+                    "leader's WELCOME carries the spec, so this host "
+                    "only needs the repro_torch package")
+    ap.add_argument("address", metavar="HOST:PORT",
+                    help="the leader's listen address "
+                         "(serve --listen HOST:PORT)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="run this many inference requests (default 8)")
+    ap.add_argument("--duration", type=float, default=None,
+                    help="stop after this many seconds even if "
+                         "--requests has not been reached")
+    ap.add_argument("--batch", type=int, default=2,
+                    help="inference batch size (prompts per request)")
+    ap.add_argument("--prompt-len", type=int, default=8,
+                    help="prompt length in tokens (lm archs)")
+    ap.add_argument("--gen-len", type=int, default=8,
+                    help="tokens to generate per request (lm archs)")
+    ap.add_argument("--connect-timeout", type=float, default=60.0,
+                    help="keep retrying the leader for this many "
+                         "seconds (the leader may not be up yet)")
+    ap.add_argument("--quiet", action="store_true",
+                    help="suppress per-request logs")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where inference runs (default cuda; a host "
+                         "without CUDA needs --device cpu)")
+    ap.add_argument("--log-level", choices=_LOG_LEVELS, default=None,
+                    help="repro_torch.* logger level (default warning)")
+    args = ap.parse_args(rest)
+    setup_logging(args.log_level)
+    from repro_torch.serve.client import infer_main
+    code = infer_main(args.address, requests=args.requests,
+                      duration_s=args.duration, batch=args.batch,
+                      prompt_len=args.prompt_len, gen_len=args.gen_len,
+                      connect_timeout=args.connect_timeout,
+                      verbose=not args.quiet, device=args.device)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # no interpreter teardown, as for join: everything is flushed, and
+    # unwinding a CUDA context's threads gains nothing
+    os._exit(code)
+
+
+def _cmd_top(rest: List[str]) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch top",
+        description="read-only stats client: stream a training leader's "
+                    "live telemetry (grads/s, staleness p50/p99, the "
+                    "conservation ledger) one line per push, without "
+                    "perturbing the run (repro_torch.obs.top)")
+    ap.add_argument("address", metavar="HOST:PORT",
+                    help="the leader's listen address "
+                         "(serve --listen HOST:PORT)")
+    ap.add_argument("--count", type=int, default=None,
+                    help="stop after this many stats rows")
+    ap.add_argument("--duration", type=float, default=None,
+                    help="stop after this many seconds")
+    ap.add_argument("--connect-timeout", type=float, default=30.0,
+                    help="keep retrying the leader for this many "
+                         "seconds (the leader may not be up yet)")
+    ap.add_argument("--prom-port", type=int, default=None, metavar="N",
+                    help="also serve the newest stats push as a "
+                         "Prometheus /metrics endpoint on this port "
+                         "(0 = pick a free port; printed at start-up)")
+    ap.add_argument("--log-level", choices=_LOG_LEVELS, default=None,
+                    help="repro_torch.* logger level (default warning)")
+    args = ap.parse_args(rest)
+    setup_logging(args.log_level)
+    # no device and no tensor here: it renders JSON, so a normal return
+    from repro_torch.obs.top import top_main
+    return top_main(args.address, count=args.count,
+                    duration_s=args.duration,
+                    connect_timeout=args.connect_timeout,
+                    prom_port=args.prom_port)
 
 
 def _cmd_serve_leader(rest: List[str]) -> int:
@@ -326,6 +470,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv and argv[0] == "join":
         # dispatched before the main parse (positional HOST:PORT)
         return _cmd_join(argv[1:])
+    if argv and argv[0] == "infer":
+        return _cmd_infer(argv[1:])
+    if argv and argv[0] == "top":
+        return _cmd_top(argv[1:])
     if argv and argv[0] == "serve" and any(
             a == "--listen" or a.startswith("--listen=") for a in argv[1:]):
         return _cmd_serve_leader(argv[1:])
@@ -338,6 +486,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_sim = sub.add_parser("simulate",
                            help="run the paper-faithful simulator backend")
     _add_spec_flags(p_sim, backend_flag=False)
+    p_trace = sub.add_parser(
+        "trace", help="run a cluster experiment with tracing on and "
+                      "write a Perfetto/Chrome trace-event JSON timeline "
+                      "(trace FILE [run flags])")
+    p_trace.add_argument("tracefile", metavar="FILE",
+                         help="trace JSON output path")
+    _add_spec_flags(p_trace, backend_flag=False)
     p_serve = sub.add_parser("serve", help="greedy decode on a registry "
                              "model (prefill replayed through decode); "
                              "with --listen HOST:PORT the multi-host "
@@ -347,12 +502,28 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub.add_parser("join", help="join a cluster leader as one or more "
                                 "workers (join HOST:PORT --workers N)",
                    add_help=False)
+    sub.add_parser("infer", help="read-only serve client: stream fresh "
+                                 "params from a training leader and run "
+                                 "inference (infer HOST:PORT)",
+                   add_help=False)
+    sub.add_parser("top", help="read-only stats client: stream live "
+                               "telemetry from a training leader "
+                               "(top HOST:PORT)", add_help=False)
     sub.add_parser("schedules", help="list threshold-schedule families")
     args = ap.parse_args(argv)
 
     if args.cmd == "serve":
         return serve.run(args)
 
+    if args.cmd == "trace":
+        # sugar for `run --backend cluster --trace FILE`
+        if args.trace is None:
+            args.trace = args.tracefile
+        try:
+            return _cmd_run(args, forced_backend="cluster")
+        except (ValueError, FileNotFoundError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     if args.cmd in ("run", "simulate"):
         try:
             return _cmd_run(args) if args.cmd == "run" \

@@ -15,9 +15,9 @@ The port runs ``backend="sim"`` and ``backend="cluster"``; ``spmd`` is
 recognised and refused with :class:`NotImplementedError` until its
 slice lands.  The cluster backend runs all four transports: ``inproc``,
 ``socket``, ``proc`` and ``host`` (``listen``, ``heartbeat_s`` and the
-elastic ceiling ``max_workers`` are the host transport's).
-``serve_every`` is kept and validated so the reference's JSON loads;
-the serving plane it tunes comes with ROADMAP A11.
+elastic ceiling ``max_workers`` are the host transport's, and so is
+``serve_every``, which down-samples the params pushes to read-only
+serve clients).
 """
 from __future__ import annotations
 

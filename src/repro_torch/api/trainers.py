@@ -2,8 +2,8 @@
 
 :class:`SimulatorTrainer` runs ``backend="sim"``, the paper-faithful
 event-driven parameter-server simulator.  ``spec.arch`` names a
-registered workload (``mlp``, ``cnn-mnist``, ``cnn-cifar``; extend via
-:func:`register_sim_workload`), or pass a prepared ``(loss_fn,
+registered workload (``mlp``, ``cnn-mnist``, ``cnn-cifar``, ``lm-tiny``;
+extend via :func:`register_sim_workload`), or pass a prepared ``(loss_fn,
 init_params, data, accuracy_fn)`` to the constructor.  Mirrors
 ``src/repro/api/trainers.py``.  ``backend="cluster"`` is
 :class:`repro_torch.cluster.trainer.ClusterTrainer`, loaded on first
@@ -72,10 +72,17 @@ def _cnn_workload(dataset_name: str, image_shape):
     return build
 
 
+def _lm_tiny_workload(spec: ExperimentSpec, device: torch.device):
+    # imported here: the model stack is not needed by classifier runs
+    from repro_torch.serve.workload import lm_tiny_workload
+    return lm_tiny_workload(spec, device)
+
+
 register_sim_workload("mlp", _mlp_workload)
 register_sim_workload("cnn-mnist", _cnn_workload("mnist_like", (28, 28, 1)))
 register_sim_workload("cnn-cifar", _cnn_workload("cifar10_like",
                                                  (32, 32, 3)))
+register_sim_workload("lm-tiny", _lm_tiny_workload)
 
 
 def _full_f32(device: torch.device) -> None:

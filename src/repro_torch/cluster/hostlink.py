@@ -51,8 +51,17 @@ The leader cannot respawn a remote worker: a kill on this transport
 cuts the worker's connection (the remote process exits cleanly on EOF),
 and replacement capacity rejoins from its own host — ``join
 --reconnect`` does exactly that, resuming the old lease at the next
-generation.  The reference's serve and stats handshakes
-(``negotiate_serve``, ``negotiate_stats``) come with ROADMAP A11.
+generation.
+
+The host hub also admits read-only peers: a **serve client** (SERVE,
+``python -m repro_torch infer``) gets a WELCOME with the spec, a
+``serve_id`` and the push cadence, then the coalesced params broadcast
+(every ``serve_every``-th version); a **stats client** (STATS, ``python
+-m repro_torch top``) gets a ``stats_id`` and the telemetry push.
+Neither holds a lease, sits in the fleet barrier or enters the ledger,
+and neither is challenged: they can observe, never contribute.
+:func:`negotiate_serve` and :func:`negotiate_stats` are their
+handshakes.
 """
 from __future__ import annotations
 
@@ -77,7 +86,7 @@ from repro_torch.cluster.mptransport import (
     SocketTransport,
     SocketWorkerClient, WireProtocolError, _auth_digest, _auth_frame,
     _challenge_frame, _join_frame, _peer_error, _recv_exact,
-    _welcome_frame, set_torch_flags)
+    _serve_frame, _stats_frame, _welcome_frame, set_torch_flags)
 from repro_torch.cluster.worker import wait_for
 from repro_torch.convert import Device, resolve_device, to_device
 from repro_torch.core.slab import slab_codec
@@ -135,21 +144,23 @@ class HostTransport(SocketTransport):
     ``num_workers`` (the admission ceiling: the shard space) and
     ``heartbeat_s`` (the PING cadence, from which joiners size their
     hung-leader watchdog).  ``kill_worker`` cuts a connection: the
-    leader does not own the remote process.
+    leader does not own the remote process.  ``serve_every``
+    down-samples the serve clients' push stream.
     """
 
     def __init__(self, grad_capacity: int = 0, *,
                  host: str = "127.0.0.1", port: int = 0,
                  num_workers: int, welcome_config:
                  Optional[Dict[str, Any]] = None,
-                 heartbeat_s: float = 2.0,
+                 heartbeat_s: float = 2.0, serve_every: int = 1,
                  max_workers: Optional[int] = None,
                  join_secret: Optional[str] = None,
                  lease_grace_s: float = 2.0,
                  slab_dtype: str = "f32", device: Device = None):
         super().__init__(grad_capacity, family="tcp", host=host,
                          port=port, heartbeat_s=heartbeat_s,
-                         slab_dtype=slab_dtype, device=device)
+                         serve_every=serve_every, slab_dtype=slab_dtype,
+                         device=device)
         self.num_workers = int(num_workers)
         # the admission ceiling AND the data-shard space: every joiner
         # shards over max_workers for the whole run.  With no elastic
@@ -252,6 +263,42 @@ class HostTransport(SocketTransport):
                    heartbeat_s=self.heartbeat_s)
         conn.send_frame(_welcome_frame(cfg))
         _log.info("leased worker id %d (generation %d)", wid, generation)
+        return None
+
+    def _on_serve(self, conn) -> Optional[str]:
+        """Admit a read-only serve client: no lease, no shard, no
+        barrier seat; a ``serve_id`` and a WELCOME carrying the spec, so
+        the client can rebuild the model.  It decodes the broadcast in
+        the run's slab dtype (the spec names it)."""
+        with self._lease_lock:
+            sid = self._serve_seq
+            self._serve_seq += 1
+        conn.is_serve = True
+        conn.serve_id = sid
+        conn.slab_dtype = self.slab_dtype
+        cfg = dict(self.welcome_config)
+        cfg.update(role="serve", serve_id=sid,
+                   heartbeat_s=self.heartbeat_s,
+                   serve_every=self.serve_every)
+        conn.send_frame(_welcome_frame(cfg))
+        _log.info("admitted serve client %d (read-only)", sid)
+        return None
+
+    def _on_stats(self, conn) -> Optional[str]:
+        """Admit a read-only stats client: no lease and no spec, a
+        ``stats_id`` and the push cadence.  WELCOME goes out here,
+        before :meth:`_on_stats_ready` adds the connection to the push
+        list, so the client sees WELCOME before any STATS frame."""
+        with self._lease_lock:
+            sid = self._stats_seq
+            self._stats_seq += 1
+        conn.is_stats = True
+        conn.stats_id = sid
+        cfg = {"role": "stats", "stats_id": sid,
+               "heartbeat_s": self.heartbeat_s,
+               "stats_every_s": self.stats_every_s}
+        conn.send_frame(_welcome_frame(cfg))
+        _log.info("admitted stats client %d (read-only)", sid)
         return None
 
     def _admit_hello(self, conn, worker_id: int,
@@ -388,6 +435,35 @@ def negotiate_join(address: Any, *, worker_id: Optional[int] = None,
                 # generic timeout
                 raise last_busy
             raise
+
+
+def negotiate_serve(address: Any, *, connect_timeout: float = 30.0
+                    ) -> Tuple[socket.socket, Dict[str, Any]]:
+    """The SERVE handshake: connect read-only, return ``(connected
+    socket, welcome config)``.  No lease, so no busy retry: a rejection
+    is permanent and raises :class:`WireProtocolError` with the
+    leader's reason."""
+    return _read_only_handshake(address, _serve_frame(), "serve",
+                                connect_timeout)
+
+
+def negotiate_stats(address: Any, *, connect_timeout: float = 30.0
+                    ) -> Tuple[socket.socket, Dict[str, Any]]:
+    """The STATS handshake (``top``): connect as a read-only telemetry
+    subscriber, return ``(connected socket, welcome config)``; as
+    :func:`negotiate_serve`."""
+    return _read_only_handshake(address, _stats_frame(), "stats",
+                                connect_timeout)
+
+
+def _read_only_handshake(address: Any, request: bytes, what: str,
+                         connect_timeout: float
+                         ) -> Tuple[socket.socket, Dict[str, Any]]:
+    host, port = parse_hostport(address) if isinstance(address, str) \
+        else tuple(address)[:2]
+    deadline = time.monotonic() + max(0.0, connect_timeout)
+    sock = _connect_retry(host, int(port), max(0.0, connect_timeout))
+    return sock, _leader_handshake(sock, request, deadline, what=what)
 
 
 def _leader_handshake(sock: socket.socket, request: bytes,

@@ -30,25 +30,48 @@ packages' hubs and clients talk to each other)::
     PARAMS  := !ii  raw-slab  version, restore-epoch          (hub ->)
     PING    := !IH            magic, proto — leader liveness  (hub ->)
     PONG    := !IH            magic, proto — liveness reply
+    SERVE   := !IH            magic, proto — read-only params subscribe
+    STATS   := !IH [json]     magic, proto — read-only stats subscribe
+                              (client ->, empty body); one stats push
+                              (hub ->, JSON body)
     CHALLENGE := !IH nonce    magic, proto, 32-byte nonce    (hub ->)
     AUTH    := !IH digest     magic, proto, HMAC-SHA256(secret, nonce)
 
 ``raw-slab`` is the ``(P_pad,)`` slab as little-endian ``<f4``, or for
 a bf16 connection (negotiated by the one trailing byte of HELLO') the
 raw little-endian bf16 bit patterns (``<u2``: the ``int16`` view of a
-``torch.bfloat16`` tensor).  The reference's SERVE and STATS frames
-(the serving and stats planes, ROADMAP A11) are recognised, and a peer
-that sends one is rejected with a REJECT naming that item.
+``torch.bfloat16`` tensor).
 
-The first frame on every accepted connection must be a HELLO or JOIN
-carrying the protocol magic and version: a stray client is rejected
-with a logged, readable error and a best-effort REJECT frame
+The first frame on every accepted connection must be a HELLO, JOIN,
+SERVE or STATS carrying the protocol magic and version: a stray client
+is rejected with a logged, readable error and a best-effort REJECT frame
 (:attr:`SocketTransport.rejected_peers` counts them), never admitted to
 the fleet.  Frame lengths are validated before any payload is read.
 The plain hub answers every control frame as the reference's plain hub
-does: a JOIN or AUTH with a REJECT (only the multi-host hub leases ids
-or issues challenges), a first frame of any other type with a REJECT,
-and a PONG, or an unknown frame after HELLO, not at all.
+does: a JOIN, AUTH, SERVE or STATS with a REJECT (only the multi-host
+hub leases ids, issues challenges and admits read-only peers), a first
+frame of any other type with a REJECT, and a PONG, or an unknown frame
+after HELLO, not at all.
+
+**Serving plane**: a peer whose first frame is SERVE becomes a read-only
+subscriber to the params broadcast (``python -m repro_torch infer``).
+It never holds a worker id, so the fleet barrier, ``live_workers``,
+``received_counts`` and with them the ledger exclude it, and a GRAD it
+sends is rejected.  It gets the same lazily encoded PARAMS frames the
+workers get; ``serve_every`` down-samples its stream to every Nth
+version (version 0 always ships), and a skipped version is never
+encoded for it.  :meth:`SocketTransport.serve_stats` reports pushes,
+last version and skips per client.
+
+**Stats plane**: a peer whose first frame is STATS becomes a read-only
+subscriber to the hub's telemetry push (``python -m repro_torch top``):
+a small JSON payload from :attr:`SocketTransport.stats_provider` every
+``stats_every_s``.  Stats peers are never sent the params broadcast at
+all, so a sync run with a stats reader attached stays bitwise equal.
+The cadence thread starts when a provider is installed and records each
+payload in a ring of ``_STATS_HISTORY_LEN`` cells, subscribers or not; a
+new stats reader is first sent the ring as one ``{"history": [...]}``
+frame, then the current payload, then live pushes.
 
 **Liveness**: with ``heartbeat_s > 0`` the hub PINGs every
 authenticated connection on that cadence.  A client replies PONG and
@@ -87,6 +110,7 @@ workers idle in ``fetch_params``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import hmac
@@ -129,13 +153,13 @@ _F_SERVE, _F_PING, _F_PONG = 7, 8, 9
 _F_STATS = 10
 _F_CHALLENGE, _F_AUTH = 11, 12
 
-# frames of the reference's protocol this port does not serve yet:
-# type -> (name, the ROADMAP item that brings it)
-_NOT_YET = {_F_SERVE: ("SERVE", "A11"), _F_STATS: ("STATS", "A11")}
-
 # HMAC-SHA256 over the challenge nonce: both sides fixed-size
 _AUTH_NONCE_LEN = 32
 _AUTH_DIGEST_LEN = 32
+
+# the leader's ring of recent stats cells: enough for a late `top` to
+# backfill rates (two minutes at the default 0.5 s cadence)
+_STATS_HISTORY_LEN = 240
 
 # one frame must fit in memory several times over; anything bigger is a
 # corrupted header (a reader that lost frame sync), not a real slab
@@ -251,6 +275,17 @@ def _reject_frame(reason: str) -> bytes:
     return _ctrl_frame(_F_REJECT, reason.encode("utf-8"))
 
 
+def _serve_frame() -> bytes:
+    """Read-only params subscribe request (client ->, first frame)."""
+    return _ctrl_frame(_F_SERVE, b"")
+
+
+def _stats_frame(payload: bytes = b"") -> bytes:
+    """Empty body: a read-only stats subscribe request (client ->,
+    first frame).  JSON body: one stats push (hub ->)."""
+    return _ctrl_frame(_F_STATS, payload)
+
+
 def _challenge_frame(nonce: bytes) -> bytes:
     """Authenticated-JOIN challenge (hub ->): prove you hold the shared
     join secret before the lease is granted."""
@@ -296,9 +331,8 @@ def _configure(sock: socket.socket) -> None:
 
 
 class _Conn:
-    """One accepted worker connection: a reader thread (gradients and
-    control frames in) and a writer thread (coalesced params broadcast
-    out)."""
+    """One accepted connection: a reader thread (gradients and control
+    frames in) and a writer thread (coalesced params broadcast out)."""
 
     def __init__(self, hub: "SocketTransport", sock: socket.socket):
         self.hub = hub
@@ -309,7 +343,7 @@ class _Conn:
         # HELLO carried a dtype byte.  It decodes GRAD, validates GRAD
         # lengths and picks the encoded PARAMS frame the writer pushes
         self.slab_dtype = "f32"
-        self.authenticated = False          # valid HELLO or JOIN seen
+        self.authenticated = False          # valid HELLO/JOIN/SERVE/STATS
         self.leased_wid: Optional[int] = None   # set by a JOIN lease
         # authenticated-JOIN state (hubs with a join secret): a JOIN is
         # parked as pending_join while the CHALLENGE round-trips; the
@@ -318,9 +352,21 @@ class _Conn:
         self.auth_ok = False                # digest verified
         self.auth_nonce: Optional[bytes] = None
         self.pending_join: Optional[int] = None
+        # read-only peers keep worker_id None, which keeps every
+        # membership surface (barrier, ledger, live_workers) worker-only.
+        # Serve peers get the params broadcast; stats peers get none
+        self.is_serve = False
+        self.serve_id: Optional[int] = None
+        self.is_stats = False
+        self.stats_id: Optional[int] = None
+        self.pushes = 0                     # params frames shipped (serve)
+        self.last_pushed_version: Optional[int] = None
+        self.skipped_pushes = 0             # down-sampled by serve_every
         self.closed = threading.Event()
         self._params_ev = threading.Event()
-        self._last_sent: Optional[bytes] = None
+        # the publication last pushed or skipped: a new publication is a
+        # new ParamsMsg, so identity tells a version already handled
+        self._last_msg: Optional[ParamsMsg] = None
         self._lock = threading.Lock()       # close() idempotence
         self._wlock = threading.Lock()      # whole frames only: the
         #                                     writer thread and control
@@ -353,14 +399,21 @@ class _Conn:
                         "one connection holds at most one lease")
             return None if n == _JOIN.size else \
                 f"JOIN frame has length {n}, expected {_JOIN.size}"
-        if ftype in _NOT_YET:
-            name = _NOT_YET[ftype][0]
+        if ftype == _F_SERVE:
             if self.authenticated:
-                return (f"{name} on an already-authenticated connection "
+                return ("SERVE on an already-authenticated connection "
                         "— a trainer cannot demote itself to a reader "
                         "mid-stream")
             return None if n == _CTRL.size else \
-                f"{name} frame has length {n}, expected {_CTRL.size}"
+                f"SERVE frame has length {n}, expected {_CTRL.size}"
+        if ftype == _F_STATS:
+            if self.authenticated:
+                return ("STATS on an already-authenticated connection "
+                        "— a trainer cannot demote itself to a stats "
+                        "reader mid-stream")
+            return None if n == _CTRL.size else \
+                (f"STATS subscribe frame has length {n}, expected "
+                 f"{_CTRL.size}")
         if ftype == _F_AUTH:
             if self.authenticated:
                 return ("AUTH on an already-authenticated connection — "
@@ -398,7 +451,11 @@ class _Conn:
                 err = self._frame_error(ftype, n)
                 if err is None and ftype == _F_GRAD \
                         and self.worker_id is None:
-                    err = ("GRAD frame before HELLO — the peer never "
+                    err = ("GRAD frame from a read-only serve client"
+                           if self.is_serve else
+                           "GRAD frame from a read-only stats client"
+                           if self.is_stats else
+                           "GRAD frame before HELLO — the peer never "
                            "identified itself")
                 if err is not None:
                     hub._reject(self, err)
@@ -463,12 +520,18 @@ class _Conn:
             if err is None:
                 self.authenticated = True
             return err
-        if ftype in _NOT_YET:
-            name, item = _NOT_YET[ftype]
+        if ftype in (_F_SERVE, _F_STATS):
             magic, proto = _CTRL.unpack(payload)
-            return _peer_error(magic, proto) or (
-                f"{name} frames are not served by the repro_torch hub "
-                f"yet: they come with ROADMAP {item}")
+            serve = ftype == _F_SERVE
+            err = _peer_error(magic, proto) or (
+                hub._on_serve(self) if serve else hub._on_stats(self))
+            if err is None:
+                self.authenticated = True
+                if serve:
+                    hub._on_serve_ready(self)
+                else:
+                    hub._on_stats_ready(self)
+            return err
         return None
 
     def _read_grad(self, n: int) -> bool:
@@ -518,23 +581,37 @@ class _Conn:
             self._wlock.release()
 
     def _write_loop(self) -> None:
+        hub = self.hub
         while not self.closed.is_set():
             if not self._params_ev.wait(0.2):
                 continue
             self._params_ev.clear()
             # never broadcast the model to a peer that has not
-            # authenticated (HELLO or a granted JOIN; a HELLO re-arms the
-            # push); latest only, in this connection's dtype — one frame
-            # object per (version, dtype), so the identity check skips a
-            # version already sent
-            if not self.authenticated:
+            # authenticated (HELLO, a granted JOIN or SERVE; admission
+            # re-arms the push), and never to a stats reader: a few
+            # hundred bytes of JSON per tick, never a slab, which is
+            # what keeps a sync run bitwise equal with one attached
+            if not self.authenticated or self.is_stats:
                 continue
-            frame = self.hub._pub_frame_for(self.slab_dtype)
-            if frame is None or frame is self._last_sent:
+            pub = hub._pub_current()
+            if pub is None or pub[0] is self._last_msg:
                 continue
-            if not self.send_frame(frame):
+            version = pub[0].version
+            every = hub.serve_every
+            if self.is_serve and every > 1 and version % every \
+                    and version != 0:
+                # serve clients get every Nth version (the initial model
+                # always ships), up to N-1 versions stale for 1/N of the
+                # broadcast; a skipped version is never encoded here
+                self._last_msg = pub[0]
+                self.skipped_pushes += 1
+                continue
+            if not self.send_frame(hub._encode(pub, self.slab_dtype)):
                 break
-            self._last_sent = frame
+            self._last_msg = pub[0]
+            if self.is_serve:
+                self.pushes += 1
+                self.last_pushed_version = version
 
     # ------------------------------------------------------------- misc
     def half_close(self) -> None:
@@ -577,6 +654,7 @@ class SocketTransport:
     Received gradient slabs land on ``device`` (``cuda`` unless the
     caller asks for the CPU).  ``heartbeat_s > 0`` PINGs every
     authenticated connection on that cadence (0: no PINGs).
+    ``serve_every`` down-samples the serve clients' push stream.
     """
 
     # the telemetry bus; the runtime swaps in its live bus before the
@@ -585,8 +663,8 @@ class SocketTransport:
 
     def __init__(self, grad_capacity: int = 0, *, family: str = "unix",
                  host: str = "127.0.0.1", port: int = 0,
-                 heartbeat_s: float = 0.0, slab_dtype: str = "f32",
-                 device: Device = None):
+                 heartbeat_s: float = 0.0, serve_every: int = 1,
+                 slab_dtype: str = "f32", device: Device = None):
         if family not in ("unix", "tcp"):
             raise ValueError(f"family must be unix or tcp, got {family!r}")
         if slab_dtype not in _DT_CODES:
@@ -598,6 +676,7 @@ class SocketTransport:
         # each connection may still negotiate its own through HELLO'
         self.slab_dtype = slab_dtype
         self.heartbeat_s = float(heartbeat_s)
+        self.serve_every = max(1, int(serve_every))
         self._sockdir: Optional[str] = None
         if family == "unix":
             self._sockdir = tempfile.mkdtemp(prefix="repro-torch-hub-")
@@ -637,6 +716,21 @@ class SocketTransport:
         # a sync barrier it cannot contribute to
         self.on_worker_ready: Optional[Any] = None
         self.on_worker_gone: Optional[Any] = None
+        # serving plane: a hook called with the serve id on admission,
+        # and every serve connection ever admitted
+        self.on_serve_ready: Optional[Any] = None
+        self._serve_seq = 0
+        self._serve_conns: List[_Conn] = []
+        # stats plane: a zero-argument callable returning a JSON-able
+        # dict, installed by the runtime once its server exists; the
+        # cadence thread starts when it is installed
+        self.stats_every_s = 0.5
+        self._stats_seq = 0
+        self._stats_conns: List[_Conn] = []
+        self._stats_thread: Optional[threading.Thread] = None
+        self._stats_history: Any = \
+            collections.deque(maxlen=_STATS_HISTORY_LEN)
+        self._stats_provider: Optional[Any] = None
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="hub-accept", daemon=True)
         self._accept_thread.start()
@@ -687,16 +781,127 @@ class SocketTransport:
         CHALLENGE can verify one."""
         return "unexpected AUTH frame — this hub issued no challenge"
 
+    def _on_serve(self, conn: _Conn) -> Optional[str]:
+        """SERVE (read-only subscribe) hook: only the multi-host hub
+        admits serve clients; the plain hub has no spec to hand them."""
+        return ("this hub does not admit serve clients (not a host "
+                "transport) — point `repro infer` at a training leader")
+
+    def _on_stats(self, conn: _Conn) -> Optional[str]:
+        """STATS (read-only telemetry subscribe) hook: only the
+        multi-host hub admits stats clients."""
+        return ("this hub does not admit stats clients (not a host "
+                "transport) — point `repro top` at a training leader")
+
     def _on_hello(self, conn: _Conn) -> None:
         with self._conns_cond:
             self._conns_cond.notify_all()
         # re-arm the params push: a JOIN handshake may have consumed a
         # pre-HELLO push on the client side (the negotiator reads frames
         # until WELCOME), and a coalescing writer would never resend it
-        conn._last_sent = None
+        conn._last_msg = None
         conn.notify_params()
         if self.on_worker_ready is not None:
             self.on_worker_ready(conn.worker_id, conn.generation)
+
+    def _on_serve_ready(self, conn: _Conn) -> None:
+        """An admitted serve connection: arm its params push (as HELLO
+        does) and report it."""
+        with self._conns_cond:
+            self._serve_conns.append(conn)
+        conn._last_msg = None
+        conn.notify_params()
+        if self.on_serve_ready is not None:
+            self.on_serve_ready(conn.serve_id)
+
+    @property
+    def stats_provider(self) -> Optional[Any]:
+        return self._stats_provider
+
+    @stats_provider.setter
+    def stats_provider(self, provider: Optional[Any]) -> None:
+        """Installing a provider starts the cadence thread at once, so
+        the history ring holds cells when a late ``top`` attaches."""
+        self._stats_provider = provider
+        if provider is not None and not self._closed.is_set():
+            self._ensure_stats_thread()
+
+    def stats_history(self) -> List[Dict[str, Any]]:
+        """Recent stats cells, oldest first (the backfill payload)."""
+        return list(self._stats_history)
+
+    def _on_stats_ready(self, conn: _Conn) -> None:
+        """An admitted stats connection: send the history backfill, then
+        one current payload, and only then add it to the push list, so a
+        cadence tick never overtakes its own backfill on the wire."""
+        history = self.stats_history()
+        if history:
+            conn.send_frame(
+                _stats_frame(json.dumps({"history": history})
+                             .encode("utf-8")), lock_timeout=1.0)
+        conn.send_frame(self._stats_frame_now(), lock_timeout=1.0)
+        with self._conns_cond:
+            self._stats_conns.append(conn)
+        self._ensure_stats_thread()
+
+    def _stats_frame_now(self, record: bool = False) -> bytes:
+        """One STATS push from the provider's current payload; a
+        ``waiting`` state while no provider is installed or it raises
+        (mid-teardown).  ``record=True`` (the cadence thread) appends a
+        real payload to the history ring."""
+        provider = self._stats_provider
+        payload = None
+        if provider is not None:
+            try:
+                payload = provider()
+            except Exception:
+                payload = None
+        if payload is None:
+            payload = {"state": "waiting"}
+        elif record:
+            self._stats_history.append(payload)
+        return _stats_frame(json.dumps(payload).encode("utf-8"))
+
+    def _ensure_stats_thread(self) -> None:
+        with self._conns_cond:
+            if self._stats_thread is not None:
+                return
+            self._stats_thread = threading.Thread(
+                target=self._stats_loop, name="hub-stats", daemon=True)
+            self._stats_thread.start()
+
+    def _stats_loop(self) -> None:
+        """Every ``stats_every_s``: record the current payload in the
+        history ring, then push it to every live stats reader (a short
+        lock timeout: one stalled reader must not delay the others)."""
+        while not self._closed.wait(self.stats_every_s):
+            frame = self._stats_frame_now(record=True)
+            with self._conns_cond:
+                conns = [c for c in self._stats_conns
+                         if not c.closed.is_set()]
+            for conn in conns:
+                conn.send_frame(frame, lock_timeout=0.2)
+
+    def serve_stats(self) -> Dict[str, Any]:
+        """The serving plane's report: per serve client, the versions it
+        was sent, the last one and the pushes ``serve_every`` skipped;
+        and how many stats clients were admitted."""
+        with self._conns_cond:
+            conns = list(self._serve_conns)
+            stats_clients = len(self._stats_conns)
+        return {
+            "clients": len(conns),
+            "rejected_peers": self.rejected_peers,
+            "serve_every": self.serve_every,
+            "stats_clients": stats_clients,
+            "per_client": [
+                {"serve_id": c.serve_id,
+                 "pushes": c.pushes,
+                 "last_version": c.last_pushed_version,
+                 "skipped_pushes": c.skipped_pushes,
+                 "connected": not c.closed.is_set()}
+                for c in conns],
+        }
 
     def _heartbeat_loop(self) -> None:
         """PING every authenticated connection on the heartbeat cadence
@@ -774,16 +979,21 @@ class SocketTransport:
                 return                  # workers see it on release
         self._notify_all_conns()
 
-    def _pub_frame_for(self, dtype_name: str) -> Optional[bytes]:
-        """The current publication as a PARAMS frame in one dtype,
-        encoded by the first writer that asks and shared by the rest;
-        None while hold_params() withholds the broadcast.  Encoding runs
-        outside the publish lock, so a flush can publish meanwhile."""
+    def _pub_current(self) -> Optional[Tuple[ParamsMsg, Dict[str, bytes]]]:
+        """The current publication and its frames by dtype, or None
+        while hold_params() withholds the broadcast."""
         with self._pub_cond:
             if self._hold or self._pub_msg is None:
                 return None
-            msg, frames = self._pub_msg, self._pub_frames
-            frame = frames.get(dtype_name)
+            return self._pub_msg, self._pub_frames
+
+    def _encode(self, pub: Tuple[ParamsMsg, Dict[str, bytes]],
+                dtype_name: str) -> bytes:
+        """A publication as a PARAMS frame in one dtype, encoded by the
+        first writer that asks and shared by the rest.  Encoding runs
+        outside the publish lock, so a flush can publish meanwhile."""
+        msg, frames = pub
+        frame = frames.get(dtype_name)
         if frame is None:
             with self._encode_lock:
                 frame = frames.get(dtype_name)
@@ -908,11 +1118,14 @@ class SocketTransport:
         """True once every connection reader has drained to EOF (the
         producers must be stopped).  Interleave with
         ``recv_gradient(timeout=0)``: a reader blocked on the bounded
-        queue needs the caller to make room."""
+        queue needs the caller to make room.  Serve and stats
+        connections are skipped: they send no gradients, and a lingering
+        reader must never hold up the end of training."""
         deadline = None if timeout is None else \
             time.monotonic() + max(0.0, timeout)
         with self._conns_cond:
-            conns = list(self._conns)
+            conns = [c for c in self._conns
+                     if not c.is_serve and not c.is_stats]
         for conn in conns:
             remain = None if deadline is None else \
                 max(0.0, deadline - time.monotonic())
@@ -934,6 +1147,8 @@ class SocketTransport:
         self._accept_thread.join(timeout=2.0)
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=2.0)
+        if self._stats_thread is not None:
+            self._stats_thread.join(timeout=2.0)
         if self.family == "unix":
             try:
                 os.unlink(self.address)

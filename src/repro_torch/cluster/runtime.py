@@ -30,9 +30,15 @@ Four transports (``transport_kind``, = ``ExperimentSpec.transport``):
     while the run goes on: the staging buffer and the K(t) schedule
     follow it.  Kills cut the worker's connection; respawns are refused
     (replacement capacity rejoins from its own host).  Needs
-    ``spec_dict``.
+    ``spec_dict``.  The same hub admits read-only serve clients
+    (``python -m repro_torch infer``; ``serve_every`` down-samples
+    their push stream) and stats clients (``python -m repro_torch
+    top``), which read :meth:`ClusterRuntime._stats_payload`.
 
-The trace and Prometheus exports come with ROADMAP A11.
+The telemetry bus records timeline spans only when ``trace`` names an
+output file (the trainer writes it after the run), and ``prom_port``
+serves a Prometheus ``/metrics`` endpoint over the same payload the
+stats clients get, plus the bus's counters, while the run lasts.
 
 Pieces that run concurrently with training:
 
@@ -92,16 +98,6 @@ _log = logging.getLogger("repro_torch.cluster.runtime")
 PROC_READY_TIMEOUT_S = 300.0
 
 
-def check_ported(trace: Optional[str] = None,
-                 prom_port: Optional[int] = None) -> None:
-    """Refuse what the port does not run yet, naming where it comes."""
-    if trace or prom_port is not None:
-        raise NotImplementedError(
-            "the cluster runtime's trace and Prometheus exports are not "
-            "ported to repro_torch yet: they come with ROADMAP A11 "
-            "(telemetry and serving)")
-
-
 @dataclasses.dataclass
 class ClusterResult:
     """What one cluster run produced (adapted into ``RunResult`` by
@@ -118,8 +114,8 @@ class ClusterResult:
     events: List[Dict[str, Any]]   # kills, respawns, checkpoints, restores
     final_params: Any            # host (CPU) tensors
     wall_s: float
-    # the serving-plane report, shape-stable across transports: the
-    # serving plane itself is A11, so it holds no client yet
+    # the serving-plane report, shape-stable across transports: a hub
+    # reports its serve and stats clients, inproc the same keys, empty
     serving: Optional[Dict[str, Any]] = None
     # the telemetry summary plus a ledger_check block cross-checking its
     # counters against the conservation ledger
@@ -146,7 +142,7 @@ class ClusterRuntime:
                  transport_kind: str = "inproc",
                  spec_dict: Optional[Dict[str, Any]] = None,
                  listen: Optional[str] = None,
-                 heartbeat_s: float = 2.0,
+                 heartbeat_s: float = 2.0, serve_every: int = 1,
                  max_workers: Optional[int] = None,
                  join_secret: Optional[str] = None,
                  lease_grace_s: float = 2.0,
@@ -162,7 +158,6 @@ class ClusterRuntime:
         if mode not in ("sync", "async", "hybrid"):
             raise ValueError(f"mode must be sync, async or hybrid, got "
                              f"{mode!r}")
-        check_ported(trace, prom_port)
         if transport_kind not in TRANSPORTS:
             raise ValueError(f"transport_kind must be one of {TRANSPORTS},"
                              f" got {transport_kind!r}")
@@ -246,9 +241,15 @@ class ClusterRuntime:
         self.ckpt_dir = ckpt_dir
         self.resume_from = resume_from
         self.verbose = verbose
-        # the telemetry bus: counters and histograms, no timeline spans
-        # (their export is A11)
-        self.obs = Telemetry(trace=False)
+        # the telemetry bus: counters and histograms always, timeline
+        # spans only when a trace file was asked for (``trace`` is its
+        # path, written by the trainer after the run)
+        self.trace_path = trace
+        self.obs = Telemetry(trace=bool(trace))
+        # a Prometheus endpoint over the live stats payload, bound once
+        # the server exists
+        self.prom_port = prom_port
+        self.prom_server = None
         # workers fetch a params slab, decode, differentiate and
         # re-encode: each gradient ships as one (P,) tensor
         self.slab_dtype = str(slab_dtype)
@@ -282,7 +283,8 @@ class ClusterRuntime:
                 cap, host=bind_host, port=bind_port,
                 num_workers=num_workers,
                 welcome_config={"spec": spec_dict},
-                heartbeat_s=heartbeat_s, max_workers=self.max_workers,
+                heartbeat_s=heartbeat_s, serve_every=serve_every,
+                max_workers=self.max_workers,
                 join_secret=join_secret, lease_grace_s=lease_grace_s,
                 slab_dtype=self.slab_dtype, device=self.device)
         else:
@@ -450,6 +452,36 @@ class ClusterRuntime:
         self.server.deregister(wid)
         self._log_event("kill", worker=wid)
 
+    def _stats_payload(self) -> Dict[str, Any]:
+        """One ``top`` tick: the live ledger columns, staleness
+        percentiles and fleet state, with the reference's keys in its
+        order.  Runs on the hub's stats thread or a Prometheus scrape,
+        so it reads host-side counters only (never a tensor on the card,
+        whose read would wait for the device)."""
+        a = self.server.accounting()
+        st = self.obs.hist_stats("staleness") or {}
+        serve_clients = self.transport.serve_stats()["clients"]
+        counters = self.obs.counters()
+        return {
+            "t": round(self._elapsed(), 3),
+            "version": self.server.version,
+            "mode": self.mode,
+            "optimizer": self.optimizer.name,
+            "optimizer_steps": counters.get("optimizer_steps", 0),
+            "applied": a["applied"],
+            "dropped": a["dropped"],
+            "buffered": a["buffered"],
+            "pending_round": a["pending_round"],
+            "updates": a["updates"],
+            "staleness": {"p50": st.get("p50"), "p99": st.get("p99")},
+            "queue_depth": self.transport.pending_gradients(),
+            "live_workers": len(self.server.live),
+            "num_workers": self.num_workers,
+            "fleet_size": self.fleet_size,
+            "max_workers": self.max_workers,
+            "serve_clients": serve_clients,
+        }
+
     # ------------------------------------------------- background loops
     def _injector(self) -> None:
         # one merged timeline: a pending respawn must not delay later
@@ -571,6 +603,8 @@ class ClusterRuntime:
         try:
             return self._run()
         finally:
+            if self.prom_server is not None:
+                self.prom_server.close()
             if self._own_transport:
                 self.transport.close()
 
@@ -649,6 +683,21 @@ class ClusterRuntime:
             # before any worker can flush
             self.server.agg.reset_opt_state(resume_opt_state)
         wait_for(self.server.agg.params_slab)
+        if hasattr(self.transport, "stats_provider"):
+            # the STATS push plane: the hub answers stats clients with
+            # live numbers from now on
+            self.transport.stats_provider = self._stats_payload
+        if self.prom_port is not None:
+            from repro_torch.obs.prom import PromServer
+            self.prom_server = PromServer(
+                lambda: (self._stats_payload(), self.obs.counters()),
+                self.prom_port)
+            self._log_event("prom_listening",
+                            port=int(self.prom_server.port))
+            if self.verbose:
+                print(f"[cluster] prometheus metrics at "
+                      f"{self.prom_server.url}", file=sys.stderr,
+                      flush=True)
 
         snaps: List = []
         threads: List[threading.Thread] = []
@@ -660,6 +709,10 @@ class ClusterRuntime:
                 # is warm and connected
                 self.transport.on_worker_ready = self._on_remote_ready
                 self.transport.on_worker_gone = self._on_remote_gone
+                if self.transport_kind == "host":
+                    self.transport.on_serve_ready = \
+                        lambda sid: self._log_event("serve_client",
+                                                    serve_id=sid)
                 t_spawn = time.monotonic()
                 if self.transport_kind == "proc":
                     for wid in range(self.num_workers):
@@ -743,7 +796,6 @@ class ClusterRuntime:
 
         accounting: Dict[str, Any] = self.server.accounting()
         accounting["in_flight"] = in_flight
-        rejected = 0
         if self.transport_kind in ("socket", "proc", "host"):
             # "computed" = complete frames that reached the hub: exact
             # under every failure, since whatever a killed worker had
@@ -758,7 +810,6 @@ class ClusterRuntime:
                 for wid in sorted(set(range(self.fleet_size))
                                   | set(received))}
             accounting["torn_frames"] = self.transport.torn_frames
-            rejected = self.transport.rejected_peers
         else:
             accounting["computed"] = sum(w.sent for w in self._all_workers)
             per_worker: Dict[str, int] = {}
@@ -781,6 +832,9 @@ class ClusterRuntime:
                            if self._acc is not None else 0.0)
 
         _, final_params, applied = self.server.snapshot()
+        # the serving report is shape-stable across transports: the
+        # in-process one reports the same keys, empty
+        serving = self.transport.serve_stats()
         # every gradient the server ingested is exactly accounted
         # (applied + dropped + buffered + pending), and everything
         # computed that was never ingested is the in_flight drain
@@ -806,7 +860,5 @@ class ClusterRuntime:
             mode=self.mode, start_version=start_version,
             accounting=accounting, events=list(self.events),
             final_params=final_params, wall_s=wall_s,
-            serving={"clients": 0, "rejected_peers": rejected,
-                     "serve_every": 1, "stats_clients": 0,
-                     "per_client": []},
+            serving=serving,
             telemetry=telemetry, fleet_ready_s=fleet_ready_s)

@@ -15,10 +15,12 @@ exactly; ``extra["accounting"]`` carries the conservation ledger
 (computed == applied + dropped + buffered + pending + in-flight),
 ``extra["events"]`` the fault/checkpoint/membership timeline,
 ``extra["telemetry"]`` the bus's summary with its ``ledger_check``,
-``extra["serving"]`` the serving plane's report (no clients until A11),
-on ``proc`` and ``host`` ``extra["fleet_ready_s"]`` the seconds from the
-barrier's start to its release, and on ``host`` ``extra["listen"]`` the
-resolved ``HOST:PORT``.
+``extra["serving"]`` the serving plane's report (the serve and stats
+clients a ``host`` leader admitted), on ``proc`` and ``host``
+``extra["fleet_ready_s"]`` the seconds from the barrier's start to its
+release, on ``host`` ``extra["listen"]`` the resolved ``HOST:PORT``,
+and with ``trace=`` ``extra["trace_path"]``, the Chrome trace written
+after the run.
 
 On CUDA the trainer turns TF32 off (as the simulator's does) and makes
 cuDNN pick deterministic convolution algorithms
@@ -40,10 +42,10 @@ from repro_torch.api.schedules import parse_schedule
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.cluster.mptransport import (CUDA_DETERMINISTIC,
                                              set_torch_flags)
-from repro_torch.cluster.runtime import (PROC_READY_TIMEOUT_S,
-                                         ClusterRuntime, check_ported)
+from repro_torch.cluster.runtime import PROC_READY_TIMEOUT_S, ClusterRuntime
 from repro_torch.convert import Device, resolve_device
 from repro_torch.core.simulator import data_to
+
 
 class ClusterTrainer:
     """Trainer for ``backend="cluster"``.
@@ -57,16 +59,16 @@ class ClusterTrainer:
     tensors).  ``device`` defaults to ``cuda`` and raises when there is
     none.  The workload and its data are built and moved to the device
     once per ``(arch, seed, smoke)``.  ``join_secret`` makes a ``host``
-    leader challenge every JOIN (an invocation setting, like the
-    checkpoint directory: never a spec field, so it never travels in
-    WELCOME)."""
+    leader challenge every JOIN, ``trace`` is the Chrome trace's output
+    path and ``prom_port`` the Prometheus endpoint's port (0 picks a
+    free one): invocation settings, like the checkpoint directory, never
+    spec fields, so they never travel in WELCOME."""
 
     def __init__(self, ckpt_dir: Optional[str] = None,
                  resume_from: Optional[str] = None, verbose: bool = False,
                  trace: Optional[str] = None,
                  prom_port: Optional[int] = None,
                  join_secret: Optional[str] = None, device: Device = None):
-        check_ported(trace, prom_port)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_torch_flags(CUDA_DETERMINISTIC)
@@ -74,6 +76,8 @@ class ClusterTrainer:
         self.resume_from = resume_from
         self.verbose = verbose
         self.join_secret = join_secret
+        self.trace = trace
+        self.prom_port = prom_port
         self.last_params = None
         self._workload: Tuple[Optional[tuple], Any] = (None, None)
 
@@ -120,6 +124,7 @@ class ClusterTrainer:
             spec_dict=spec.to_dict()
             if spec.transport in ("proc", "host") else None,
             listen=spec.listen, heartbeat_s=spec.heartbeat_s,
+            serve_every=spec.serve_every,
             max_workers=spec.max_workers, join_secret=self.join_secret,
             slab_dtype=spec.slab_dtype,
             optimizer=spec.slab_optimizer(),
@@ -129,7 +134,7 @@ class ClusterTrainer:
             else PROC_READY_TIMEOUT_S,
             ckpt_dir=ckpt_dir,
             resume_from=self.resume_from, verbose=self.verbose,
-            device=self.device)
+            trace=self.trace, prom_port=self.prom_port, device=self.device)
         if ckpt_dir is not None and self.ckpt_dir is None:
             runtime.events.append({"t": 0.0,
                                    "event": "ckpt_dir_provisioned",
@@ -154,6 +159,13 @@ class ClusterTrainer:
         if runtime.listen_address is not None:
             bind_host, bind_port = runtime.listen_address
             result.extra["listen"] = f"{bind_host}:{bind_port}"
+        if runtime.trace_path:
+            from repro_torch.obs import write_chrome_trace
+            n = write_chrome_trace(runtime.obs, runtime.trace_path)
+            result.extra["trace_path"] = runtime.trace_path
+            if self.verbose:
+                print(f"[cluster] wrote {n} trace events to "
+                      f"{runtime.trace_path}", flush=True)
         return result
 
     def run(self, spec: ExperimentSpec) -> RunResult:

@@ -36,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Any, Optional, Protocol
+from typing import Any, Dict, Optional, Protocol
 
 # the spec-facing transport names (ExperimentSpec.transport / --transport):
 #   inproc — worker threads + queue: one address space, GIL-shared compute
@@ -198,6 +198,12 @@ class InProcTransport:
 
     def close(self) -> None:
         pass
+
+    def serve_stats(self) -> Dict[str, Any]:
+        """The wire hubs' serving report, empty: no serve or stats
+        client can reach an in-process run."""
+        return {"clients": 0, "rejected_peers": 0, "serve_every": 1,
+                "stats_clients": 0, "per_client": []}
 
     # ------------------------------------------------ parameter channel
     def publish_params(self, msg: ParamsMsg) -> None:

@@ -64,12 +64,19 @@ def resolve_slab_dtype(name) -> torch.dtype:
 
 
 def _flatten(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
-    """(path, leaf) pairs in ``jax.tree`` order: dict keys sorted,
-    nested dicts depth first."""
+    """(path, leaf) pairs in ``jax.tree`` order: dict keys sorted, tuple
+    and list items in order, depth first.  A dict key is a path element
+    as it is; a sequence position is an ``int`` (the model stack's
+    ``params["groups"]`` is a tuple of dicts)."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out.extend(_flatten(tree[k], prefix + (k,)))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = []
+        for i, v in enumerate(tree):
+            out.extend(_flatten(v, prefix + (i,)))
         return out
     return [(prefix, tree)]
 
@@ -77,13 +84,23 @@ def _flatten(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
 def _unflatten(paths: Tuple[Path, ...], leaves) -> Any:
     if paths == ((),):
         return leaves[0]
-    root: Dict[str, Any] = {}
+    root: Dict[Any, Any] = {}
     for path, leaf in zip(paths, leaves):
         node = root
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
-    return root
+    return _sequences(root)
+
+
+def _sequences(node: Any) -> Any:
+    """Nested dicts back to the tree: a node keyed by ``int`` positions
+    is a tuple."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return tuple(_sequences(node[i]) for i in range(len(node)))
+    return {k: _sequences(v) for k, v in node.items()}
 
 
 def _keystr(path: Path) -> str:

@@ -5,7 +5,10 @@ single-token decode paths.
 The full-sequence path goes through the flash_attention kernel, which
 computes the function of the reference's ``rowblock_attention`` (the
 JAX package's tests pin the two together:
-``tests/kernels/test_kernels.py::test_flash_matches_model_rowblock``).
+``tests/kernels/test_kernels.py::test_flash_matches_model_rowblock``),
+or with ``plain=True`` (the training path: the reference trains through
+jnp, and the kernel has no backward) through the plain PyTorch version,
+which autograd differentiates.
 Decode attention stays plain PyTorch, as it is jnp outside any Pallas
 kernel in the reference.  Chunked-local attention (``attn_chunk``,
 llama4) is not ported yet: the kernel has no chunk mask.
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import RopeTable, apply_rope
 
@@ -25,7 +28,7 @@ def _refuse_chunked(cfg: ModelConfig) -> None:
     if cfg.attn_chunk is not None:
         raise NotImplementedError(
             f"{cfg.name}: chunked-local attention (attn_chunk) is not "
-            "ported yet (ROADMAP A12)")
+            "ported yet (ROADMAP A12b)")
 
 
 # ---------------------------------------------------------------- params
@@ -69,15 +72,15 @@ def _project_qkv(params, x, cfg: ModelConfig, rope: RopeTable):
 # ------------------------------------------------------------- full-seq
 
 def attention_forward(params, x, cfg: ModelConfig, rope: RopeTable,
-                      global_layer: bool = False):
+                      global_layer: bool = False, plain: bool = False):
     """Full-sequence attention.  x: (B, S, D) -> (B, S, D).  ``rope`` is
     the table at positions ``arange(S)`` for every row (``model.forward``
     gives that), which is what the kernel's masks assume."""
     _refuse_chunked(cfg)
     q, k, v = _project_qkv(params, x, cfg, rope)
-    out = ops.flash_attention(
-        q, k, v, causal=cfg.causal,
-        window=None if global_layer else cfg.sliding_window)
+    attend = ref.attention_ref if plain else ops.flash_attention
+    out = attend(q, k, v, causal=cfg.causal,
+                 window=None if global_layer else cfg.sliding_window)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 

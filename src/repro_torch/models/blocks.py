@@ -3,7 +3,7 @@
 
 Ported: the ``attn`` / ``attn_global`` mixers with the dense ``mlp``
 FFN.  The other mixers (mla, mamba, mlstm, slstm) and the MoE FFN raise
-``NotImplementedError``; they are ROADMAP A12's remaining part.
+``NotImplementedError``; they are ROADMAP A12b.
 """
 from __future__ import annotations
 
@@ -22,10 +22,10 @@ from repro_torch.models.rope import RopeTable
 def _check(mixer: str, ffn: str) -> None:
     if mixer not in (ATTN, ATTN_GLOBAL):
         raise NotImplementedError(
-            f"mixer {mixer!r} is not ported yet (ROADMAP A12)")
+            f"mixer {mixer!r} is not ported yet (ROADMAP A12b)")
     if ffn not in (MLP, NONE):
         raise NotImplementedError(
-            f"ffn {ffn!r} is not ported yet (ROADMAP A12)")
+            f"ffn {ffn!r} is not ported yet (ROADMAP A12b)")
 
 
 def init_layer(gen: torch.Generator, mixer: str, ffn: str,
@@ -43,16 +43,18 @@ def init_layer(gen: torch.Generator, mixer: str, ffn: str,
 
 
 def layer_forward(p, x, mixer: str, ffn: str, cfg: ModelConfig,
-                  rope: RopeTable):
-    """Full-sequence layer; ``rope`` is the table at x's positions.
+                  rope: RopeTable, plain: bool = False):
+    """Full-sequence layer; ``rope`` is the table at x's positions;
+    ``plain`` takes norm and attention through their plain versions.
     Returns (x, aux); aux is 0 without MoE."""
     _check(mixer, ffn)
-    h = apply_norm(cfg.norm, p["mixer_norm"], x, cfg.norm_eps)
+    h = apply_norm(cfg.norm, p["mixer_norm"], x, cfg.norm_eps, plain)
     h = attn_mod.attention_forward(p["mixer"], h, cfg, rope,
-                                   global_layer=(mixer == ATTN_GLOBAL))
+                                   global_layer=(mixer == ATTN_GLOBAL),
+                                   plain=plain)
     x = x + h
     if ffn != NONE:
-        h = apply_norm(cfg.norm, p["ffn_norm"], x, cfg.norm_eps)
+        h = apply_norm(cfg.norm, p["ffn_norm"], x, cfg.norm_eps, plain)
         x = x + mlp_forward(p["ffn"], h, cfg.mlp_act)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

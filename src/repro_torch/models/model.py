@@ -6,9 +6,17 @@ with one dict per ``block_pattern`` entry, each leaf stacked on a
 leading ``num_groups`` axis, and the leaf names and shapes are the
 reference's (``wq`` (d, H, hd), ``wo`` (H, hd, d), ``embed`` (V, D),
 ``lm_head`` (D, V), f32 norm scales).  The reference's ``lax.scan`` over
-groups is a Python loop over that axis here.  Inference only: there is
-no sharding constraint and no rematerialisation.  Token inputs only;
-the audio and vision frontends are not ported yet (ROADMAP A12).
+groups is a Python loop over that axis here.  There is no sharding
+constraint and no rematerialisation.  Token inputs only; the audio and
+vision frontends are not ported yet (ROADMAP A12b).
+
+Two forwards share the code: the serving one (``plain=False``) takes
+every norm and full-sequence attention through the kernels, and the
+training one (``plain=True``, what :func:`loss_fn` runs) through their
+plain PyTorch versions, which autograd and ``torch.func.grad``
+differentiate.  The reference trains through jnp the same way
+(``src/repro/kernels/flash_attention.py:82-83``); the kernels have no
+backward, and their wrappers refuse inputs that require grad.
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ def _refuse_frontend(cfg: ModelConfig) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP A12)")
+            "(ROADMAP A12b)")
 
 
 def _stack(trees):
@@ -92,18 +100,39 @@ def _head(params, cfg: ModelConfig) -> torch.Tensor:
 
 # --------------------------------------------------------------- forward
 
-def forward(params, batch: Dict[str, Any], cfg: ModelConfig):
-    """Full-sequence forward.  Returns (logits, aux_loss)."""
+def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
+            plain: bool = False):
+    """Full-sequence forward.  Returns (logits, aux_loss).  ``plain``
+    takes norms and attention through their plain versions (the
+    differentiable training path) instead of the kernels."""
     x, positions = embed_inputs(params, batch, cfg)
     rope = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.num_groups):
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
             x, a = layer_forward(_index(params["groups"][j], g), x, mixer,
-                                 ffn, cfg, rope)
+                                 ffn, cfg, rope, plain)
             aux = aux + a
-    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps, plain)
     return x @ _head(params, cfg), aux
+
+
+def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig):
+    """Cross-entropy LM loss over the plain (differentiable) forward,
+    after the reference's ``models/model.py:127-147``: float32 logits,
+    logsumexp minus the gold logit, averaged over ``loss_mask`` when the
+    batch has one, plus ``router_aux_coef * aux``.  Returns (loss,
+    metrics)."""
+    logits, aux = forward(params, batch, cfg, plain=True)
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, batch["labels"].long()[..., None])[..., 0]
+    if "loss_mask" in batch:
+        mask = batch["loss_mask"].float()
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        loss = torch.mean(nll)
+    return loss + cfg.router_aux_coef * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------- decode

@@ -1,19 +1,22 @@
 """Normalization layers (functional, dict params), after the reference's
-``models/norms.py``.  ``rmsnorm`` goes through the rmsnorm kernel;
-``layernorm`` stays plain PyTorch, as it is plain jnp in the
-reference."""
+``models/norms.py``.  ``rmsnorm`` goes through the rmsnorm kernel, or
+with ``plain=True`` (the training path) through its plain PyTorch
+version, which autograd differentiates; ``layernorm`` stays plain
+PyTorch, as it is plain jnp in the reference."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params, x, eps: float = 1e-5):
+def rmsnorm(params, x, eps: float = 1e-5, plain: bool = False):
+    if plain:
+        return ref.rmsnorm_ref(x, params["scale"], eps)
     return ops.rmsnorm(x, params["scale"], eps)
 
 
@@ -36,6 +39,7 @@ def init_norm(kind: str, dim: int, dtype=torch.float32, device=None):
         else init_layernorm(dim, dtype, device)
 
 
-def apply_norm(kind: str, params, x, eps: float = 1e-5):
-    return rmsnorm(params, x, eps) if kind == "rmsnorm" \
+def apply_norm(kind: str, params, x, eps: float = 1e-5,
+               plain: bool = False):
+    return rmsnorm(params, x, eps, plain) if kind == "rmsnorm" \
         else layernorm(params, x, eps)

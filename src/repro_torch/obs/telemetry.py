@@ -1,10 +1,11 @@
 """The in-process telemetry bus: counters, histograms, trace spans.
 
 A copy of ``src/repro/obs/telemetry.py`` (which imports no JAX; the
-port imports nothing of the JAX package).  Its export surfaces — the
-Chrome trace, the STATS frame, ``top`` and Prometheus — come with
-ROADMAP A11; until then the cluster runtime runs the bus with tracing
-off and reports :meth:`Telemetry.summary` in
+port imports nothing of the JAX package).  Its export surfaces are the
+Chrome trace (:mod:`repro_torch.obs.trace`, spans recorded only when
+the cluster runtime is given ``trace=``), the STATS frame read by
+``python -m repro_torch top`` (:mod:`repro_torch.obs.top`), Prometheus
+(:mod:`repro_torch.obs.prom`) and :meth:`Telemetry.summary` in
 ``RunResult.extra["telemetry"]``.
 
 One :class:`Telemetry` instance rides a cluster run (created by the
@@ -32,7 +33,7 @@ Vocabulary:
     ``instant(...)`` — timeline events on a named track
     (``server``, ``worker/3``, ``worker/3/wire``), monotonic-clock
     relative to the bus's creation, exported by
-    the trace writer (ROADMAP A11).
+    :func:`repro_torch.obs.trace.write_chrome_trace`.
 
 :data:`NULL` is the no-op singleton: components take ``obs=None`` and
 fall back to it, so instrumentation is zero-cost for callers that

@@ -45,20 +45,48 @@ def test_spec_loads_reference_json(fields):
 
 
 @pytest.mark.parametrize("backend", ["spmd", "cluster"])
-def test_unported_backends_refuse(backend):
+def test_unported_backends_refuse(backend, tmp_path):
     """spmd is refused by the spec; the cluster backend runs on all four
-    transports, and its trace and Prometheus exports are refused naming
-    ROADMAP A11 when the trainer is built."""
+    transports, and with its trace and Prometheus exports: ``trace=``
+    writes the Chrome trace and ``prom_port=0`` serves ``/metrics``
+    while the run lasts."""
     if backend == "spmd":
         with pytest.raises(NotImplementedError, match=backend):
             ExperimentSpec(backend=backend)
         return
+    import threading
+    import time
+    import urllib.request
+
     from repro_torch.cluster.trainer import ClusterTrainer
     spec = ExperimentSpec(backend=backend, transport="host")
     assert spec.transport == "host"
-    for kw in (dict(trace="t.json"), dict(prom_port=9391)):
-        with pytest.raises(NotImplementedError, match="A11"):
-            ClusterTrainer(device="cpu", **kw)
+    trace = tmp_path / "t.json"
+    trainer = ClusterTrainer(device="cpu", trace=str(trace), prom_port=0)
+    spec = ExperimentSpec(arch="mlp", backend=backend, mode="async",
+                          cluster_workers=2, wall_budget_s=1.5, batch=16,
+                          smoke=True, wall_sample_every_s=0.5)
+    runtime = trainer.build_runtime(spec)
+    box = {}
+    th = threading.Thread(
+        target=lambda: box.update(res=trainer.finish(runtime, spec)),
+        daemon=True)
+    th.start()
+    deadline = time.monotonic() + 10.0
+    while runtime.prom_server is None:
+        assert time.monotonic() < deadline, "no Prometheus endpoint"
+        time.sleep(0.02)
+    with urllib.request.urlopen(runtime.prom_server.url, timeout=5.0) as r:
+        status, text = r.status, r.read().decode("utf-8")
+    th.join(timeout=30.0)
+    assert not th.is_alive() and status == 200
+    assert "# TYPE repro_grads_applied_total counter" in text
+    assert 'repro_run_info{mode="async",optimizer="sgd"} 1' in text
+    res = box["res"]
+    assert res.extra["trace_path"] == str(trace)
+    assert json.loads(trace.read_text())["traceEvents"]
+    assert [e for e in res.extra["events"]
+            if e["event"] == "prom_listening"]
 
 
 def test_spec_validation_matches_reference():

@@ -218,12 +218,25 @@ def test_unknown_cluster_workload():
         _run(_cluster_spec(arch="resnet"))
 
 
+def _scrape(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=5.0) as r:
+        return r.status, r.read().decode("utf-8")
+
+
+def _applied_total(text: str) -> int:
+    (line,) = [ln for ln in text.splitlines()
+               if ln.startswith("repro_grads_applied_total ")]
+    return int(line.split()[1])
+
+
 @pytest.mark.parametrize("transport", ["host"])
-def test_wire_transports_refused_naming_a10(transport):
+def test_wire_transports_refused_naming_a10(transport, tmp_path):
     """The host transport runs (tests/test_torch_hostlink.py); what it
     refuses is the reference's: a respawn (the leader does not own the
     remote machine) and, off host, an elastic ceiling.  The trace and
-    Prometheus exports stay refused, naming ROADMAP A11."""
+    Prometheus exports run: ``trace=`` writes the Chrome trace, and
+    ``prom_port=0`` serves ``/metrics`` while the run lasts."""
     with pytest.raises(ValueError, match="cannot respawn"):
         _run(_cluster_spec(transport=transport,
                            faults=FaultPlan(kill=((1, 0.5),),
@@ -231,10 +244,30 @@ def test_wire_transports_refused_naming_a10(transport):
     with pytest.raises(ValueError, match="max_workers"):
         ClusterRuntime(lambda p, x, y: 0.0, None, (None,) * 4,
                        mode="async", max_workers=4, device=CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ClusterTrainer(device=CPU, trace="t.json")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ClusterTrainer(device=CPU, prom_port=9391)
+    trace = tmp_path / "t.json"
+    trainer = ClusterTrainer(device=CPU, trace=str(trace), prom_port=0)
+    spec = _cluster_spec(wall_budget_s=2.0, max_gradients=None)
+    runtime = trainer.build_runtime(spec)
+    box = {}
+    th = threading.Thread(
+        target=lambda: box.update(res=trainer.finish(runtime, spec)),
+        daemon=True)
+    th.start()
+    deadline = time.monotonic() + 10.0
+    while runtime.prom_server is None:
+        assert time.monotonic() < deadline, "no Prometheus endpoint"
+        time.sleep(0.02)
+    scrapes = [_scrape(runtime.prom_server.url) for _ in range(2)]
+    th.join(timeout=30.0)
+    assert not th.is_alive()
+    assert [status for status, _ in scrapes] == [200, 200]
+    first, second = (_applied_total(text) for _, text in scrapes)
+    assert 0 <= first <= second
+    res = box["res"]
+    _check_conservation(res)
+    assert res.extra["trace_path"] == str(trace)
+    names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"flush", "publish", "grad_compute"} <= names
 
 
 # ------------------------------------------------------ fault injection

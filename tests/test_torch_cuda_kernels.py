@@ -400,3 +400,111 @@ def test_cuda_serve_path_launches(cuda):
         assert fa.LAUNCHES["flash_attention"] - f0 == L
         torch.testing.assert_close(step[:, 0], logits[:, -1], rtol=2e-3,
                                    atol=1e-3)
+
+
+# ------------------------------------------------ telemetry and serving
+
+@pytest.mark.cuda
+def test_cuda_lm_tiny_gradient_matches_cpu(cuda):
+    """lm-tiny's gradient slab (the plain training forward under
+    ``torch.func.grad``) on the card against the CPU, on the same
+    params and batch: rtol 1e-5 / atol 1e-6 (float32 products in full
+    float32 on the card)."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.convert import tree_to
+    from repro_torch.core.slab import slab_codec
+    from repro_torch.serve.workload import lm_tiny_workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = ExperimentSpec(arch="lm-tiny", smoke=True)
+    loss, params, data, _ = lm_tiny_workload(spec, torch.device("cpu"))
+    x, y = torch.from_numpy(data[0][:32]), torch.from_numpy(data[1][:32])
+    codec = slab_codec(params)
+    want = codec.encode(torch.func.grad(loss)(params, x, y))
+    got = codec.encode(torch.func.grad(loss)(
+        tree_to(params, cuda), x.to(cuda), y.to(cuda)))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_at_the_serve_clients_shape(cuda):
+    """lm-tiny's decode norm: 2 rows of D 64, f32, one launch a call."""
+    from repro_torch.kernels import rmsnorm as rms
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    x = torch.randn(2, 64, device=cuda, generator=gen)
+    s = 1 + 0.1 * torch.randn(64, device=cuda, generator=gen)
+    before = rms.LAUNCHES["rmsnorm"]
+    got = rms.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rms.LAUNCHES["rmsnorm"] == before + 1
+    torch.testing.assert_close(got, tref.rmsnorm_ref(x, s), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_at_lm_tiny_metric_forward_shapes(cuda):
+    """lm-tiny's accuracy runs the serving forward on its 512 held-out
+    sequences of 16: rmsnorm at 8192 rows of D 64 and flash_attention at
+    B 512, S 16, 4 heads of 16, causal, both f32, against their plain
+    versions (rmsnorm rtol 1e-5 / atol 1e-6, attention 2e-4)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    gen = torch.Generator(device=cuda).manual_seed(65)
+    x = torch.randn(8192, 64, device=cuda, generator=gen)
+    s = 1 + 0.1 * torch.randn(64, device=cuda, generator=gen)
+    torch.testing.assert_close(rms.rmsnorm(x, s), tref.rmsnorm_ref(x, s),
+                               rtol=1e-5, atol=1e-6)
+    q, k, v = (torch.randn(512, 16, 4, 16, device=cuda, generator=gen)
+               for _ in range(3))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(got, tref.attention_ref(q, k, v, causal=True),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_readers_leave_a_sync_run_bitwise_unchanged(cuda):
+    """A small mlp host sync run on the card (two joined workers as
+    threads) with a stats reader and a serve client attached, against
+    the same run with worker threads and no reader: bitwise equal final
+    params; the reader saw pushes and the client params."""
+    import threading
+
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.cluster.hostlink import run_joined_worker
+    from repro_torch.cluster.trainer import ClusterTrainer
+    from repro_torch.obs.top import StatsClient
+    from repro_torch.serve.client import ServeClient
+    base = ExperimentSpec(arch="mlp", backend="cluster", mode="sync",
+                          schedule=None, cluster_workers=2, batch=16,
+                          wall_budget_s=60.0, max_gradients=20)
+    plain = ClusterTrainer(device=cuda)
+    plain.run(base)
+    spec = base.with_(transport="host", listen="127.0.0.1:0")
+    trainer = ClusterTrainer(device=cuda)
+    runtime = trainer.build_runtime(spec)
+    addr = runtime.listen_address
+    codes = {}
+    joiners = [threading.Thread(target=lambda i=i: codes.update(
+        {i: run_joined_worker(addr, verbose=False, device="cuda")}),
+        daemon=True) for i in range(2)]
+    for t in joiners:
+        t.start()
+    reader = StatsClient(addr)
+    client = ServeClient(addr, device=cuda)
+    try:
+        res = trainer.finish(runtime, spec)
+    finally:
+        for t in joiners:
+            t.join(timeout=60)
+        reader.close()
+        client.close()
+    assert codes == {0: 0, 1: 0}, codes
+    assert res.extra["accounting"]["applied"] == 20
+    assert res.extra["serving"]["clients"] == 1
+    assert res.extra["serving"]["stats_clients"] == 1
+    assert reader.pushes_seen + len(reader.backfill) > 0
+    assert client.versions_seen
+    for k in plain.last_params:
+        assert torch.equal(plain.last_params[k], trainer.last_params[k]), k

@@ -631,7 +631,12 @@ def test_two_host_groups_bitwise_identical_to_inproc():
     ``repro_torch join`` process groups (each rebuilds the workload from
     the spec JSON it was sent): bitwise equal final params.  The pinned
     ``<f4`` frames, leased shards and worker-id-ordered rounds leave no
-    other outcome."""
+    other outcome.
+
+    Two read-only serve clients subscribe to the host run while it
+    trains: they receive pushes, never claim a barrier seat, and leave
+    the training outcome bitwise untouched."""
+    from repro_torch.serve.client import ServeClient
     finals = {}
     trainer = ClusterTrainer(device=CPU)
     res = trainer.run(_host_spec(transport="inproc"))
@@ -646,15 +651,26 @@ def test_two_host_groups_bitwise_identical_to_inproc():
     procs = {i: spawn_join_process(runtime.listen_address, device=CPU,
                                      reconnect_s=0)
              for i in range(2)}
+    serve_clients = [ServeClient(runtime.listen_address, device=CPU)
+                     for _ in range(2)]
     try:
         res_h = trainer2.finish(runtime, spec)
     finally:
         codes = _wait_all(procs)
+        for c in serve_clients:
+            c.close()
     assert codes == {0: 0, 1: 0}, codes
     a = _check_conservation(res_h)
     assert a["applied"] == 12 and res_h.num_updates == 6
     assert res_h.extra["telemetry"]["ledger_check"]["consistent"]
     finals["host"] = trainer2.last_params
+
+    # the serving plane saw the run but never entered it
+    serving = res_h.extra["serving"]
+    assert serving["clients"] == 2, serving
+    for c in serve_clients:
+        seen = list(c.versions_seen)
+        assert seen and seen == sorted(seen), seen
     assert res_h.extra["listen"].startswith("127.0.0.1:")
     listening = [e for e in res_h.extra["events"]
                  if e["event"] == "listening"]

@@ -420,3 +420,160 @@ def test_serve_module_entry_point(capsys):
     assert tserve.main(["--smoke", "--device", "cpu", "--batch", "1",
                         "--prompt-len", "3", "--gen-len", "2"]) == 0
     assert "generated 2 tokens" in capsys.readouterr().out
+
+
+# ------------------------------------------------- training (lm-tiny)
+# lm-tiny (d 64, vocab 128, 2 layers, 4x16 heads, d_ff 128, f32, tied)
+# trained through loss_fn's plain forward.  Loss and the f32 gradient
+# slab within rtol 1e-5 / atol 1e-6 of the reference on its weights
+# (measured: loss 3.3e-6 apart at 5.36, slab 4.3e-8); the bf16 slab
+# within one bf16 ulp (2^-7 of the value, rtol 8e-3; atol 1e-5 for the
+# entries near zero): both sides round gradients that agree to 1e-5.
+GRAD_TOL = {"f32": dict(rtol=1e-5, atol=1e-6),
+            "bf16": dict(rtol=8e-3, atol=1e-5)}
+
+
+def _lm_tiny(seed=0):
+    """Both packages' lm-tiny workloads on the reference's initial params
+    (carried over), and the shared data."""
+    from repro.api import ExperimentSpec as JaxSpec
+    from repro.serve import workload as jworkload
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.serve import workload as tworkload
+    jw = jworkload.lm_tiny_workload(JaxSpec(arch="lm-tiny", smoke=True,
+                                            seed=seed))
+    tw = tworkload.lm_tiny_workload(ExperimentSpec(arch="lm-tiny",
+                                                   smoke=True, seed=seed),
+                                    torch.device("cpu"))
+    return jw, tw, params_from_numpy(_host(jw[1]))
+
+
+def test_lm_tiny_config_and_data_are_the_references():
+    from repro.serve import workload as jworkload
+    from repro_torch.core.slab import slab_codec
+    from repro_torch.serve import workload as tworkload
+    assert dataclasses.asdict(tworkload.lm_tiny_config()) == \
+        dataclasses.asdict(jworkload.lm_tiny_config())
+    jw, tw, tp = _lm_tiny()
+    for a, b in zip(jw[2], tw[2]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    codec = slab_codec(tp)
+    assert (codec.size, codec.padded_size) == (90_432, 98_304)
+    assert codec.decode(codec.encode(tp))["groups"][1]["mixer"]["wq"] \
+        .shape == (1, 64, 4, 16)
+
+
+@pytest.mark.parametrize("slab_dtype", ["f32", "bf16"])
+def test_lm_tiny_loss_and_gradient_slab_match_reference(slab_dtype):
+    from repro.core.slab import slab_codec as jslab_codec
+    from repro_torch.core.slab import slab_codec
+    (jloss, jp, jdata, _), (tloss, _, _, _), tp = _lm_tiny()
+    x, y = jdata[0][:32], jdata[1][:32]
+    tx, ty = torch.from_numpy(x.copy()), torch.from_numpy(y.copy())
+    np.testing.assert_allclose(float(tloss(tp, tx, ty)),
+                               float(jloss(jp, x, y)), rtol=1e-5, atol=1e-6)
+    want = np.asarray(jslab_codec(jp, slab_dtype).encode(
+        jax.grad(jloss)(jp, x, y))).astype(np.float32)
+    got = slab_codec(tp, slab_dtype).encode(
+        torch.func.grad(tloss)(tp, tx, ty))
+    assert got.dtype == (torch.float32 if slab_dtype == "f32"
+                         else torch.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **GRAD_TOL[slab_dtype])
+
+
+def test_loss_fn_mask_and_metrics_match_reference():
+    """``loss_mask`` averages over the masked tokens only, and the
+    metrics carry the cross-entropy and the aux loss."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(jcfg, seed=2)
+    toks = _tokens(5, (B, S), jcfg.vocab_size)
+    labels = _tokens(6, (B, S), jcfg.vocab_size)
+    mask = (np.arange(S)[None, :] < np.array([[S // 2], [S]])
+            ).astype(np.float32)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+          "loss_mask": jnp.asarray(mask)}
+    tb = {"tokens": torch.from_numpy(toks.copy()),
+          "labels": torch.from_numpy(labels.copy()),
+          "loss_mask": torch.from_numpy(mask.copy())}
+    (jl, jm), (tl, tm) = JM.loss_fn(jp, jb, jcfg, q_block=8), \
+        TM.loss_fn(tp, tb, tcfg)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(tm["ce"]), float(jm["ce"]),
+                               rtol=1e-5, atol=1e-6)
+    assert float(tm["aux"]) == float(jm["aux"]) == 0.0
+
+
+@pytest.mark.parametrize("what", ["rmsnorm", "attention"])
+def test_plain_kernels_differentiate_like_reference(what):
+    """The plain versions the training forward runs, differentiated by
+    ``torch.func.grad``, against ``jax.grad`` of the reference's plain
+    versions: f32 rtol 1e-5 / atol 1e-6."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(7)
+    if what == "rmsnorm":
+        args = [rng.normal(size=(6, 64)).astype(np.float32),
+                (1 + 0.1 * rng.normal(size=64)).astype(np.float32)]
+        jf, tf = jref.rmsnorm_ref, tref.rmsnorm_ref
+    else:
+        args = [rng.normal(size=(2, 16, n, 16)).astype(np.float32)
+                for n in (4, 2, 2)]
+        jf = lambda q, k, v: jref.attention_ref(   # noqa: E731
+            q, k, v, causal=True, window=8)
+        tf = lambda q, k, v: tref.attention_ref(   # noqa: E731
+            q, k, v, causal=True, window=8)
+    w = rng.normal(size=jf(*args).shape).astype(np.float32)
+    argnums = tuple(range(len(args)))
+    want = jax.grad(lambda *a: jnp.sum(jf(*a) * w), argnums)(*args)
+    got = torch.func.grad(lambda *a: torch.sum(tf(*a) * torch.from_numpy(w)),
+                          argnums)(*(torch.from_numpy(a) for a in args))
+    for g, j in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_training_forward_never_reaches_the_kernel_wrappers(monkeypatch):
+    """``loss_fn`` selects the plain path by its argument: the kernel
+    wrappers are never called, so they keep refusing inputs that
+    require grad, and the serving forward keeps its kernels."""
+    jcfg, tcfg = _cfgs()
+    _, tp = _params(jcfg)
+
+    def refuse(*a, **k):
+        raise AssertionError("the training forward called a kernel")
+
+    monkeypatch.setattr(trms, "rmsnorm", refuse)
+    monkeypatch.setattr(tflash, "flash_attention", refuse)
+    toks = torch.from_numpy(_tokens(1, (B, S), 97))
+    loss = torch.func.grad(lambda p: TM.loss_fn(
+        p, {"tokens": toks, "labels": toks}, tcfg)[0])(tp)
+    assert torch.isfinite(loss["embed"]).all()
+    monkeypatch.undo()
+    x = torch.ones(2, 64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        trms.rmsnorm(x, torch.ones(64))
+
+
+def test_lm_tiny_sim_matches_reference():
+    """A 3-gradient hybrid simulator run on lm-tiny, the port against
+    the JAX ``SimulatorTrainer`` on the same initial params and data:
+    the same events, and metrics within rtol 1e-5 / atol 1e-6."""
+    from repro.api import ExperimentSpec as JaxSpec
+    from repro.api import SimulatorTrainer as JaxSimulatorTrainer
+    from repro.core.simulator import WorkerPool as JaxWorkerPool
+    from repro_torch.api import ExperimentSpec, SimulatorTrainer
+    jspec = JaxSpec(arch="lm-tiny", smoke=True, mode="hybrid",
+                    schedule="step:2", horizon=0.07, sample_every=0.035,
+                    pool=JaxWorkerPool(num_workers=3, delay_fraction=0.0))
+    jw, tw, tp = _lm_tiny()
+    jres = JaxSimulatorTrainer(*jw).run(jspec)
+    tres = SimulatorTrainer(tw[0], tp, tw[2], tw[3], device="cpu").run(
+        ExperimentSpec.from_json(jspec.to_json()))
+    assert (tres.num_gradients, tres.num_updates) == \
+        (jres.num_gradients, jres.num_updates)
+    assert tres.num_gradients == 3 and tres.grid == jres.grid
+    for k, v in jres.metrics.items():
+        np.testing.assert_allclose(tres.metrics[k], v, rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    assert tres.metrics["train_loss"][-1] < tres.metrics["train_loss"][0]

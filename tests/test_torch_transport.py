@@ -315,20 +315,21 @@ def _first_frame(ftype: int) -> bytes:
 
 
 # every control frame of protocol v1 and the ROADMAP item that brought
-# it to the port (A10b) or brings it (A11)
+# it to the port: the host transport's (A10b), the serving and stats
+# planes' (A11)
 _CONTROL_FRAMES = sorted(
     [(t, "A10b") for t in (tmp._F_JOIN, tmp._F_WELCOME, tmp._F_PING,
                           tmp._F_PONG, tmp._F_CHALLENGE, tmp._F_AUTH)]
-    + [(t, item) for t, (_, item) in tmp._NOT_YET.items()])
+    + [(tmp._F_SERVE, "A11"), (tmp._F_STATS, "A11")])
 
 
 @pytest.mark.parametrize("ftype,item", _CONTROL_FRAMES)
 def test_frames_not_served_yet_are_rejected_naming_their_item(ftype, item):
-    """A control frame as a peer's first, sent to the plain hub.  JOIN,
-    WELCOME, CHALLENGE, AUTH, PING and PONG (A10b) are answered exactly
-    as the reference's plain hub answers them: the same REJECT, byte
-    for byte.  SERVE and STATS (the serving planes) are answered with a
-    REJECT naming A11, the ROADMAP item that brings them."""
+    """A control frame as a peer's first, sent to the plain hub, is
+    answered exactly as the reference's plain hub answers it: the same
+    REJECT, byte for byte.  SERVE and STATS (A11) are turned away
+    because only the host hub admits read-only peers, and no REJECT
+    names a ROADMAP item any more."""
     frame = _first_frame(ftype)
     hub = SocketTransport(4, family="unix", device=CPU)
     try:
@@ -336,9 +337,9 @@ def test_frames_not_served_yet_are_rejected_naming_their_item(ftype, item):
         assert hub.rejected_peers == 1 and hub.live_workers() == set()
     finally:
         hub.close()
+    assert "ROADMAP" not in _reject_reason(reply)
     if item == "A11":
-        assert item in _reject_reason(reply)
-        return
+        assert "not a host transport" in _reject_reason(reply)
     ref = jmp.SocketTransport(4, family="unix")
     try:
         want = _raw_peer(ref, frame)
