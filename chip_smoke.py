@@ -45,7 +45,25 @@ main paths:
   widths and depth (batch 4, prompt 32, gen 16) and ``prefill_step`` on
   the 32-token prompts and on one 8192-token sequence, checking that
   every norm went through the rmsnorm kernel and every full-sequence
-  attention through the flash_attention kernel.
+  attention through the flash_attention kernel;
+- the rest of the model stack: flash_attention with a chunk mask and
+  with d_v != d, and rmsnorm at the new families' widths, against their
+  plain versions and timed; ``[serve-mla-moe]``, deepseek-v2-lite-16b at
+  its published widths and depth (27 MLA + MoE layers, 32.4 GB bf16)
+  through ``greedy_generate`` and ``prefill_step`` (S 32 and 4096), 55
+  rmsnorm and 27 flash launches a forward, the prefill against the
+  plain forward and a decode replay; ``[zoo-sim]``, ``SimulatorTrainer``
+  on ``zoo:xlstm`` at xlstm-350m's shape (hybrid, 16 workers, f32 slab;
+  every flush a ``flush`` launch, staging and data on the card, the loss
+  falling),
+  then ``zoo:xlstm`` and ``zoo:transformer`` at x0.25 against the CPU
+  (zoo:xlstm's gradient leaf by leaf within its one-ulp spread);
+  ``[zoo-wire]``, the ported ``smoke_zoo`` (proc, bf16 slab, AdamW);
+  ``[arch]``, every registry family's smoke variant against the CPU,
+  one full-width group of jamba (prefill S 2048, greedy decode) and of
+  llama4-scout (prefill S 16384 through the chunked kernel),
+  hubert-xlarge and phi-3-vision at full width.  Each releases its
+  weights before the next.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` gives them, one ``{"kernels": [...]}`` JSON line, and as
@@ -254,9 +272,10 @@ def build_kernels():
                 log(f"[build] {name}: {kernel}: "
                     f"{line.split(':', 1)[1].strip()}; {spill}")
     lib = fa._lib()
-    smem = {d: lib.flash_attention_bf16_smem_bytes(d) for d in fa.HEAD_DIMS}
+    smem = {f"{d}/{dv}": lib.flash_attention_bf16_smem_bytes(d, dv)
+            for d, dv in fa.HEAD_DIMS}
     log(f"[build] flash_attention: flash_fwd_bf16_kernel dynamic shared "
-        f"memory by head dim (bytes): {smem}")
+        f"memory by head dims d/d_v (bytes): {smem}")
 
 
 def max_err(torch, a, b) -> float:
@@ -1739,7 +1758,7 @@ def time_lm_kernels(torch, D: int):
     # causal shape
     shapes = FLASH_CASES[:2] + [
         (f"bf16 d={d}", 1, 4096, 16, 4, d, True, None, "bfloat16")
-        for d in fa.HEAD_DIMS]
+        for d, dv in fa.HEAD_DIMS if d == dv]
     for seed, (label, B, S, H, KV, d, causal, window, dtype) in \
             enumerate(shapes):
         q, k, v = qkv(torch, 10 + seed, B, S, H, KV, d, dtype)
@@ -1930,6 +1949,783 @@ def drive_serve_path(torch):
                           n_params=n_params)
 
 
+
+# ------------------------------------------ the rest of the model stack
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+# deepseek's last-position logits after a 32-token prompt, 27 layers, at
+# a capacity that drops no token, three ways: the prefill (flash at
+# (192, 128) + rmsnorm kernels), the plain forward (the same full-sequence
+# MLA through the plain attention and norm) and the decode replay
+# (absorbed MLA in plain PyTorch).  In float32 the three agree to 1e-5 -
+# 2e-5 on the card, so they compute one function; in bf16 each rounds in
+# its own order at every layer, and over seeds 0-3 the kernels read
+# 0.19-0.67 from the plain forward and the prefill 0.43-1.00 from the
+# replay (PERF.md, PR 18)
+MLA_SEEDS = (0, 1, 2, 3)            # bf16
+MLA_KERNEL_ATOL = 1.0
+MLA_PREFILL_DECODE_ATOL = 1.5
+MLA_F32_ATOL = 2e-4                 # seed 0, float32 weights (64.8 GB)
+MLA_LONG_S = 4096
+ZOO_SCALE = 1.0        # [zoo-sim]: xlstm-350m's published shape
+ZOO_WORKERS = 16       # ... 16 x 1.76 GB snapshots + 16 staging rows
+ZOO_HORIZON = 0.5      # ... virtual seconds: about 100 gradients
+ZOO_SMALL = 0.25       # the width run on the card and on the CPU ...
+ZOO_SMALL_HORIZON = 0.25   # ... for 0.25 virtual s: about 50 gradients
+# SGD at xlstm-350m's width in this run's 0.5 virtual s: the train loss
+# ran away at the default lr 0.01, rose at 3e-4 and 1e-4 and fell at 3e-5
+# (PERF.md, PR 18)
+ZOO_LR = 3e-5
+JAMBA = "jamba-v0.1-52b"
+LLAMA4 = "llama4-scout-17b-a16e"
+HUBERT = "hubert-xlarge"
+PHI3V = "phi-3-vision-4.2b"
+# flash_attention at the new full-sequence kinds: (label, B, S, H, KV, d,
+# d_v, causal, window, chunk, dtype)
+FLASH_NEW = [
+    ("MLA deepseek", 1, MLA_LONG_S, 16, 16, 192, 128, True, None, None,
+     "bfloat16"),
+    ("chunked llama4", 1, 16384, 40, 8, 128, 128, True, None, 8192,
+     "bfloat16"),
+    ("bidirectional hubert", 2, 1024, 16, 16, 80, 80, False, None, None,
+     "bfloat16"),
+]
+# smaller held cases: chunk no tile divides, chunk below a tile, ragged S,
+# MLA's smoke pair, f32 on the CUDA-core kernel
+FLASH_NEW_SMALL = [
+    ("chunk 100 ragged", 1, 300, 4, 2, 64, 64, True, None, 100, "bfloat16"),
+    ("chunk 100 ragged f32", 1, 300, 4, 2, 64, 64, True, None, 100,
+     "float32"),
+    ("chunk 16 S 37", 2, 37, 4, 2, 64, 64, True, None, 16, "bfloat16"),
+    ("chunk 48 full", 1, 200, 4, 1, 128, 128, False, None, 48, "bfloat16"),
+    ("chunk + window f32", 1, 200, 4, 1, 128, 128, True, 20, 48, "float32"),
+    ("MLA 192/128 f32", 2, 130, 4, 4, 192, 128, False, None, None,
+     "float32"),
+    ("MLA 80/64", 2, 40, 4, 4, 80, 64, True, None, None, "bfloat16"),
+    ("MLA 80/64 f32", 2, 40, 4, 4, 80, 64, True, None, None, "float32"),
+]
+RMS_NEW_D = (1024, 2048, 4096, 5120)
+
+
+def qkv_v(torch, seed, B, S, H, KV, d, dv, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return [torch.randn(B, S, n, w, device="cuda", generator=gen).to(dt)
+            for n, w in ((H, d), (KV, d), (KV, dv))]
+
+
+def reachable_pairs(S: int, causal: bool, window, chunk) -> int:
+    """(query, key) pairs the causal, window and chunk masks leave: the
+    work of one (batch, head)."""
+    total = 0
+    for i in range(S):
+        hi = i + 1 if causal else S
+        lo = max(0, i - window + 1) if window else 0
+        if chunk:
+            lo = max(lo, (i // chunk) * chunk)
+            hi = min(hi, (i // chunk + 1) * chunk)
+        total += hi - lo
+    return total
+
+
+def compare_new_kernel_shapes(torch):
+    """flash_attention with a chunk and with d_v != d, and rmsnorm at the
+    new families' widths, against their plain versions (the plain
+    attention a 1024-row query block at a time above S 4096)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for width in RMS_NEW_D:
+        scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
+        for n in (4, 4096):
+            for dtype in ("float32", "bfloat16"):
+                x = torch.randn(n, width, device="cuda", generator=gen).to(
+                    getattr(torch, dtype))
+                (y,) = same_twice(torch, lambda: rms.rmsnorm(x, scale))
+                errs["rmsnorm"] = max(errs["rmsnorm"], hold(
+                    torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale),
+                    *RMS_TOL[dtype], f"N={n} D={width} {dtype}"))
+    for seed, (label, B, S, H, KV, d, dv, causal, window, chunk, dtype) in \
+            enumerate(FLASH_NEW + FLASH_NEW_SMALL):
+        q, k, v = qkv_v(torch, 50 + seed, B, S, H, KV, d, dv, dtype)
+        kw = dict(causal=causal, window=window, chunk=chunk)
+        (o,) = same_twice(torch, lambda: fa.flash_attention(q, k, v, **kw))
+        check(tuple(o.shape) == (B, S, H, dv), f"flash {label}: shape")
+        want = ref.attention_ref(q, k, v, q_block=1024 if S > 4096 else None,
+                                 **kw)
+        errs["flash_attention"] = max(errs["flash_attention"], hold(
+            torch, "flash_attention", o, want, *FLASH_TOL[dtype],
+            f"{label} ({B},{S},{H},{KV},{d}/{dv}) c={chunk}"))
+        del q, k, v, o, want
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_new_kernel_shapes(torch):
+    """flash_attention at the three new kinds and rmsnorm at the new
+    widths: the kernel alone (profiler), CUDA-event calls, the plain
+    version and the library call (masked SDPA, F.rms_norm)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for width in RMS_NEW_D:
+        scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
+        for dtype in ("float32", "bfloat16"):
+            x = torch.randn(4096, width, device="cuda", generator=gen).to(
+                getattr(torch, dtype))
+            lib_scale = scale.to(x.dtype)
+            name = f"rmsnorm N=4096 D={width} {dtype}"
+            case = {name: (
+                lambda x=x, sc=scale: rms.rmsnorm(x, sc),
+                lambda x=x, sc=scale: ref.rmsnorm_ref(x, sc),
+                lambda x=x, w=width, ls=lib_scale: F.rms_norm(
+                    x, (w,), ls, 1e-5),
+                2 * nbytes(x) + nbytes(scale), 4 * x.numel())}
+            out.update(time_cases(torch, timer, case))
+            out[name]["kernel_only_ms"] = kernel_only_ms(
+                torch, case[name][0], "rmsnorm_kernel")
+            t = out[name]
+            log(f"[time] {name}: kernel alone {t['kernel_only_ms']:.6f} ms "
+                f"= {100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of "
+                f"bound {t['bound_ms']:.6f} ms")
+    for seed, (label, B, S, H, KV, d, dv, causal, window, chunk, dtype) in \
+            enumerate(FLASH_NEW):
+        q, k, v = qkv_v(torch, 70 + seed, B, S, H, KV, d, dv, dtype)
+        kw = dict(causal=causal, window=window, chunk=chunk)
+        mask = ref.attention_mask(S, causal, window, "cuda", chunk)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        flops = 2 * (d + dv) * B * H * reachable_pairs(S, causal, window,
+                                                       chunk)
+        name = f"flash {label} S={S}"
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
+        try:
+            library()
+            torch.cuda.synchronize()
+        except Exception as e:      # a yardstick only: time what runs
+            log(f"[time] {name}: masked SDPA does not run here "
+                f"({type(e).__name__}: {str(e)[:120]}); library_ms null")
+            library = None
+        torch.cuda.empty_cache()
+        big = S >= 2048
+        case = {name: (
+            lambda: fa.flash_attention(q, k, v, **kw),
+            lambda: ref.attention_ref(q, k, v, q_block=1024 if S > 4096
+                                      else None, **kw),
+            library, nbytes(q, k, v) + nbytes(q) // d * dv, flops)}
+        out.update(time_cases(
+            torch, Timer(torch, reps=5) if big else timer, case,
+            plain_timer=Timer(torch, reps=2) if big else None,
+            peak=BF16_FLOPS_PER_S))
+        out[name]["kernel_only_ms"] = kernel_only_ms(
+            torch, case[name][0], "flash_fwd_bf16_kernel", reps=10)
+        t = out[name]
+        log(f"[time] {name}: kernel alone {t['kernel_only_ms']:.6f} ms = "
+            f"{100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of bound "
+            f"{t['bound_ms']:.6f} ms")
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def _counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.kernels import rmsnorm as rms
+    return rms.LAUNCHES, fa.LAUNCHES, ha.LAUNCHES
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0 (just before a counted run)."""
+    from repro_torch.kernels import hybrid_aggregate as ha
+    for counts in _counters():
+        for name in counts:
+            counts[name] = 0
+    ha.LAUNCHES_BY_K.clear()
+
+
+def read_counts() -> dict:
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
+
+
+def release(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def init_full(torch, cfg, label: str, seed: int = 0):
+    from repro_torch.models import model as M
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    gb = sum(nbytes(t) for t in tree_leaves(params)) / 1e9
+    log(f"[{label}] {cfg.name}: {cfg.num_layers} layers "
+        f"({cfg.num_groups} x {len(cfg.block_pattern)}), d {cfg.d_model}, "
+        f"{cfg.dtype}: {n / 1e9:.3f} B params, {gb:.2f} GB, random init "
+        f"from seed {seed} in {time.time() - t0:.1f} s")
+    return params
+
+
+def mla_paths(torch, params, cfg, prompts):
+    """deepseek's last-position logits after ``prompts`` three ways, at a
+    capacity factor of E (no token dropped by any): the prefill (flash
+    at (192, 128) and rmsnorm kernels), the plain forward (the same
+    full-sequence MLA through the plain attention and norm), the decode
+    replay (absorbed MLA in plain PyTorch); and greedy's first tokens."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    full = dataclasses.replace(cfg, moe_capacity_factor=float(
+        cfg.num_experts))
+    B, P = prompts.shape
+    dev = torch.device("cuda")
+    toks = torch.as_tensor(prompts, device=dev)
+    pre = serve.prefill_step(params, {"tokens": toks}, full).float()
+    plain = M.forward(params, {"tokens": toks}, full,
+                      plain=True)[0][:, -1].float()
+    cache = M.init_cache(full, B, P, device=dev)
+    for i in range(P):
+        dec, cache = M.decode_step(params, cache, toks[:, i:i + 1], i, full)
+    first = serve.greedy_generate(full, params, prompts, 1)[:, P]
+    return pre, plain, dec[:, 0].float(), first
+
+
+def hold_mla_paths(torch, paths, kernel_atol: float, atol: float,
+                   label: str) -> dict:
+    """The kernels against the plain forward, the prefill against the
+    decode replay, and the h2o check's top-1 rules: a row whose prefill
+    margin exceeds twice the bound agrees on top-1, and greedy's first
+    token is the replay's argmax."""
+    pre, plain, dec, first = paths
+    kern = float((pre - plain).abs().max())
+    rep = float((plain - dec).abs().max())
+    diff = float((pre - dec).abs().max())
+    top2 = pre.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * atol
+    agree = pre.argmax(-1) == dec.argmax(-1)
+    check(bool(torch.isfinite(pre).all()) and kern <= kernel_atol,
+          f"deepseek {label}: prefill (kernels) vs plain forward logits "
+          f"differ by {kern}")
+    check(diff <= atol, f"deepseek {label}: prefill vs decode replay "
+          f"logits differ by {diff}")
+    check(bool(agree[clear].all()), f"deepseek {label}: prefill and decode "
+          "disagree on a top-1 token whose margin exceeds twice the bound")
+    check(bool((torch.as_tensor(first, device=dec.device)
+                == dec.argmax(-1)).all()),
+          f"deepseek {label}: greedy's first token is not the replay's "
+          "argmax")
+    log(f"[serve-mla-moe] {label}, capacity factor E (no drops), last-"
+        f"position logits: prefill (kernels) vs plain forward {kern:.6g} "
+        f"(atol {kernel_atol:g}); plain forward vs decode replay "
+        f"{rep:.6g}; prefill vs decode replay {diff:.6g} (atol {atol:g}); "
+        f"max |logit| {float(pre.abs().max()):.3f}; top-1 agree "
+        f"{int(agree.sum())}/{len(agree)} ({int(clear.sum())} rows with a "
+        f"clear margin); greedy's first tokens are the replay's argmax")
+    return dict(kernels=kern, replay=rep, prefill=diff)
+
+
+def drive_mla_moe_serve(torch):
+    """deepseek-v2-lite-16b at its published widths and depth through the
+    serving entry points: greedy_generate (batch 4, prompt 32, gen 16),
+    prefill_step on the prompts and on one 4096-token sequence; every
+    norm through rmsnorm, every MLA attention through flash_attention at
+    (192, 128); the prefill against the plain forward and a decode
+    replay."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(DEEPSEEK)
+    L, V = cfg.num_layers, cfg.vocab_size
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, V, (B, P)).astype(np.int32)
+    long_toks = torch.as_tensor(rng.integers(0, V, (1, MLA_LONG_S))
+                                .astype(np.int32), device=dev)
+    per_fwd = (2 * L + 1, L)
+    torch.cuda.reset_peak_memory_stats()
+    totals = {}
+
+    def counted(fn):
+        reset_counts()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        got = read_counts()
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+        return res, dt, (got["rmsnorm"], got["flash_attention"])
+
+    with torch.inference_mode():
+        params = init_full(torch, cfg, "serve-mla-moe")
+        serve.greedy_generate(cfg, params, prompts[:, :2], 1)   # set-up
+        serve.prefill_step(params, {"tokens": long_toks[:, :64]}, cfg)
+        torch.cuda.synchronize()
+        out, gen_s, n = counted(
+            lambda: serve.greedy_generate(cfg, params, prompts, G))
+        steps = P + G
+        check(n == (steps * per_fwd[0], 0),
+              f"deepseek greedy launches {n}, expected "
+              f"{steps * per_fwd[0]} rmsnorm and no flash")
+        check(out.shape == (B, P + G) and np.array_equal(out[:, :P], prompts)
+              and int(out.min()) >= 0 and int(out.max()) < V,
+              "deepseek greedy_generate returned malformed tokens")
+        log(f"[serve-mla-moe] greedy_generate B={B} prompt={P} gen={G}: "
+            f"{steps} decode steps in {gen_s:.3f} s ({B * G / gen_s:.1f} "
+            f"new tok/s, {1e3 * gen_s / steps:.2f} ms/step); rmsnorm "
+            f"launches {n[0]} = {steps} x {per_fwd[0]}, flash 0")
+        short, short_s, n = counted(lambda: serve.prefill_step(
+            params, {"tokens": torch.as_tensor(prompts, device=dev)}, cfg))
+        check(n == per_fwd, f"deepseek prefill launches {n}, expected "
+              f"{per_fwd}")
+        log(f"[serve-mla-moe] prefill_step B={B} S={P}: {1e3 * short_s:.2f} "
+            f"ms ({B * P / short_s:.0f} tok/s); launches rmsnorm "
+            f"{n[0]}, flash {n[1]} (at d "
+            f"{cfg.resolved_head_dim + cfg.rope_head_dim} / d_v "
+            f"{cfg.resolved_v_head_dim})")
+        long_logits, long_s, n = counted(lambda: serve.prefill_step(
+            params, {"tokens": long_toks}, cfg))
+        check(n == per_fwd and tuple(long_logits.shape) == (1, V)
+              and bool(torch.isfinite(long_logits).all()),
+              f"deepseek long prefill: launches {n} or logits malformed")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[serve-mla-moe] prefill_step B=1 S={MLA_LONG_S}: {long_s:.3f} "
+            f"s ({MLA_LONG_S / long_s:.0f} tok/s); launches rmsnorm {n[0]}, "
+            f"flash {n[1]}; peak device memory {peak:.2f} GB")
+
+        # the same function three ways, at a capacity that drops no token
+        # in any (a prefill routes B*P tokens per group, a decode B), at
+        # four bf16 seeds, then in float32
+        hold_mla_paths(torch, mla_paths(torch, params, cfg, prompts),
+                       MLA_KERNEL_ATOL, MLA_PREFILL_DECODE_ATOL,
+                       "bf16 seed 0")
+        del params
+        release(torch)
+        for seed in MLA_SEEDS[1:]:
+            params = init_full(torch, cfg, "serve-mla-moe", seed)
+            hold_mla_paths(torch, mla_paths(torch, params, cfg, prompts),
+                           MLA_KERNEL_ATOL, MLA_PREFILL_DECODE_ATOL,
+                           f"bf16 seed {seed}")
+            del params
+            release(torch)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        params = init_full(torch, f32, "serve-mla-moe")
+        hold_mla_paths(torch, mla_paths(torch, params, f32, prompts),
+                       MLA_F32_ATOL, MLA_F32_ATOL, "float32 seed 0")
+    del params
+    release(torch)
+    return totals, dict(gen_s=gen_s, short_s=short_s, long_s=long_s,
+                        peak_gb=peak)
+
+
+def _slab(trainer, spec):
+    (agg,) = trainer.engine(spec)._agg_cache.values()
+    return agg
+
+
+def xlstm_gradient_leaves(torch, sp) -> dict:
+    """One zoo:xlstm gradient (batch 32) on the card against the CPU's,
+    each leaf within twice the largest move of that leaf of the CPU's
+    gradient when every param moves one ulp up or down at random (four
+    draws), as tests/test_torch_zoo.py holds the port against the
+    reference: a leaf computed at lower precision would leave its own
+    spread even where another leaf's is wide."""
+    from repro_torch.convert import tree_to
+    from repro_torch.core.slab import slab_codec
+    from repro_torch.models.model import _map
+    from repro_torch.models.zoo import zoo_workload
+    loss, params, data, _ = zoo_workload(sp, torch.device("cpu"))
+    x, y = (torch.as_tensor(a[:32]) for a in data[:2])
+    codec = slab_codec(params)
+
+    def grad(p, dev):
+        g = torch.func.grad(loss)(tree_to(p, dev), x.to(dev), y.to(dev))
+        return codec.encode(g).cpu()
+
+    def moved(seed):
+        gen = torch.Generator().manual_seed(seed)
+
+        def ulp(t):     # one ulp up or down (a half-ulp step, rounded)
+            sign = torch.randint(0, 2, t.shape, generator=gen) * 2 - 1
+            return (t.double() * (1 + sign * 2.0 ** -24)).to(t.dtype)
+        return dict(_map(ulp, {k: v for k, v in params.items()
+                               if k != "groups"}),
+                    groups=tuple(_map(ulp, g) for g in params["groups"]))
+
+    def leaf_max(slab):
+        return torch.stack([slab[o:o + n].abs().max() for o, n in
+                            zip(codec.offsets, codec.sizes)])
+
+    want = grad(params, "cpu")
+    got = grad(params, "cuda")
+    diff = leaf_max(got - want)
+    spread = torch.stack([leaf_max(grad(moved(s), "cpu") - want)
+                          for s in range(4)]).max(0).values
+    ratio = diff / (2 * spread + 1e-6)
+    i = int(ratio.argmax())
+    worst = "/".join(str(k) for k in codec.paths[i])
+    check(bool(torch.isfinite(got).all()) and bool((ratio <= 1).all()),
+          f"zoo:xlstm gradient cuda vs cpu leaf {worst}: {float(diff[i]):.3e}"
+          f" exceeds twice its CPU one-ulp spread {float(spread[i]):.3e}")
+    return dict(leaves=len(codec.sizes), ratio=float(ratio[i]), worst=worst,
+                diff=float(diff[i]), spread=float(spread[i]),
+                max_diff=float(diff.max()), max_spread=float(spread.max()))
+
+
+def drive_zoo_sim(torch):
+    """SimulatorTrainer on zoo:xlstm at zoo_scale 1.0 (xlstm-350m's
+    shape, f32 slab), hybrid step:10, then zoo:xlstm and zoo:transformer
+    at 0.25 on the card and on the CPU."""
+    from repro_torch.api import ExperimentSpec, SimulatorTrainer
+    from repro_torch.core.simulator import WorkerPool
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.models.zoo import zoo_config
+
+    def spec(arch, scale, horizon=ZOO_HORIZON):
+        return ExperimentSpec(
+            arch=arch, zoo_scale=scale, mode="hybrid", schedule="step:10",
+            batch=32, lr=ZOO_LR, horizon=horizon, sample_every=horizon / 2,
+            smoke=True, pool=WorkerPool(num_workers=ZOO_WORKERS))
+
+    totals = {}
+    big = spec("zoo:xlstm", ZOO_SCALE)
+    trainer = SimulatorTrainer(device="cuda")
+    engine = trainer.engine(big)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    res = trainer.run(big)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+    agg = _slab(trainer, big)
+    P = agg.params_slab.numel()
+    staging = sum(r.numel() * r.element_size() for r in agg._staging)
+    losses = res.metrics["train_loss"]
+    check(counts["flush"] == res.num_updates > 0,
+          f"zoo:xlstm flush launches {counts['flush']} != updates "
+          f"{res.num_updates}")
+    check(all(r.device.type == "cuda" and r.shape[0] == ZOO_WORKERS
+              for r in agg._staging) and engine.x_tr.device.type == "cuda",
+          "zoo:xlstm staging or data left the card")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"zoo:xlstm train loss not finite or not falling: {losses}")
+    zc = zoo_config("xlstm", ZOO_SCALE)
+    log(f"[zoo-sim] zoo:xlstm x{ZOO_SCALE:g} ({zc.num_layers} layers, d "
+        f"{zc.d_model}, {zc.num_heads} heads, vocab {zc.vocab_size}, f32; "
+        f"P_pad {P:,}) hybrid step:10, lr {ZOO_LR:g}, {ZOO_WORKERS} workers, "
+        f"batch 32, seq 32, {ZOO_HORIZON} virtual s: {res.num_gradients} "
+        f"gradients, {res.num_updates} updates = {counts['flush']} flush "
+        f"launches ({dict(sorted((k, n) for (name, k), n in ha.LAUNCHES_BY_K.items() if name == 'flush'))} by K) "
+        f"in {wall:.2f} s ({res.num_gradients / wall:.2f} grads/s); "
+        f"staging {ZOO_WORKERS} x {P:,} f32 = {staging / 1e9:.2f} GB on "
+        f"the card; train loss {losses[0]:.4f} -> {losses[-1]:.4f}; rmsnorm "
+        f"launches {counts['rmsnorm']} (accuracy forwards); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del trainer, engine, agg, res
+    release(torch)
+
+    # the same short run at 0.25 on the card and on the CPU
+    from repro_torch.convert import tree_to
+    from repro_torch.models.zoo import zoo_workload
+    for arch in ("zoo:xlstm", "zoo:transformer"):
+        sp = spec(arch, ZOO_SMALL, ZOO_SMALL_HORIZON)
+        slabs, runs = {}, {}
+        for dev in ("cuda", "cpu"):
+            tr = SimulatorTrainer(device=dev)
+            reset_counts()
+            t0 = time.time()
+            runs[dev] = tr.run(sp)
+            wall = time.time() - t0
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                counts = read_counts()
+                for k, n in counts.items():
+                    totals[k] = totals.get(k, 0) + n
+                check(counts["flush"] == runs[dev].num_updates,
+                      f"{arch} x{ZOO_SMALL}: flush launches != updates")
+                if arch == "zoo:transformer":
+                    check(counts["flash_attention"] > 0,
+                          "zoo:transformer accuracy forward launched no "
+                          "flash_attention")
+            slabs[dev] = _slab(tr, sp).params_slab.cpu()
+            log(f"[zoo-sim] {arch} x{ZOO_SMALL} on {dev}: "
+                f"{runs[dev].num_gradients} gradients, "
+                f"{runs[dev].num_updates} updates in {wall:.2f} s "
+                f"({runs[dev].num_gradients / wall:.2f} grads/s)")
+        check((runs["cuda"].num_gradients, runs["cuda"].num_updates) ==
+              (runs["cpu"].num_gradients, runs["cpu"].num_updates),
+              f"{arch}: cuda and cpu runs disagree on event counts")
+        diff = float((slabs["cuda"] - slabs["cpu"]).abs().max())
+        strict = torch.allclose(slabs["cuda"], slabs["cpu"], rtol=1e-5,
+                                atol=1e-6)
+        if arch == "zoo:transformer":
+            check(strict, f"{arch}: params slab cuda vs cpu {diff:.3e} "
+                  "(rtol 1e-5, atol 1e-6)")
+            log(f"[zoo-sim] {arch} x{ZOO_SMALL}: params slab cuda vs cpu "
+                f"max diff {diff:.3e} (rtol 1e-5, atol 1e-6: held); "
+                f"flash_attention and rmsnorm in its accuracy forwards")
+            continue
+        # zoo:xlstm's gradient is ill-conditioned (ROADMAP C.28): over the
+        # run's updates the card's and the CPU's params drift apart as
+        # far as from params one ulp apart, so the run's slab is shown,
+        # and one gradient is held leaf by leaf
+        check(math.isfinite(diff), f"{arch}: params slab not finite")
+        g = xlstm_gradient_leaves(torch, sp)
+        log(f"[zoo-sim] {arch} x{ZOO_SMALL}: params slab cuda vs cpu max "
+            f"diff {diff:.3e} (rtol 1e-5 / atol 1e-6: "
+            f"{'held' if strict else 'not held: ill-conditioned, C.28'}); "
+            f"one gradient (batch 32) cuda vs cpu, leaf by leaf within "
+            f"twice that leaf's CPU one-ulp spread: {g['leaves']} leaves "
+            f"held, worst ratio {g['ratio']:.3f} at {g['worst']} "
+            f"({g['diff']:.3e} against spread {g['spread']:.3e}); over the "
+            f"slab {g['max_diff']:.3e} against {g['max_spread']:.3e}")
+    release(torch)
+    return totals
+
+
+def drive_zoo_wire(torch):
+    """The ported smoke_zoo on the card: zoo:transformer x0.125, proc, 2
+    worker processes, bf16 slab, AdamW, with its five gates."""
+    from repro_torch.cluster.trainer import ClusterTrainer
+    from repro_torch.examples import smoke_zoo
+    from repro_torch.models.zoo import init_zoo_params, num_params, \
+        zoo_config
+    p = num_params(init_zoo_params(zoo_config("transformer",
+                                              smoke_zoo.SCALE), 0))
+    trainer = ClusterTrainer(device="cuda")
+    reset_counts()
+    t0 = time.time()
+    res = trainer.run(smoke_zoo.spec())
+    wall = time.time() - t0
+    counts = read_counts()
+    fails = smoke_zoo.gates(res, p)
+    check(not fails, f"smoke_zoo gates: {fails}")
+    check(counts["flush_adamw"] > 0, "zoo-wire: no flush_adamw launch")
+    a = res.extra["accounting"]
+    rx = res.extra["telemetry"]["counters"]["wire.rx_bytes"]
+    log(f"[zoo-wire] zoo:transformer x{smoke_zoo.SCALE} ({p:,} params) proc "
+        f"x2, bf16 slab, AdamW: {a['applied']} applied of {a['computed']} "
+        f"computed, ledger exact; rx {rx / a['computed']:.0f} B/grad = "
+        f"{rx / a['computed'] / (4 * p):.3f} of the f32 slab; flush_adamw "
+        f"launches {counts['flush_adamw']}; {wall:.1f} s with the fleet's "
+        f"start-up")
+    release(torch)
+    return counts
+
+
+def _forward_counted(torch, params, batch, cfg):
+    from repro_torch.models import model as M
+    reset_counts()
+    t0 = time.time()
+    logits, _ = M.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    c = read_counts()
+    return logits, time.time() - t0, c
+
+
+def _expected(cfg):
+    """(rmsnorm, flash_attention) launches of one serving forward."""
+    attn = sum(m in ("attn", "attn_global", "mla")
+               for m, _ in cfg.block_pattern) * cfg.num_groups
+    norms = 0 if cfg.norm != "rmsnorm" else 1 + sum(
+        1 + (f != "none") for _, f in cfg.block_pattern) * cfg.num_groups
+    return norms, attn
+
+
+def drive_arch(torch):
+    """Every registry family on the card: each smoke variant against the
+    CPU and its decode against its forward; then jamba and llama4 at full
+    width (one group each, what one card holds), hubert-xlarge and
+    phi-3-vision at full width."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.registry import ARCH_NAMES, get_config, \
+        smoke_batch, smoke_variant
+    from repro_torch.convert import tree_to
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    totals = {}
+
+    def add(c):
+        for k, n in c.items():
+            totals[k] = totals.get(k, 0) + n
+
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        for arch in ARCH_NAMES:
+            cfg = dataclasses.replace(smoke_variant(get_config(arch)),
+                                      moe_capacity_factor=8.0)
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+                     for k, v in smoke_batch(cfg).items() if k != "labels"}
+            params = M.init_params(torch.Generator().manual_seed(0), cfg)
+            want, _ = M.forward(params, batch, cfg)
+            p = tree_to(params, dev)
+            got, _, c = _forward_counted(
+                torch, p, {k: v.to(dev) for k, v in batch.items()}, cfg)
+            add(c)
+            check((c["rmsnorm"], c["flash_attention"]) == _expected(cfg),
+                  f"{arch} smoke: launches {c}")
+            diff = max_err(torch, got.cpu(), want)
+            check(torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4),
+                  f"{arch} smoke: cuda vs cpu logits {diff:.3e}")
+            msg = (f"[arch] {cfg.name}: cuda (kernels) vs cpu (plain) "
+                   f"logits {diff:.2e} (rtol 1e-4, atol 1e-4)")
+            if cfg.has_decode:
+                S = 24
+                toks = torch.as_tensor(np.random.default_rng(1).integers(
+                    0, cfg.vocab_size, (2, S)).astype(np.int32), device=dev)
+                tcfg = dataclasses.replace(cfg, frontend=None)
+                full, _ = M.forward(p, {"tokens": toks}, tcfg)
+                cache = M.init_cache(cfg, 2, S, device=dev)
+                outs = []
+                for i in range(S):
+                    lg, cache = M.decode_step(p, cache, toks[:, i:i + 1], i,
+                                              cfg)
+                    outs.append(lg[:, 0])
+                dec = torch.stack(outs, 1)
+                d2 = max_err(torch, dec, full)
+                check(torch.allclose(dec, full, rtol=2e-3, atol=1e-3),
+                      f"{arch} smoke: decode vs forward {d2:.3e}")
+                msg += f"; {S} decode steps vs forward {d2:.2e} (2e-3/1e-3)"
+            log(msg)
+        del params, p
+        release(torch)
+
+        # jamba, one group of 8 at full width: 7 mamba, 1 attention, 4 MoE
+        cfg = dataclasses.replace(get_config(JAMBA), num_groups=1)
+        params = init_full(torch, cfg, "arch")
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (1, 2048)).astype(np.int32), device=dev)
+        logits, dt, c = _forward_counted(torch, params, {"tokens": toks},
+                                         cfg)
+        add(c)
+        check((c["rmsnorm"], c["flash_attention"]) == _expected(cfg)
+              and bool(torch.isfinite(logits[:, -1]).all()),
+              f"jamba prefill: launches {c} or logits not finite")
+        log(f"[arch] {cfg.name} one group prefill B=1 S=2048: {dt:.3f} s "
+            f"({2048 / dt:.0f} tok/s); rmsnorm {c['rmsnorm']}, flash "
+            f"{c['flash_attention']}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del logits
+        prompts = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt"])
+        ).astype(np.int32)
+        reset_counts()
+        t0 = time.time()
+        out = serve.greedy_generate(cfg, params, prompts, SERVE["gen"])
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        c = read_counts()
+        add(c)
+        steps = SERVE["prompt"] + SERVE["gen"]
+        check(c["rmsnorm"] == steps * _expected(cfg)[0]
+              and c["flash_attention"] == 0 and out.shape ==
+              (SERVE["batch"], steps) and int(out.max()) < cfg.vocab_size,
+              f"jamba greedy: launches {c} or tokens malformed")
+        log(f"[arch] {cfg.name} one group greedy_generate B="
+            f"{SERVE['batch']} prompt={SERVE['prompt']} gen={SERVE['gen']}: "
+            f"{dt:.3f} s ({1e3 * dt / steps:.2f} ms/step, "
+            f"{SERVE['batch'] * SERVE['gen'] / dt:.1f} new tok/s); rmsnorm "
+            f"{c['rmsnorm']}")
+        del params, toks
+        release(torch)
+
+        # llama4-scout, one group at full width: 3 chunked + 1 global
+        cfg = dataclasses.replace(get_config(LLAMA4), num_groups=1)
+        params = init_full(torch, cfg, "arch")
+        S = 16384
+        toks = torch.as_tensor(np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (1, S)).astype(np.int32), device=dev)
+        reset_counts()
+        t0 = time.time()
+        last = serve.prefill_step(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        c = read_counts()
+        add(c)
+        check((c["rmsnorm"], c["flash_attention"]) == _expected(cfg)
+              and bool(torch.isfinite(last).all()),
+              f"llama4 prefill: launches {c} or logits not finite")
+        log(f"[arch] {cfg.name} one group (3 chunked + 1 global layer, "
+            f"chunk {cfg.attn_chunk}) prefill B=1 S={S}: {dt:.3f} s "
+            f"({S / dt:.0f} tok/s); rmsnorm {c['rmsnorm']}, flash "
+            f"{c['flash_attention']}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del params, toks, last
+        release(torch)
+
+        # hubert-xlarge at full width: bidirectional encoder, layernorm
+        cfg = get_config(HUBERT)
+        params = init_full(torch, cfg, "arch")
+        feats = torch.randn((2, 1024, cfg.frontend_dim), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(5))
+        logits, dt, c = _forward_counted(torch, params, {"features": feats},
+                                         cfg)
+        add(c)
+        check((c["rmsnorm"], c["flash_attention"]) == _expected(cfg)
+              and tuple(logits.shape) == (2, 1024, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"hubert forward: launches {c} or logits malformed")
+        log(f"[arch] {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+            f"bidirectional, layernorm) forward B=2 S=1024: {dt:.3f} s "
+            f"({2048 / dt:.0f} frames/s); flash {c['flash_attention']} "
+            f"non-causal at d 80")
+        del params, feats, logits
+        release(torch)
+
+        # phi-3-vision at full width: a prefill after its 576 image tokens
+        cfg = get_config(PHI3V)
+        params = init_full(torch, cfg, "arch")
+        n_img, n_txt = cfg.num_image_tokens, 64
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(6).integers(
+                     0, cfg.vocab_size, (1, n_txt)).astype(np.int32),
+                     device=dev),
+                 "image_embeds": torch.randn(
+                     (1, n_img, cfg.frontend_dim), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(7))}
+        reset_counts()
+        t0 = time.time()
+        last = serve.prefill_step(params, batch, cfg)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        c = read_counts()
+        add(c)
+        check((c["rmsnorm"], c["flash_attention"]) == _expected(cfg)
+              and bool(torch.isfinite(last).all()),
+              f"phi-3-vision prefill: launches {c} or logits not finite")
+        log(f"[arch] {cfg.name} prefill B=1, {n_img} image + {n_txt} text "
+            f"tokens: {dt:.3f} s; rmsnorm {c['rmsnorm']}, flash "
+            f"{c['flash_attention']} at d 96")
+        del params, batch, last
+    release(torch)
+    return totals
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -2007,6 +2803,18 @@ def main() -> int:
     for name, n in serve_launches.items():
         launches[name] += n
     log(f"[phase] serving path done at {time.time() - t_start:.1f} s")
+
+    for name, err in compare_new_kernel_shapes(torch).items():
+        errs[name] = max(errs[name], err)
+    new_times = time_new_kernel_shapes(torch)
+    log(f"[phase] new kernel shapes done at {time.time() - t_start:.1f} s")
+    for phase, drive in (("serve-mla-moe", lambda: drive_mla_moe_serve(
+            torch)[0]), ("zoo-sim", lambda: drive_zoo_sim(torch)),
+            ("zoo-wire", lambda: drive_zoo_wire(torch)),
+            ("arch", lambda: drive_arch(torch))):
+        for name, n in drive().items():
+            launches[name] += n
+        log(f"[phase] {phase} done at {time.time() - t_start:.1f} s")
     for name in PORTED:
         check(launches[name] > 0, f"{name} was never launched")
 
@@ -2022,7 +2830,14 @@ def main() -> int:
             "warm_ms": t["warm_ms"],
             "kernel_only_ms": t.get("kernel_only_ms"), "timed_at": t.get(
                 "timed_at", f"K={K_MAX} P={P} f32"), "tpu_kernel": tpu,
-            "status": "ported", "max_err": errs[name], "kernel_ms": t["ms"]})
+            "status": "ported", "max_err": errs[name], "kernel_ms": t["ms"],
+            "also_timed": {
+                case: {k: v for k, v in row.items()
+                       if k in ("ms", "warm_ms", "kernel_only_ms",
+                                "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")}
+                for case, row in new_times.items()
+                if case.startswith(name.split("_")[0])}})
     log(smi)
     print(json.dumps({"kernels": kernels, "pending": []}), flush=True)
     print(json.dumps({"ok": True, "device": {

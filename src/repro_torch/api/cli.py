@@ -91,7 +91,8 @@ def setup_logging(level: Optional[str] = None) -> None:
 # defaults.
 _SPEC_FLAGS = [
     ("--arch", "arch", str,
-     "workload: mlp | cnn-mnist | cnn-cifar | lm-tiny"),
+     "workload: mlp | cnn-mnist | cnn-cifar | lm-tiny | zoo:xlstm | "
+     "zoo:transformer"),
     ("--mode", "mode", str, f"one of {MODES}"),
     ("--schedule", "schedule", str,
      'threshold schedule spec, e.g. "step:300"'),
@@ -142,6 +143,9 @@ _SPEC_FLAGS = [
      "cluster: gradient/params slab precision on the staging buffer "
      "and the wire — f32 (default) | bf16 (master params and the flush "
      "reduction stay f32)"),
+    ("--zoo-scale", "zoo_scale", float,
+     "zoo:* workloads: width multiplier applied to the registry config "
+     "(default 0.25; 1.0 = the full published tier)"),
 ]
 # fault-plan flags (cluster backend): merged into spec.faults
 _FAULT_FLAGS = [

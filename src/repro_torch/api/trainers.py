@@ -2,8 +2,9 @@
 
 :class:`SimulatorTrainer` runs ``backend="sim"``, the paper-faithful
 event-driven parameter-server simulator.  ``spec.arch`` names a
-registered workload (``mlp``, ``cnn-mnist``, ``cnn-cifar``, ``lm-tiny``;
-extend via :func:`register_sim_workload`), or pass a prepared ``(loss_fn,
+registered workload (``mlp``, ``cnn-mnist``, ``cnn-cifar``, ``lm-tiny``,
+``zoo:xlstm``, ``zoo:transformer``; extend via
+:func:`register_sim_workload`), or pass a prepared ``(loss_fn,
 init_params, data, accuracy_fn)`` to the constructor.  Mirrors
 ``src/repro/api/trainers.py``.  ``backend="cluster"`` is
 :class:`repro_torch.cluster.trainer.ClusterTrainer`, loaded on first
@@ -78,11 +79,20 @@ def _lm_tiny_workload(spec: ExperimentSpec, device: torch.device):
     return lm_tiny_workload(spec, device)
 
 
+def _zoo_workload(spec: ExperimentSpec, device: torch.device):
+    # imported here: the zoo pulls in the model stack and the registry
+    # (spec.zoo_scale picks the width)
+    from repro_torch.models.zoo import zoo_workload
+    return zoo_workload(spec, device)
+
+
 register_sim_workload("mlp", _mlp_workload)
 register_sim_workload("cnn-mnist", _cnn_workload("mnist_like", (28, 28, 1)))
 register_sim_workload("cnn-cifar", _cnn_workload("cifar10_like",
                                                  (32, 32, 3)))
 register_sim_workload("lm-tiny", _lm_tiny_workload)
+register_sim_workload("zoo:xlstm", _zoo_workload)
+register_sim_workload("zoo:transformer", _zoo_workload)
 
 
 def _full_f32(device: torch.device) -> None:
@@ -121,7 +131,7 @@ class SimulatorTrainer:
     def _build(self, spec: ExperimentSpec):
         if self._workload is not None:
             return self._workload
-        key = (spec.arch, spec.seed, spec.smoke)
+        key = (spec.arch, spec.seed, spec.smoke, spec.zoo_scale)
         cached_key, cached = self._workload_cache
         if cached_key == key:
             return cached

@@ -58,7 +58,7 @@ class ClusterTrainer:
     parameters of the last run are kept on ``self.last_params`` (CPU
     tensors).  ``device`` defaults to ``cuda`` and raises when there is
     none.  The workload and its data are built and moved to the device
-    once per ``(arch, seed, smoke)``.  ``join_secret`` makes a ``host``
+    once per ``(arch, seed, smoke, zoo_scale)``.  ``join_secret`` makes a ``host``
     leader challenge every JOIN, ``trace`` is the Chrome trace's output
     path and ``prom_port`` the Prometheus endpoint's port (0 picks a
     free one): invocation settings, like the checkpoint directory, never
@@ -84,7 +84,7 @@ class ClusterTrainer:
     def _build(self, spec: ExperimentSpec):
         from repro_torch.api.trainers import SIM_WORKLOADS
 
-        key = (spec.arch, spec.seed, spec.smoke)
+        key = (spec.arch, spec.seed, spec.smoke, spec.zoo_scale)
         if self._workload[0] == key:
             return self._workload[1]
         builder = SIM_WORKLOADS.get(spec.arch)

@@ -6,10 +6,14 @@
 //   o[b, i, h, :] = sum_j softmax_j(scale * q[b, i, h, :] . k[b, j, h / G, :]) v[b, j, h / G, :]
 //
 // over the keys j that the masks allow: j <= i when causal, j > i - window
-// when a window is set.  q is (B, S, H, d), k and v are (B, S, KV, d) with
-// G = H / KV query heads per key head (GQA through index arithmetic, no
-// copy of k or v), float32 or bfloat16; o has q's dtype.  scale = d^-0.5.
-// Fully masked rows give 0.  Any S: keys and queries past S are masked.
+// when a window is set, j / chunk == i / chunk when a chunk is set (the
+// chunked-local attention of src/repro/models/attention.py:74-75).  q is
+// (B, S, H, d), k is (B, S, KV, d) and v is (B, S, KV, d_v) with G = H / KV
+// query heads per key head (GQA through index arithmetic, no copy of k or
+// v), float32 or bfloat16; o is (B, S, H, d_v) in q's dtype.  d_v may be
+// narrower than d (MLA: q and k carry a rope part that v lacks).
+// scale = d^-0.5.  Fully masked rows give 0.  Any S: keys and queries past
+// S are masked.  The (d, d_v) pairs taken are FLASH_PAIRS below.
 //
 // Bound.  At the serve path's long prefill (h2o-danube-1.8b, S = 8192,
 // H = 32, KV = 8, d = 80, window 4096) the reachable pairs need ~258
@@ -28,12 +32,14 @@
 //   and a v mbarrier that the copy completes and an "empty" mbarrier that
 //   the consumer warps arrive on when they are done with it, so the next
 //   tile's copy overlaps this tile's math; both warpgroups read every
-//   staged tile.  S = q k^T is wgmma m64n{keys}k16 (bf16 q and k from
-//   shared memory, f32 accumulators, d/16 steps): products of bf16 values
+//   staged tile.  The key tile is chosen by d_v (64 keys at d_v = 128);
+//   at d = 192 a stage holds a 24 KB k and a 16 KB v tile.  S = q k^T is
+//   wgmma m64n{keys}k16 (bf16 q and k from shared memory, f32
+//   accumulators, d/16 steps): products of bf16 values
 //   are exact in f32, and the scale d^-0.5 (times log2 e, for exp2f) is
 //   applied to the f32 scores, never to q.  The softmax runs on the
 //   accumulator fragment in registers: a row's max folds over the four
-//   threads that share it.  PV is wgmma m64n{d}k16 with P as the register
+//   threads that share it.  PV is wgmma m64n{d_v}k16 with P as the register
 //   A operand.  A bf16 P alone would lose the precision the f32 reference
 //   keeps (one rounding of p breaks a two-ulp tolerance on outputs near
 //   zero by cancellation), so p is split into hi = bf16(p) and
@@ -47,10 +53,14 @@
 //   k are K-major operands of S (depth d runs along the chunk); v is the
 //   MN-major (transposed) B operand of PV (keys are the depth, d runs
 //   along the chunk), from the same layout.  The output is divided by l,
-//   rounded to bf16 once, written into the warpgroup's own q tile and
-//   stored by TMA, which writes no row past S.  Element masks are applied
-//   only in tiles that the causal or window boundary or S crosses; tiles
-//   that no query of the block can reach are not loaded.
+//   rounded to bf16 once, written into the warpgroup's own q tile (d_v <=
+//   d, so it fits) and stored by TMA, which writes no row past S.  The
+//   masks leave each query one interval of keys (keys_of); a thread keeps
+//   its two rows' intervals, and element masks (two comparisons) are
+//   applied only in tiles that the causal, window or chunk boundary or S
+//   crosses; tiles that no query of the block can reach are not loaded.
+//   A block whose 128 queries straddle a chunk boundary loads the key
+//   tiles of both chunks, and each row masks the other's keys.
 //
 // float32 (the JAX package's kernel tests, held at 2e-4):
 //   flash_fwd_f32_kernel, on the f32 CUDA cores.  TF32 tensor cores would
@@ -92,27 +102,47 @@ constexpr int kBK = 64;        // keys per staged tile
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kPS = kBK + 1;   // row stride of the p tile
 
-template <int D>
-constexpr int smem_floats() {
-  return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kPS;
+// The keys query qi may reach, [lo, hi): the masks leave one interval
+// (kj <= qi when causal, kj > qi - window, kj / chunk == qi / chunk,
+// kj < S), and both ends grow with qi, so the keys any query in
+// [q_first, q_last] reaches run from q_first's lo to q_last's hi.
+struct Keys {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Keys keys_of(int qi, int S, int causal,
+                                        int window, int chunk) {
+  Keys k{window > 0 ? max(0, qi - window + 1) : 0, causal ? qi + 1 : S};
+  if (chunk > 0) {
+    k.lo = max(k.lo, (qi / chunk) * chunk);
+    k.hi = min(k.hi, (qi / chunk + 1) * chunk);
+  }
+  k.hi = min(k.hi, S);
+  return k;
 }
 
-template <int D>
+template <int D, int DV>
+constexpr int smem_floats() {
+  return kBQ * (D + 1) + kBK * (D + 1) + kBK * DV + kBQ * kPS;
+}
+
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          int S, int H, int KV, int causal, int window,
-                         float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim: a multiple of 16, <= 128");
-  constexpr int QS = D + 1;   // row stride of the q tile
-  constexpr int KS = D + 1;   // row stride of the k tile
-  constexpr int DC = D / 16;  // output columns per thread
+                         int chunk, float scale) {
+  static_assert(D % 16 == 0 && DV % 16 == 0 && D <= 192 && DV <= 128,
+                "head dims: multiples of 16, d <= 192, d_v <= 128");
+  constexpr int QS = D + 1;    // row stride of the q tile
+  constexpr int KS = D + 1;    // row stride of the k tile
+  constexpr int DC = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + kBQ * QS;
   float* sV = sK + kBK * KS;
-  float* sP = sV + kBK * D;
+  float* sP = sV + kBK * DV;
 
   const int tid = threadIdx.x;
   const int r = tid >> 4;
@@ -121,12 +151,14 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int kh = h / (H / KV);
-  const int64_t q_row = static_cast<int64_t>(H) * D;    // stride of s in q, o
-  const int64_t kv_row = static_cast<int64_t>(KV) * D;  // stride of s in k, v
+  const int64_t q_row = static_cast<int64_t>(H) * D;     // stride of s in q
+  const int64_t o_row = static_cast<int64_t>(H) * DV;    // ... in o
+  const int64_t k_row = static_cast<int64_t>(KV) * D;    // ... in k
+  const int64_t v_row = static_cast<int64_t>(KV) * DV;   // ... in v
   const float* qb = q + (static_cast<int64_t>(b) * S * H + h) * D;
   const float* kb = k + (static_cast<int64_t>(b) * S * KV + kh) * D;
-  const float* vb = v + (static_cast<int64_t>(b) * S * KV + kh) * D;
-  float* ob = o + (static_cast<int64_t>(b) * S * H + h) * D;
+  const float* vb = v + (static_cast<int64_t>(b) * S * KV + kh) * DV;
+  float* ob = o + (static_cast<int64_t>(b) * S * H + h) * DV;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int i = e / D, j = e % D;
@@ -134,10 +166,14 @@ __global__ void __launch_bounds__(kThreads)
     sQ[i * QS + j] = s < S ? __fmul_rn(qb[s * q_row + j], scale) : 0.f;
   }
 
-  // the key range any query of this tile can reach
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // the key range any query of this tile can reach, and this thread's
+  // rows' own ranges
+  const int k_begin = keys_of(q0, S, causal, window, chunk).lo;
+  const int k_end = keys_of(min(q0 + kBQ, S) - 1, S, causal, window, chunk).hi;
+  Keys row_keys[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    row_keys[i] = keys_of(q0 + 4 * r + i, S, causal, window, chunk);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -153,9 +189,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int i = e / D, j = e % D;
       const int s = k0 + i;
-      const bool in = s < S;
-      sK[i * KS + j] = in ? kb[s * kv_row + j] : 0.f;
-      sV[i * D + j] = in ? vb[s * kv_row + j] : 0.f;
+      sK[i * KS + j] = s < S ? kb[s * k_row + j] : 0.f;
+    }
+    for (int e = tid; e < kBK * DV; e += kThreads) {
+      const int i = e / DV, j = e % DV;
+      const int s = k0 + i;
+      sV[i * DV + j] = s < S ? vb[s * v_row + j] : 0.f;
     }
     __syncthreads();
 
@@ -179,13 +218,12 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * r + i;
       bool ok[4];
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + c + 16 * j;
-        ok[j] = kj < S && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
+        ok[j] = kj >= row_keys[i].lo && kj < row_keys[i].hi;
         if (!ok[j]) sc[i][j] = kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -217,7 +255,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = sP[(4 * r + i) * kPS + kk];
 #pragma unroll
-      for (int jj = 0; jj < DC; ++jj) vv[jj] = sV[kk * D + c + 16 * jj];
+      for (int jj = 0; jj < DC; ++jj) vv[jj] = sV[kk * DV + c + 16 * jj];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -231,24 +269,24 @@ __global__ void __launch_bounds__(kThreads)
     if (qi >= S) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-    for (int jj = 0; jj < DC; ++jj) ob[qi * q_row + c + 16 * jj] = acc[i][jj] / denom;
+    for (int jj = 0; jj < DC; ++jj) ob[qi * o_row + c + 16 * jj] = acc[i][jj] / denom;
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int causal, int window, float scale,
-               cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+               int S, int H, int KV, int causal, int window, int chunk,
+               float scale, cudaStream_t stream) {
+  constexpr int bytes = smem_floats<D, DV>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_f32_kernel<D, DV><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal,
-      window, scale);
+      window, chunk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,24 +297,27 @@ namespace tc {
 constexpr int kRows = 64;                    // query rows per consumer warpgroup
 constexpr int kConsumers = 2;                // consumer warpgroups per block
 constexpr int kBQ = kRows * kConsumers;      // query rows per block
-// keys per staged tile: 128, or 64 at head dim 128, where the score and
-// output accumulators of a 128-key tile would not fit the registers
-template <int D>
-__host__ __device__ constexpr int key_tile() { return D > 96 ? 64 : 128; }
+// keys per staged tile: 128, or 64 at a value head dim of 128, where the
+// score and output accumulators of a 128-key tile would not fit the
+// registers
+template <int DV>
+__host__ __device__ constexpr int key_tile() { return DV > 96 ? 64 : 128; }
 constexpr int kStages = 2;                   // k/v ring depth
 constexpr int kThreads = 128 * kConsumers + 32;   // + one producer warp
 constexpr int kChunk = 16;                   // bf16 elements per 32-byte chunk
 constexpr int kRowBytes = 2 * kChunk;        // a row of one chunk
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D, int DV>
 struct Smem {
   static constexpr int kQ = kRows * D * 2;   // one warpgroup's q (and o) tile
-  static constexpr int kKV = key_tile<D>() * D * 2;   // one k or v tile
+  static constexpr int kK = key_tile<DV>() * D * 2;    // one k tile
+  static constexpr int kV = key_tile<DV>() * DV * 2;   // one v tile
   static constexpr int kBars = 1 + 3 * kStages;
   // 1024 bytes of slack to align the tiles for the swizzle
-  static constexpr int kBytes = 1024 + kConsumers * kQ + 2 * kStages * kKV +
+  static constexpr int kBytes = 1024 + kConsumers * kQ + kStages * (kK + kV) +
                                 8 * kBars;
+  static_assert(kBytes <= 227 * 1024, "more shared memory than an SM has");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -527,28 +568,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap to, int S,
-                          int H, int KV, int causal, int window,
+                          int H, int KV, int causal, int window, int chunk,
                           float scale_log2) {
-  static_assert(D % kChunk == 0 && D <= 128, "head dim: a multiple of 16, <= 128");
-  constexpr int kBK = key_tile<D>();
-  constexpr int NC = D / kChunk;           // chunks per row
-  constexpr int kQ = Smem<D>::kQ;
-  constexpr int kKV = Smem<D>::kKV;
+  static_assert(D % kChunk == 0 && DV % kChunk == 0 && DV <= D && DV <= 128,
+                "head dims: multiples of 16, d_v <= d (o reuses the q "
+                "tile), d_v <= 128");
+  constexpr int kBK = key_tile<DV>();
+  constexpr int NC = D / kChunk;           // chunks per q or k row
+  constexpr int NCV = DV / kChunk;         // chunks per v or o row
+  constexpr int kQ = Smem<D, DV>::kQ;
+  constexpr int kK = Smem<D, DV>::kK;
+  constexpr int kV = Smem<D, DV>::kV;
   constexpr int NS = kBK / 2;              // score accumulators per thread
-  constexpr int NO = D / 2;                // output accumulators per thread
+  constexpr int NO = DV / 2;               // output accumulators per thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* sQ = base;                           // [warpgroup][chunk][64][16]
   uint8_t* sK = sQ + kConsumers * kQ;           // [stage][chunk][kBK][16]
-  uint8_t* sV = sK + kStages * kKV;             // [stage][chunk][kBK][16]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kKV);
+  uint8_t* sV = sK + kStages * kK;              // [stage][chunk][kBK][16]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kV);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kStages;
   uint64_t* empty = v_full + kStages;
@@ -558,8 +603,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.y % H;
   const int kh = h / (H / KV);
   // the key tiles any query of this block can reach
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(q0 + kBQ, S) : S;
+  const int k_lo = keys_of(q0, S, causal, window, chunk).lo;
+  const int k_hi = keys_of(min(q0 + kBQ, S) - 1, S, causal, window, chunk).hi;
   const int t_first = k_lo / kBK;
   const int n_tiles = (k_hi - 1) / kBK - t_first + 1;
 
@@ -587,13 +632,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int st = i % kStages;
         if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) - 1) & 1);
         const int k0 = (t_first + i) * kBK;
-        mbar_expect_tx(&k_full[st], kKV);
+        mbar_expect_tx(&k_full[st], kK);
         for (int c = 0; c < NC; ++c)
-          tma_load(sK + st * kKV + c * kBK * kRowBytes, &tk, &k_full[st],
+          tma_load(sK + st * kK + c * kBK * kRowBytes, &tk, &k_full[st],
                    c * kChunk, kh, k0, b);
-        mbar_expect_tx(&v_full[st], kKV);
-        for (int c = 0; c < NC; ++c)
-          tma_load(sV + st * kKV + c * kBK * kRowBytes, &tv, &v_full[st],
+        mbar_expect_tx(&v_full[st], kV);
+        for (int c = 0; c < NCV; ++c)
+          tma_load(sV + st * kV + c * kBK * kRowBytes, &tv, &v_full[st],
                    c * kChunk, kh, k0, b);
       }
     }
@@ -608,6 +653,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   // this thread's two rows (within the warpgroup) and first column pair
   const int row = warp * 16 + lane / 4;
   const int col = 2 * (lane % 4);
+  // the keys this thread's two rows reach, and a key tile every row of
+  // the warpgroup reaches whole: [full_lo, full_hi)
+  const Keys row_keys[2] = {keys_of(qw + row, S, causal, window, chunk),
+                            keys_of(qw + row + 8, S, causal, window, chunk)};
+  const int full_lo = keys_of(qw + kRows - 1, S, causal, window, chunk).lo;
+  const int full_hi = keys_of(qw, S, causal, window, chunk).hi;
   uint8_t* myQ = sQ + wg * kQ;
   const uint32_t q_addr = smem_u32(myQ);
 
@@ -626,7 +677,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // S = q k^T, f32
     float s[NS];
     mbar_wait(&k_full[st], parity);
-    const uint32_t k_addr = smem_u32(sK + st * kKV);
+    const uint32_t k_addr = smem_u32(sK + st * kK);
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -638,18 +689,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // online softmax on the fragment: s[j] is row + 8 * ((j >> 1) & 1),
     // key column 8 * (j >> 2) + col + (j & 1)
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > qw) ||
-                      (window > 0 && k0 <= qw + kRows - 1 - window);
+    const bool edge = k0 < full_lo || k0 + kBK > full_hi;
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j] *= scale_log2;
     if (edge) {
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
-        const int qi = qw + row + 8 * ((j >> 1) & 1);
+        const Keys& rk = row_keys[(j >> 1) & 1];
         const int kj = k0 + 8 * (j >> 2) + col + (j & 1);
-        const bool ok = kj < S && (!causal || kj <= qi) &&
-                        (window <= 0 || kj > qi - window);
-        if (!ok) s[j] = kNegInf;
+        if (kj < rk.lo || kj >= rk.hi) s[j] = kNegInf;
       }
     }
     float mx[2] = {kNegInf, kNegInf};
@@ -688,14 +736,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // o += p_hi v + p_lo v, f32
     mbar_wait(&v_full[st], parity);
-    const uint32_t v_addr = smem_u32(sV + st * kKV);
+    const uint32_t v_addr = smem_u32(sV + st * kV);
     pin<NO>(o);
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < kBK / 16; ++t) {
       const uint64_t dv = desc_sw32(v_addr + t * 16 * kRowBytes, kBK * kRowBytes);
-      wgmma_rs<D>(o, &p_hi[4 * t], dv);
-      wgmma_rs<D>(o, &p_lo[4 * t], dv);
+      wgmma_rs<DV>(o, &p_hi[4 * t], dv);
+      wgmma_rs<DV>(o, &p_lo[4 * t], dv);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -726,7 +774,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   if (tid == 0 && qw < S) {
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NCV; ++c)
       tma_store(&to, myQ + c * kRows * kRowBytes, c * kChunk, h, qw, b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -781,24 +829,24 @@ bool tensor_map(CUtensorMap* map, const void* x, int B, int S, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int window, float scale,
+           int H, int KV, int causal, int window, int chunk, float scale,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   if (!tensor_map(&tq, q, B, S, H, D, kRows) ||
-      !tensor_map(&tk, k, B, S, KV, D, key_tile<D>()) ||
-      !tensor_map(&tv, v, B, S, KV, D, key_tile<D>()) ||
-      !tensor_map(&to, o, B, S, H, D, kRows))
+      !tensor_map(&tk, k, B, S, KV, D, key_tile<DV>()) ||
+      !tensor_map(&tv, v, B, S, KV, DV, key_tile<DV>()) ||
+      !tensor_map(&to, o, B, S, H, DV, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int bytes = Smem<D>::kBytes;
+  constexpr int bytes = Smem<D, DV>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_bf16_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, to, S, H, KV, causal, window, scale * kLog2e);
+  flash_fwd_bf16_kernel<D, DV><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, to, S, H, KV, causal, window, chunk, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -812,60 +860,68 @@ int check_shape(int B, int S, int H, int KV) {
 
 }  // namespace
 
+// The (d, d_v) head-dim pairs instantiated: the square ones of the dense
+// models, and MLA's (deepseek-v2-lite: 128 + 64 rope, 128; its smoke
+// variant: 64 + 16, 64).
+#define FLASH_PAIRS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(80, 80) X(96, 96) X(128, 128) X(80, 64) \
+  X(192, 128)
+
 extern "C" {
 
-// window <= 0 means no window; causal is 0 or 1.
+// window <= 0 means no window, chunk <= 0 no chunk; causal is 0 or 1.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KV, int D, int causal,
-                        int window, float scale, void* stream) {
+                        int B, int S, int H, int KV, int D, int DV, int causal,
+                        int window, int chunk, float scale, void* stream) {
   if (int err = check_shape(B, S, H, KV)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_f32<16>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 32: return launch_f32<32>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 64: return launch_f32<64>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 80: return launch_f32<80>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 96: return launch_f32<96>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 128: return launch_f32<128>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define CASE(d, dv)                                                           \
+  if (D == d && DV == dv)                                                     \
+    return launch_f32<d, dv>(q, k, v, o, B, S, H, KV, causal, window, chunk, \
+                             scale, st);
+  FLASH_PAIRS(CASE)
+#undef CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int H, int KV, int D, int causal,
-                         int window, float scale, void* stream) {
+                         int B, int S, int H, int KV, int D, int DV,
+                         int causal, int window, int chunk, float scale,
+                         void* stream) {
   if (int err = check_shape(B, S, H, KV)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return tc::launch<16>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 32: return tc::launch<32>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 64: return tc::launch<64>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 80: return tc::launch<80>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 96: return tc::launch<96>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 128: return tc::launch<128>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define CASE(d, dv)                                                          \
+  if (D == d && DV == dv)                                                    \
+    return tc::launch<d, dv>(q, k, v, o, B, S, H, KV, causal, window, chunk, \
+                             scale, st);
+  FLASH_PAIRS(CASE)
+#undef CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The pairs taken, as d0, dv0, d1, dv1, ... into out (up to n ints);
+// returns the number of pairs.
 int flash_attention_head_dims(int* out, int n) {
-  const int dims[] = {16, 32, 64, 80, 96, 128};
-  const int count = static_cast<int>(sizeof(dims) / sizeof(dims[0]));
-  for (int i = 0; i < count && i < n; ++i) out[i] = dims[i];
+  int count = 0;
+#define PAIR(d, dv)                          \
+  if (2 * count + 1 < n) {                   \
+    out[2 * count] = d;                      \
+    out[2 * count + 1] = dv;                 \
+  }                                          \
+  ++count;
+  FLASH_PAIRS(PAIR)
+#undef PAIR
   return count;
 }
 
-// Dynamic shared memory of the bf16 kernel at head dim D, 0 if D is not
-// taken.
-int flash_attention_bf16_smem_bytes(int D) {
-  switch (D) {
-    case 16: return tc::Smem<16>::kBytes;
-    case 32: return tc::Smem<32>::kBytes;
-    case 64: return tc::Smem<64>::kBytes;
-    case 80: return tc::Smem<80>::kBytes;
-    case 96: return tc::Smem<96>::kBytes;
-    case 128: return tc::Smem<128>::kBytes;
-    default: return 0;
-  }
+// Dynamic shared memory of the bf16 kernel at head dims (D, DV), 0 if the
+// pair is not taken.
+int flash_attention_bf16_smem_bytes(int D, int DV) {
+#define CASE(d, dv) \
+  if (D == d && DV == dv) return tc::Smem<d, dv>::kBytes;
+  FLASH_PAIRS(CASE)
+#undef CASE
+  return 0;
 }
 
 const char* flash_attention_error_string(int err) {

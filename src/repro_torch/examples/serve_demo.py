@@ -1,10 +1,9 @@
 """Serving example, a port of ``examples/serve_demo.py``.
 
-Without flags: batched greedy generation through the KV cache of
-h2o-danube-1.8b's reduced same-family config (the ring-buffer sliding
-window).  The reference's other two families, deepseek's MLA latent and
-xlstm's recurrent state, are refused naming ROADMAP A12b: their mixers
-are not ported yet.
+Without flags: batched greedy generation through the cache of three
+families' reduced same-family configs: h2o-danube-1.8b's ring-buffer
+sliding window, deepseek-v2-lite's MLA latent and xlstm-350m's
+recurrent state.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_demo --device cpu
 
@@ -103,18 +102,14 @@ def main(device: str = "cuda") -> int:
         cfg = dataclasses.replace(smoke_variant(get_config(arch)),
                                   name=arch)
         kinds = sorted({m for m, _ in cfg.block_pattern})
-        try:
-            with torch.inference_mode():
-                params = M.init_params(
-                    torch.Generator(device=dev).manual_seed(0), cfg)
-                prompts = np.random.default_rng(0).integers(
-                    0, cfg.vocab_size, (2, 12)).astype(np.int32)
-                t0 = time.time()
-                out = greedy_generate(cfg, params, prompts, gen_len=8)
-                dt = time.time() - t0
-        except NotImplementedError as e:
-            print(f"{arch:24s} mixers={kinds} refused: {e}")
-            continue
+        with torch.inference_mode():
+            params = M.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg)
+            prompts = np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (2, 12)).astype(np.int32)
+            t0 = time.time()
+            out = greedy_generate(cfg, params, prompts, gen_len=8)
+            dt = time.time() - t0
         print(f"{arch:24s} mixers={kinds} out_shape={out.shape} "
               f"{16 / dt:5.1f} tok/s  sample={out[0, -8:].tolist()}")
     return 0

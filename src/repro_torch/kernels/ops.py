@@ -25,6 +25,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
-    """q (B,S,H,d), k/v (B,S,KV,d) -> (B,S,H,d)."""
-    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+                    window: Optional[int] = None,
+                    chunk: Optional[int] = None):
+    """q (B,S,H,d), k (B,S,KV,d), v (B,S,KV,d_v) -> (B,S,H,d_v)."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  chunk=chunk)

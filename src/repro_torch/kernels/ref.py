@@ -73,33 +73,51 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def attention_mask(S: int, causal: bool, window: Optional[int], device):
-    """(S, S) bool, True = query row may attend key column."""
+def attention_mask(S: int, causal: bool, window: Optional[int], device,
+                   chunk: Optional[int] = None, rows: Optional[slice] = None):
+    """(S, S) bool, True = query row may attend key column: keys at or
+    before the query when ``causal``, within ``window`` of it, and in its
+    ``chunk`` (``key // chunk == query // chunk``, the reference's
+    chunked-local mask, ``src/repro/models/attention.py:74-75``).
+    ``rows`` keeps only those query rows."""
     pos_q = torch.arange(S, device=device)[:, None]
+    if rows is not None:
+        pos_q = pos_q[rows]
     pos_k = torch.arange(S, device=device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    mask = torch.ones((pos_q.shape[0], S), dtype=torch.bool, device=device)
     if causal:
         mask &= pos_k <= pos_q
     if window is not None:
         mask &= pos_k > pos_q - window
+    if chunk is not None:
+        mask &= (pos_k // chunk) == (pos_q // chunk)
     return mask
 
 
 def attention_ref(q, k, v, *, causal: bool = True,
-                  window: Optional[int] = None,
-                  scale: Optional[float] = None):
-    """q (B,S,H,d), k/v (B,S,KV,d) -> (B,S,H,d).  Naive f32 softmax over
-    the full (S, S) scores; fully masked rows give 0
-    (``src/repro/kernels/ref.py:attention_ref``)."""
+                  window: Optional[int] = None, chunk: Optional[int] = None,
+                  scale: Optional[float] = None,
+                  q_block: Optional[int] = None):
+    """q (B,S,H,d), k (B,S,KV,d), v (B,S,KV,d_v) -> (B,S,H,d_v).  Naive
+    f32 softmax over the (S, S) scores; fully masked rows give 0
+    (``src/repro/kernels/ref.py:attention_ref``).  The scale is q's
+    ``d ** -0.5``, as the reference's ``_sdpa_block`` scales by q's head
+    dim.  ``q_block`` evaluates that many query rows at a time (the same
+    function without an (S, S) matrix)."""
     B, S, H, d = q.shape
-    KV = k.shape[2]
+    KV, dv = k.shape[2], v.shape[3]
     G = H // KV
     scale = scale if scale is not None else d ** -0.5
-    qg = q.reshape(B, S, KV, G, d).float() * scale
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
-    mask = attention_mask(S, causal, window, q.device)
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    p = torch.where(mask.any(-1)[:, None], p, 0.0)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, S, H, d).to(q.dtype)
+    step = q_block or max(S, 1)
+    outs = []
+    for r0 in range(0, S, step):
+        rows = slice(r0, min(S, r0 + step))
+        qg = q[:, rows].reshape(B, -1, KV, G, d).float() * scale
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+        mask = attention_mask(S, causal, window, q.device, chunk, rows)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        p = torch.where(mask.any(-1)[:, None], p, 0.0)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+        outs.append(o.reshape(B, -1, H, dv).to(q.dtype))
+    return torch.cat(outs, dim=1) if outs else q.new_zeros((B, S, H, dv))

@@ -1,6 +1,7 @@
 """Softmax attention, after the reference's ``models/attention.py``:
-GQA/MHA, optional QKV bias, RoPE, sliding window, full-sequence and
-single-token decode paths.
+GQA/MHA, optional QKV bias, RoPE, sliding-window and chunked-local
+(llama4's ``attn_chunk``) variants, full-sequence and single-token
+decode paths.  ``attn_global`` layers take neither mask.
 
 The full-sequence path goes through the flash_attention kernel, which
 computes the function of the reference's ``rowblock_attention`` (the
@@ -10,8 +11,7 @@ or with ``plain=True`` (the training path: the reference trains through
 jnp, and the kernel has no backward) through the plain PyTorch version,
 which autograd differentiates.
 Decode attention stays plain PyTorch, as it is jnp outside any Pallas
-kernel in the reference.  Chunked-local attention (``attn_chunk``,
-llama4) is not ported yet: the kernel has no chunk mask.
+kernel in the reference.
 """
 from __future__ import annotations
 
@@ -22,13 +22,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import RopeTable, apply_rope
 
 NEG_INF = -1e30
-
-
-def _refuse_chunked(cfg: ModelConfig) -> None:
-    if cfg.attn_chunk is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: chunked-local attention (attn_chunk) is not "
-            "ported yet (ROADMAP A12b)")
 
 
 # ---------------------------------------------------------------- params
@@ -76,11 +69,11 @@ def attention_forward(params, x, cfg: ModelConfig, rope: RopeTable,
     """Full-sequence attention.  x: (B, S, D) -> (B, S, D).  ``rope`` is
     the table at positions ``arange(S)`` for every row (``model.forward``
     gives that), which is what the kernel's masks assume."""
-    _refuse_chunked(cfg)
     q, k, v = _project_qkv(params, x, cfg, rope)
     attend = ref.attention_ref if plain else ops.flash_attention
     out = attend(q, k, v, causal=cfg.causal,
-                 window=None if global_layer else cfg.sliding_window)
+                 window=None if global_layer else cfg.sliding_window,
+                 chunk=None if global_layer else cfg.attn_chunk)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
@@ -88,12 +81,13 @@ def attention_forward(params, x, cfg: ModelConfig, rope: RopeTable,
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                     global_layer: bool = False, device=None) -> dict:
-    """KV cache for one attention layer.  Sliding-window layers keep a
-    ring buffer of the window size."""
-    _refuse_chunked(cfg)
+    """KV cache for one attention layer.  Sliding-window and chunked
+    layers keep a ring buffer of the window (chunk) size."""
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     if not global_layer and cfg.sliding_window is not None:
         L = min(max_seq, cfg.sliding_window)
+    elif not global_layer and cfg.attn_chunk is not None:
+        L = min(max_seq, cfg.attn_chunk)
     else:
         L = max_seq
     return {
@@ -109,13 +103,12 @@ def attention_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
     (y, cache).  The new key and value are written
     into ``cache`` in place (the reference returns a new cache), and the
     same dict is returned."""
-    _refuse_chunked(cfg)
     B = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, rope)
 
     ck, cv = cache["k"], cache["v"]
     L = ck.shape[1]
-    slot = cur_index % L                  # ring for SWA; linear else
+    slot = cur_index % L                  # ring for SWA/chunked; linear else
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
 
@@ -125,6 +118,9 @@ def attention_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
     valid = (slot_pos >= 0) & (slot_pos <= cur_index)
     if not global_layer and cfg.sliding_window is not None:
         valid &= slot_pos > cur_index - cfg.sliding_window
+    if not global_layer and cfg.attn_chunk is not None:
+        valid &= torch.div(slot_pos, cfg.attn_chunk, rounding_mode="floor") \
+            == cur_index // cfg.attn_chunk
 
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     H = cfg.num_heads

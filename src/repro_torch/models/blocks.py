@@ -1,9 +1,11 @@
 """Per-layer block assembly, after the reference's ``models/blocks.py``:
-(mixer, ffn) pairs with pre-norm residuals.
+(mixer, ffn) pairs with pre-norm residuals, for every mixer (``attn``,
+``attn_global``, ``mla``, ``mamba``, ``mlstm``, ``slstm``) and FFN
+(``mlp``, ``moe``, ``none``).
 
-Ported: the ``attn`` / ``attn_global`` mixers with the dense ``mlp``
-FFN.  The other mixers (mla, mamba, mlstm, slstm) and the MoE FFN raise
-``NotImplementedError``; they are ROADMAP A12b.
+``ropes`` maps a rotary dim to its cos/sin table at the positions of x
+(:func:`rope_tables`): attention rotates ``head_dim``-wide heads, MLA
+its ``rope_head_dim``-wide part.
 """
 from __future__ import annotations
 
@@ -12,72 +14,124 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.config import ATTN, ATTN_GLOBAL, MLP, NONE, \
-    ModelConfig
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.config import (ATTN, ATTN_GLOBAL, MAMBA, MLA, MLP,
+                                       MLSTM, NONE, SLSTM, ModelConfig)
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.norms import apply_norm, init_norm
-from repro_torch.models.rope import RopeTable
+from repro_torch.models.rope import RopeTable, rope_table
+
+MIXER_INIT = {
+    ATTN: attn_mod.init_attention,
+    ATTN_GLOBAL: attn_mod.init_attention,
+    MLA: mla_mod.init_mla,
+    MAMBA: mamba_mod.init_mamba,
+    MLSTM: xlstm_mod.init_mlstm,
+    SLSTM: xlstm_mod.init_slstm,
+}
 
 
-def _check(mixer: str, ffn: str) -> None:
-    if mixer not in (ATTN, ATTN_GLOBAL):
-        raise NotImplementedError(
-            f"mixer {mixer!r} is not ported yet (ROADMAP A12b)")
-    if ffn not in (MLP, NONE):
-        raise NotImplementedError(
-            f"ffn {ffn!r} is not ported yet (ROADMAP A12b)")
+def rope_tables(positions: torch.Tensor, cfg: ModelConfig
+                ) -> Dict[int, RopeTable]:
+    """The rope tables the config's mixers need, by rotary dim."""
+    dims = set()
+    for mixer, _ in cfg.block_pattern:
+        if mixer in (ATTN, ATTN_GLOBAL):
+            dims.add(cfg.resolved_head_dim)
+        elif mixer == MLA:
+            dims.add(cfg.rope_head_dim)
+    return {d: rope_table(positions, d, cfg.rope_theta) for d in dims}
 
 
 def init_layer(gen: torch.Generator, mixer: str, ffn: str,
                cfg: ModelConfig, dtype) -> Dict[str, Any]:
-    _check(mixer, ffn)
     dev = gen.device
     p: Dict[str, Any] = {
         "mixer_norm": init_norm(cfg.norm, cfg.d_model, device=dev),
-        "mixer": attn_mod.init_attention(gen, cfg, dtype),
+        "mixer": MIXER_INIT[mixer](gen, cfg, dtype),
     }
     if ffn != NONE:
         p["ffn_norm"] = init_norm(cfg.norm, cfg.d_model, device=dev)
-        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype)
+        if ffn == MLP:
+            p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                dtype)
+        else:
+            p["ffn"] = init_moe(gen, cfg, dtype)
     return p
 
 
+def _ffn(p, x, ffn: str, cfg: ModelConfig, plain: bool = False):
+    """The FFN half: (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == NONE:
+        return x, aux
+    h = apply_norm(cfg.norm, p["ffn_norm"], x, cfg.norm_eps, plain)
+    if ffn == MLP:
+        h = mlp_forward(p["ffn"], h, cfg.mlp_act)
+    else:
+        h, aux = moe_forward(p["ffn"], h, cfg)
+    return x + h, aux
+
+
 def layer_forward(p, x, mixer: str, ffn: str, cfg: ModelConfig,
-                  rope: RopeTable, plain: bool = False):
-    """Full-sequence layer; ``rope`` is the table at x's positions;
-    ``plain`` takes norm and attention through their plain versions.
-    Returns (x, aux); aux is 0 without MoE."""
-    _check(mixer, ffn)
+                  ropes: Dict[int, RopeTable], plain: bool = False):
+    """Full-sequence layer; ``plain`` takes norm and attention through
+    their plain versions.  Returns (x, aux); aux is 0 without MoE."""
     h = apply_norm(cfg.norm, p["mixer_norm"], x, cfg.norm_eps, plain)
-    h = attn_mod.attention_forward(p["mixer"], h, cfg, rope,
-                                   global_layer=(mixer == ATTN_GLOBAL),
-                                   plain=plain)
-    x = x + h
-    if ffn != NONE:
-        h = apply_norm(cfg.norm, p["ffn_norm"], x, cfg.norm_eps, plain)
-        x = x + mlp_forward(p["ffn"], h, cfg.mlp_act)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if mixer in (ATTN, ATTN_GLOBAL):
+        h = attn_mod.attention_forward(
+            p["mixer"], h, cfg, ropes[cfg.resolved_head_dim],
+            global_layer=(mixer == ATTN_GLOBAL), plain=plain)
+    elif mixer == MLA:
+        h = mla_mod.mla_forward(p["mixer"], h, cfg,
+                                ropes[cfg.rope_head_dim], plain=plain)
+    elif mixer == MAMBA:
+        h = mamba_mod.mamba_forward(p["mixer"], h, cfg)
+    elif mixer == MLSTM:
+        h = xlstm_mod.mlstm_forward(p["mixer"], h, cfg)
+    else:
+        h = xlstm_mod.slstm_forward(p["mixer"], h, cfg)
+    return _ffn(p, x + h, ffn, cfg, plain)
 
 
 def init_layer_cache(mixer: str, cfg: ModelConfig, batch: int, max_seq: int,
                      dtype, device=None):
-    _check(mixer, MLP)
-    return attn_mod.init_attn_cache(cfg, batch, max_seq, dtype,
-                                    global_layer=(mixer == ATTN_GLOBAL),
-                                    device=device)
+    if mixer in (ATTN, ATTN_GLOBAL):
+        return attn_mod.init_attn_cache(cfg, batch, max_seq, dtype,
+                                        global_layer=(mixer == ATTN_GLOBAL),
+                                        device=device)
+    if mixer == MLA:
+        return mla_mod.init_mla_cache(cfg, batch, max_seq, dtype, device)
+    if mixer == MAMBA:
+        return mamba_mod.init_mamba_cache(cfg, batch, dtype, device)
+    if mixer == MLSTM:
+        return xlstm_mod.init_mlstm_cache(cfg, batch, dtype, device)
+    if mixer == SLSTM:
+        return xlstm_mod.init_slstm_cache(cfg, batch, dtype, device)
+    raise ValueError(mixer)
 
 
 def layer_decode(p, x, cache, cur_index: int, mixer: str, ffn: str,
-                 cfg: ModelConfig, rope: RopeTable):
-    """One-token layer step; ``rope`` is the table at ``cur_index``.
-    Returns (x, cache); the cache is updated in place."""
-    _check(mixer, ffn)
+                 cfg: ModelConfig, ropes: Dict[int, RopeTable]):
+    """One-token layer step; ``ropes`` at ``cur_index``.  Returns
+    (x, cache); the cache is updated in place."""
     h = apply_norm(cfg.norm, p["mixer_norm"], x, cfg.norm_eps)
-    h, cache = attn_mod.attention_decode(
-        p["mixer"], h, cache, cur_index, cfg, rope,
-        global_layer=(mixer == ATTN_GLOBAL))
-    x = x + h
-    if ffn != NONE:
-        h = apply_norm(cfg.norm, p["ffn_norm"], x, cfg.norm_eps)
-        x = x + mlp_forward(p["ffn"], h, cfg.mlp_act)
+    if mixer in (ATTN, ATTN_GLOBAL):
+        h, cache = attn_mod.attention_decode(
+            p["mixer"], h, cache, cur_index, cfg,
+            ropes[cfg.resolved_head_dim],
+            global_layer=(mixer == ATTN_GLOBAL))
+    elif mixer == MLA:
+        h, cache = mla_mod.mla_decode(p["mixer"], h, cache, cur_index, cfg,
+                                      ropes[cfg.rope_head_dim])
+    elif mixer == MAMBA:
+        h, cache = mamba_mod.mamba_decode(p["mixer"], h, cache, cfg)
+    elif mixer == MLSTM:
+        h, cache = xlstm_mod.mlstm_decode(p["mixer"], h, cache, cfg)
+    else:
+        h, cache = xlstm_mod.slstm_decode(p["mixer"], h, cache, cfg)
+    x, _ = _ffn(p, x + h, ffn, cfg)
     return x, cache

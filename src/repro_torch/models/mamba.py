@@ -1,0 +1,122 @@
+"""Mamba-1 selective SSM block, after the reference's ``models/mamba.py``.
+
+The reference scans each chunk of ``cfg.ssm_chunk`` positions with
+``associative_scan`` and carries the state across chunks.  The port
+builds the scan inputs one chunk at a time as well (so only one chunk's
+``(B, chunk, d_inner, d_state)`` tensors exist at once) and runs the
+recurrence ``h_t = a_t h_{t-1} + bx_t`` position by position in float32.
+The two add in a different order; ROADMAP C.24 states the gap.  Plain
+PyTorch, as the reference's scan is jnp outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import activations as act
+from repro_torch.models.config import ModelConfig
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d, di = cfg.d_model, cfg.mamba_d_inner
+    ds, dc, dtr = cfg.mamba_d_state, cfg.mamba_d_conv, cfg.resolved_dt_rank
+    dev = gen.device
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    s = d ** -0.5
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float64,
+                                   device=dev)).float()
+    return {
+        "w_in": normal((d, 2 * di), s),
+        "conv_w": normal((dc, di), dc ** -0.5),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "w_x": normal((di, dtr + 2 * ds), di ** -0.5),
+        "w_dt": normal((dtr, di), dtr ** -0.5),
+        "dt_bias": torch.full((di,), -4.6, dtype=torch.float32,
+                              device=dev),       # softplus^-1(0.01)
+        "A_log": a_log.expand(di, ds).clone(),
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+        "w_out": normal((di, d), di ** -0.5),
+    }
+
+
+def causal_conv(x, w, b, d_conv: int, init_state=None):
+    """Depthwise causal conv.  x (B, S, di) -> (y, last d_conv - 1
+    inputs)."""
+    if init_state is None:
+        init_state = x.new_zeros((x.shape[0], d_conv - 1, x.shape[2]))
+    xp = torch.cat([init_state, x], dim=1)
+    S = x.shape[1]
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, d_conv):
+        y = y + xp[:, i:i + S] * w[i]
+    return y + b, xp[:, xp.shape[1] - (d_conv - 1):]
+
+
+def _ssm_inputs(params, xc, cfg: ModelConfig):
+    """xc (B,S,di) after the conv -> a, bx (B,S,di,ds) and C (B,S,ds),
+    float32."""
+    ds, dtr = cfg.mamba_d_state, cfg.resolved_dt_rank
+    proj = (xc @ params["w_x"]).float()
+    dt, Bm, Cm = torch.split(proj, [dtr, ds, ds], dim=-1)
+    dt = act.softplus(dt @ params["w_dt"].float() + params["dt_bias"])
+    A = -act.exp(params["A_log"])                                 # (di,ds)
+    a = act.exp(dt[..., None] * A)
+    bx = (dt * xc.float())[..., None] * Bm[:, :, None, :]
+    return a, bx, Cm
+
+
+def mamba_forward(params, x, cfg: ModelConfig):
+    """x (B, S, D) -> (B, S, D)."""
+    B, S, D = x.shape
+    di, chunk = cfg.mamba_d_inner, min(cfg.ssm_chunk, S)
+    xi, z = torch.chunk(x @ params["w_in"], 2, dim=-1)
+    xc, _ = causal_conv(xi, params["conv_w"], params["conv_b"],
+                        cfg.mamba_d_conv)
+    xc = F.silu(xc)
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the scan "
+                         f"chunk {chunk}")
+    h = x.new_zeros((B, di, cfg.mamba_d_state), dtype=torch.float32)
+    ys = []
+    for c0 in range(0, S, chunk):
+        a, bx, Cm = _ssm_inputs(params, xc[:, c0:c0 + chunk], cfg)
+        for t in range(a.shape[1]):
+            h = a[:, t] * h + bx[:, t]
+            ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
+    y = torch.stack(ys, dim=1)
+    y = y + params["D"] * xc.float()
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ params["w_out"]
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> dict:
+    di = cfg.mamba_d_inner
+    return {
+        "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, di, cfg.mamba_d_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(params, x, cache, cfg: ModelConfig):
+    """One-token recurrence.  x (B, 1, D).  The cache is updated in
+    place and returned."""
+    xi, z = torch.chunk(x @ params["w_in"], 2, dim=-1)
+    xc, conv = causal_conv(xi, params["conv_w"], params["conv_b"],
+                           cfg.mamba_d_conv, cache["conv"])
+    xc = F.silu(xc)
+    a, bx, Cm = _ssm_inputs(params, xc, cfg)
+    h = a[:, 0] * cache["h"] + bx[:, 0]
+    y = torch.einsum("bds,bs->bd", h, Cm[:, 0])[:, None]
+    y = y + params["D"] * xc.float()
+    y = y.to(x.dtype) * F.silu(z)
+    cache["conv"].copy_(conv)
+    cache["h"].copy_(h)
+    return y @ params["w_out"], cache

@@ -1,0 +1,109 @@
+"""DeepSeek-V2 multi-head latent attention (MLA), after the reference's
+``models/mla.py``.
+
+Keys and values are compressed into a low-rank latent ``c_kv``
+(``kv_lora_rank``) plus one shared rope key (``rope_head_dim``);
+per-head keys and values are expanded from the latent.  The
+full-sequence path runs the flash_attention kernel with q and k of
+width ``head_dim + rope_head_dim`` and v of ``v_head_dim`` (as the
+reference passes them to ``rowblock_attention`` with
+``global_layer=True``: no window, no chunk), or with ``plain=True`` its
+plain version.  The decode cache holds only ``(c_kv, k_rope)`` and
+decode is the absorbed form, plain PyTorch in float32 as the reference's
+jnp.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.attention import NEG_INF
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.rope import RopeTable, apply_rope
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    hd, r, rh = cfg.resolved_head_dim, cfg.kv_lora_rank, cfg.rope_head_dim
+    vh = cfg.resolved_v_head_dim
+    dev = gen.device
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    s = d ** -0.5
+    return {
+        "wq": normal((d, H, hd + rh), s),        # nope + rope part per head
+        "w_dkv": normal((d, r), s),              # down to the latent
+        "w_kr": normal((d, rh), s),              # the shared rope key
+        "w_uk": normal((r, H, hd), r ** -0.5),   # latent -> k_nope
+        "w_uv": normal((r, H, vh), r ** -0.5),   # latent -> v
+        "wo": normal((H, vh, d), (H * vh) ** -0.5),
+    }
+
+
+def _latent(params, x, rope: RopeTable):
+    c_kv = x @ params["w_dkv"]
+    k_rope = apply_rope((x @ params["w_kr"])[:, :, None, :], rope)
+    return c_kv, k_rope[:, :, 0, :]                   # (B,S,r), (B,S,rh)
+
+
+def _queries(params, x, cfg: ModelConfig, rope: RopeTable):
+    hd = cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    return torch.cat([q[..., :hd], apply_rope(q[..., hd:], rope)], dim=-1)
+
+
+def mla_forward(params, x, cfg: ModelConfig, rope: RopeTable,
+                plain: bool = False):
+    """x (B, S, D) -> (B, S, D); ``rope`` is the table at x's positions
+    and ``rope_head_dim``."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q = _queries(params, x, cfg, rope)                # (B,S,H,hd+rh)
+    c_kv, k_rope = _latent(params, x, rope)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uv"]).contiguous()
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, k_rope.shape[-1])], dim=-1)
+    attend = ref.attention_ref if plain else ops.flash_attention
+    out = attend(q.contiguous(), k, v, causal=cfg.causal)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device=None) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_seq, cfg.rope_head_dim),
+                              dtype=dtype, device=device),
+    }
+
+
+def mla_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
+               rope: RopeTable):
+    """One-token decode from the latent cache, absorbed: the score is
+    ``q_nope . (c W_uk) + q_rope . k_rope`` and the output is taken in
+    latent space, then up-projected by ``W_uv``.  The cache is written in
+    place and returned."""
+    hd, rh = cfg.resolved_head_dim, cfg.rope_head_dim
+    q = _queries(params, x, cfg, rope)                # (B,1,H,hd+rh)
+    c_new, kr_new = _latent(params, x, rope)
+    c, kr = cache["c_kv"], cache["k_rope"]
+    c[:, cur_index] = c_new[:, 0].to(c.dtype)
+    kr[:, cur_index] = kr_new[:, 0].to(kr.dtype)
+
+    q_nope, q_rope = q[..., :hd].float(), q[..., hd:].float()
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"].float())
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat, c.float())
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope, kr.float())
+    scores = (s_lat + s_rope) * ((hd + rh) ** -0.5)
+    valid = torch.arange(c.shape[1], device=x.device) <= cur_index
+    scores = torch.where(valid, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", w, c.float())
+    out = torch.einsum("bshr,rhk->bshk", o_lat,
+                       params["w_uv"].float()).to(x.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache

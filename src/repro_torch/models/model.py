@@ -7,8 +7,12 @@ leading ``num_groups`` axis, and the leaf names and shapes are the
 reference's (``wq`` (d, H, hd), ``wo`` (H, hd, d), ``embed`` (V, D),
 ``lm_head`` (D, V), f32 norm scales).  The reference's ``lax.scan`` over
 groups is a Python loop over that axis here.  There is no sharding
-constraint and no rematerialisation.  Token inputs only; the audio and
-vision frontends are not ported yet (ROADMAP A12b).
+constraint and no rematerialisation.  The frontends are the reference's
+stubs (``src/repro/models/model.py:40-53``, ``:64-86``): an audio model
+(hubert) projects precomputed frame features into d_model and has no
+token embedding; a vision model (phi-3-vision) projects precomputed
+patch embeddings and puts them before the text tokens, and its loss
+covers the text only.
 
 Two forwards share the code: the serving one (``plain=False``) takes
 every norm and full-sequence attention through the kernels, and the
@@ -23,31 +27,37 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.blocks import (init_layer, init_layer_cache,
-                                       layer_decode, layer_forward)
+                                       layer_decode, layer_forward,
+                                       rope_tables)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.norms import apply_norm, init_norm
-from repro_torch.models.rope import rope_table
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _refuse_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP A12b)")
-
-
-def _stack(trees):
-    """A list of same-shaped dicts of tensors -> one dict of stacked
-    tensors (the reference's ``vmap``-ed init)."""
+def _map(fn, *trees):
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _stacked_init(make, n: int):
+    """``n`` draws of the dict tree ``make()``, stacked on a leading axis
+    (the reference's ``vmap``-ed init).  Each draw is copied into place
+    as it is made, so the peak is the stack and one draw (a model of
+    many groups at full width would not fit twice)."""
+    first = make()
+    out = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    _map(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for g in range(1, n):
+        _map(lambda o, t: o[g].copy_(t), out, make())
+    return out
 
 
 def _index(tree, g: int):
@@ -62,18 +72,27 @@ def _index(tree, g: int):
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Random params drawn from ``gen``, on ``gen``'s device."""
     cfg.validate()
-    _refuse_frontend(cfg)
     dtype = _dtype(cfg)
     dev = gen.device
-    params: Dict[str, Any] = {
-        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                              device=dev) * cfg.d_model ** -0.5).to(dtype)}
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    params: Dict[str, Any] = {}
+    if cfg.frontend != "audio":
+        params["embed"] = normal((cfg.vocab_size, cfg.d_model),
+                                 cfg.d_model ** -0.5)
+    if cfg.frontend is not None:
+        fd, d = cfg.frontend_dim, cfg.d_model
+        params["frontend_proj"] = {"w1": normal((fd, d), fd ** -0.5),
+                                   "w2": normal((d, d), d ** -0.5)}
     params["groups"] = tuple(
-        _stack([init_layer(gen, mixer, ffn, cfg, dtype)
-                for _ in range(cfg.num_groups)])
+        _stacked_init(lambda: init_layer(gen, mixer, ffn, cfg, dtype),
+                      cfg.num_groups)
         for mixer, ffn in cfg.block_pattern)
     params["final_norm"] = init_norm(cfg.norm, cfg.d_model, device=dev)
-    if not cfg.tie_embeddings:
+    if cfg.frontend == "audio" or not cfg.tie_embeddings:
         params["lm_head"] = (torch.randn(
             (cfg.d_model, cfg.vocab_size), generator=gen, device=dev)
             * cfg.d_model ** -0.5).to(dtype)
@@ -84,11 +103,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 
 def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,D), positions (B,S))."""
-    _refuse_frontend(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
-    B, S = tokens.shape
+    """Returns (x (B,S,D), positions (B,S)).  Audio: ``features`` (B, S,
+    frontend_dim); vision: ``image_embeds`` (B, N, frontend_dim) before
+    ``tokens`` (B, S - N); else ``tokens`` (B, S)."""
+    dtype = _dtype(cfg)
+    if cfg.frontend is not None:
+        w = params["frontend_proj"]
+        key = "features" if cfg.frontend == "audio" else "image_embeds"
+        x = F.gelu(batch[key].to(dtype) @ w["w1"], approximate="tanh") \
+            @ w["w2"]
+        if cfg.frontend == "vision":
+            x = torch.cat([x, params["embed"][batch["tokens"]]], dim=1)
+    else:
+        x = params["embed"][batch["tokens"]]
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     return x, positions
@@ -106,12 +134,12 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
     takes norms and attention through their plain versions (the
     differentiable training path) instead of the kernels."""
     x, positions = embed_inputs(params, batch, cfg)
-    rope = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    ropes = rope_tables(positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.num_groups):
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
             x, a = layer_forward(_index(params["groups"][j], g), x, mixer,
-                                 ffn, cfg, rope, plain)
+                                 ffn, cfg, ropes, plain)
             aux = aux + a
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps, plain)
     return x @ _head(params, cfg), aux
@@ -121,9 +149,11 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig):
     """Cross-entropy LM loss over the plain (differentiable) forward,
     after the reference's ``models/model.py:127-147``: float32 logits,
     logsumexp minus the gold logit, averaged over ``loss_mask`` when the
-    batch has one, plus ``router_aux_coef * aux``.  Returns (loss,
-    metrics)."""
+    batch has one, plus ``router_aux_coef * aux``; a vision model's loss
+    covers the text positions only.  Returns (loss, metrics)."""
     logits, aux = forward(params, batch, cfg, plain=True)
+    if cfg.frontend == "vision":
+        logits = logits[:, cfg.num_image_tokens:]
     logits = logits.float()
     nll = torch.logsumexp(logits, dim=-1) - torch.gather(
         logits, -1, batch["labels"].long()[..., None])[..., 0]
@@ -138,13 +168,14 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig):
 # ---------------------------------------------------------------- decode
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Per-pattern-entry KV caches, each leaf stacked on a leading
-    ``num_groups`` axis (the reference's tree)."""
+    """Per-pattern-entry caches (KV, latent, SSM or xLSTM state), each
+    leaf stacked on a leading ``num_groups`` axis (the reference's
+    tree)."""
     dtype = _dtype(cfg)
     return tuple(
-        {k: torch.stack([v] * cfg.num_groups) for k, v in
-         init_layer_cache(mixer, cfg, batch, max_seq, dtype,
-                          device=device).items()}
+        _map(lambda v: torch.stack([v] * cfg.num_groups),
+             init_layer_cache(mixer, cfg, batch, max_seq, dtype,
+                              device=device))
         for mixer, _ in cfg.block_pattern)
 
 
@@ -155,11 +186,11 @@ def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
     x = params["embed"][tokens].to(_dtype(cfg))
     positions = torch.full(tuple(tokens.shape), cur_index, dtype=torch.int32,
                            device=x.device)
-    rope = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    ropes = rope_tables(positions, cfg)
     for g in range(cfg.num_groups):
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
             x, _ = layer_decode(_index(params["groups"][j], g), x,
                                 _index(cache[j], g), cur_index, mixer, ffn,
-                                cfg, rope)
+                                cfg, ropes)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     return x @ _head(params, cfg), cache

@@ -1,0 +1,277 @@
+"""xLSTM blocks, after the reference's ``models/xlstm.py``: mLSTM (matrix
+memory) and sLSTM (scalar memory).
+
+mLSTM runs the stabilized chunkwise form: a loop over chunks of
+``MLSTM_CHUNK`` carries ``(C, n, m)`` in float32, and within a chunk the
+update is dense products.  sLSTM has recurrent gate connections and is
+a loop over time with per-head recurrent weights.  Plain PyTorch, as
+the reference's are jnp outside any Pallas kernel; ``exp``, ``tanh`` and
+``log_sigmoid`` come from :mod:`repro_torch.models.activations`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import activations as act
+from repro_torch.models.config import ModelConfig
+
+MLSTM_CHUNK = 64
+
+
+def _normal(gen, shape, scale, dtype):
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+            ).to(dtype)
+
+
+# ================================================================= mLSTM
+
+def _mlstm_dims(cfg: ModelConfig):
+    di = int(cfg.xlstm_proj_factor * cfg.d_model)
+    return di, cfg.num_heads, di // cfg.num_heads
+
+
+def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d = cfg.d_model
+    di, H, dh = _mlstm_dims(cfg)
+    dev = gen.device
+    s, si = d ** -0.5, di ** -0.5
+    f32 = torch.float32
+    return {
+        "w_up": _normal(gen, (d, di), s, dtype),
+        "w_z": _normal(gen, (d, di), s, dtype),
+        "conv_w": _normal(gen, (cfg.xlstm_conv, di),
+                          cfg.xlstm_conv ** -0.5, dtype),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "lq": _normal(gen, (di, H, dh), si, dtype),
+        "lk": _normal(gen, (di, H, dh), si, dtype),
+        "lv": _normal(gen, (di, H, dh), si, dtype),
+        # scalar input/forget gates per head
+        "w_if": _normal(gen, (di, H, 2), si, f32),
+        "b_if": torch.stack([torch.zeros(H, device=dev),
+                             torch.full((H,), 3.0, device=dev)], dim=-1),
+        "gn_scale": torch.ones((H, dh), dtype=f32, device=dev),
+        "w_down": _normal(gen, (di, d), si, dtype),
+    }
+
+
+def _mlstm_qkv_gates(params, x, cfg: ModelConfig, conv_state=None):
+    u = x @ params["w_up"]
+    z = x @ params["w_z"]
+    dc = cfg.xlstm_conv
+    if conv_state is None:
+        conv_state = u.new_zeros((x.shape[0], dc - 1, u.shape[-1]))
+    up = torch.cat([conv_state, u], dim=1)
+    S = u.shape[1]
+    xc = up[:, 0:S] * params["conv_w"][0]
+    for i in range(1, dc):
+        xc = xc + up[:, i:i + S] * params["conv_w"][i]
+    xc = F.silu(xc + params["conv_b"])
+    new_conv = up[:, up.shape[1] - (dc - 1):]
+    q = torch.einsum("bse,ehk->bshk", xc, params["lq"])
+    k = torch.einsum("bse,ehk->bshk", xc, params["lk"])
+    v = torch.einsum("bse,ehk->bshk", u, params["lv"])
+    gates = torch.einsum("bse,ehg->bshg", xc.float(), params["w_if"]) \
+        + params["b_if"]
+    li = gates[..., 0]                          # log input gate (B,S,H)
+    lf = act.log_sigmoid(gates[..., 1])         # log forget gate
+    return q, k, v, li, lf, z, new_conv
+
+
+def _headnorm(h, scale, eps: float = 1e-5):
+    """Per-head RMS norm over dh.  h (..., H, dh) float32."""
+    var = torch.mean(torch.square(h), dim=-1, keepdim=True)
+    return h * torch.rsqrt(var + eps) * scale
+
+
+def _mlstm_chunk(carry, q, k, v, li, lf, dh: int):
+    """One chunk.  carry: C (B,H,dh,dh), n (B,H,dh), m (B,H) float32;
+    q, k, v (B,c,H,dh), li, lf (B,c,H)."""
+    C0, n0, m0 = carry
+    q = q.float() * dh ** -0.5
+    k = k.float()
+    v = v.float()
+    b = torch.cumsum(lf, dim=1)                                   # (B,c,H)
+    # intra-chunk log weights: D[t,s] = b_t - b_s + li_s  (s <= t)
+    ld = b[:, :, None, :] - b[:, None, :, :] + li[:, None, :, :]  # (B,t,s,H)
+    c = q.shape[1]
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    ld = torch.where(tri[None, :, :, None], ld, -torch.inf)
+    m_intra = torch.amax(ld, dim=2)                               # (B,t,H)
+    m_inter = b + m0[:, None, :]
+    m_t = torch.clamp(torch.maximum(m_inter, m_intra), min=-30.0)
+
+    Dw = act.exp(ld - m_t[:, :, None, :])                         # (B,t,s,H)
+    qk = torch.einsum("bthd,bshd->btsh", q, k)
+    w = Dw * qk
+    h_intra = torch.einsum("btsh,bshd->bthd", w, v)
+    inter_scale = act.exp(m_inter - m_t)                          # (B,t,H)
+    h_inter = torch.einsum("bthd,bhde->bthe", q, C0) \
+        * inter_scale[..., None]
+    n_inter = torch.einsum("bthd,bhd->bth", q, n0) * inter_scale
+    n_intra = torch.sum(w, dim=2)
+    h = h_intra + h_inter
+    n = n_intra + n_inter
+    denom = torch.maximum(torch.abs(n), act.exp(-m_t))[..., None]
+    out = h / denom                                               # (B,c,H,dh)
+
+    # end-of-chunk state
+    bc = b[:, -1, :]                                              # (B,H)
+    m_state = torch.maximum(bc + m0,
+                            torch.amax(bc[:, None] - b + li, dim=1))
+    m_state = torch.clamp(m_state, min=-30.0)
+    sw = act.exp(bc[:, None] - b + li - m_state[:, None])         # (B,c,H)
+    decay = act.exp(bc + m0 - m_state)
+    C_new = decay[:, :, None, None] * C0 \
+        + torch.einsum("bch,bchd,bche->bhde", sw, k, v)
+    n_new = decay[:, :, None] * n0 + torch.einsum("bch,bchd->bhd", sw, k)
+    return (C_new, n_new, m_state), out
+
+
+def mlstm_forward(params, x, cfg: ModelConfig):
+    B, S, D = x.shape
+    di, H, dh = _mlstm_dims(cfg)
+    q, k, v, li, lf, z, _ = _mlstm_qkv_gates(params, x, cfg)
+    c = min(MLSTM_CHUNK, S)
+    if S % c:
+        raise ValueError(f"sequence {S} is not a multiple of the mLSTM "
+                         f"chunk {c}")
+    carry = (x.new_zeros((B, H, dh, dh), dtype=torch.float32),
+             x.new_zeros((B, H, dh), dtype=torch.float32),
+             x.new_zeros((B, H), dtype=torch.float32))
+    outs = []
+    for c0 in range(0, S, c):
+        sl = slice(c0, c0 + c)
+        carry, out = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl],
+                                  li[:, sl], lf[:, sl], dh)
+        outs.append(out)
+    h = torch.cat(outs, dim=1)
+    h = _headnorm(h, params["gn_scale"]).reshape(B, S, di).to(x.dtype)
+    return (h * F.silu(z)) @ params["w_down"]
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> dict:
+    di, H, dh = _mlstm_dims(cfg)
+    f32 = torch.float32
+    return {
+        "conv": torch.zeros((batch, cfg.xlstm_conv - 1, di), dtype=dtype,
+                            device=device),
+        "C": torch.zeros((batch, H, dh, dh), dtype=f32, device=device),
+        "n": torch.zeros((batch, H, dh), dtype=f32, device=device),
+        "m": torch.full((batch, H), -30.0, dtype=f32, device=device),
+    }
+
+
+def mlstm_decode(params, x, cache, cfg: ModelConfig):
+    """x (B, 1, D) -> (y, cache): one recurrent step; the cache is
+    updated in place and returned."""
+    di, H, dh = _mlstm_dims(cfg)
+    q, k, v, li, lf, z, conv = _mlstm_qkv_gates(params, x, cfg,
+                                                cache["conv"])
+    q = q[:, 0].float() * dh ** -0.5
+    k = k[:, 0].float()
+    v = v[:, 0].float()
+    li, lf = li[:, 0], lf[:, 0]                                    # (B,H)
+    m_new = torch.clamp(torch.maximum(lf + cache["m"], li), min=-30.0)
+    fdec = act.exp(lf + cache["m"] - m_new)[:, :, None]
+    iexp = act.exp(li - m_new)[:, :, None]
+    # C[d, e] = k_d v_e, the layout of the chunkwise state update
+    C = fdec[..., None] * cache["C"] + iexp[..., None] * k[:, :, :, None] \
+        * v[:, :, None, :]
+    nst = fdec * cache["n"] + iexp * k
+    num = torch.einsum("bhde,bhd->bhe", C, q)
+    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", nst, q)),
+                        act.exp(-m_new))[..., None]
+    h = _headnorm(num / den, params["gn_scale"])
+    h = h.reshape(x.shape[0], 1, di).to(x.dtype)
+    out = (h * F.silu(z)) @ params["w_down"]
+    for name, val in (("conv", conv), ("C", C), ("n", nst), ("m", m_new)):
+        cache[name].copy_(val)
+    return out, cache
+
+
+# ================================================================= sLSTM
+
+def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    dh = d // H
+    dev = gen.device
+    s = d ** -0.5
+    f32 = torch.float32
+    up = int(4 * d / 3)
+    # gates: z, i, f, o
+    return {
+        "w_x": _normal(gen, (d, 4, d), s, f32),
+        "r_h": _normal(gen, (H, dh, 4, dh), dh ** -0.5, f32),
+        "b": torch.zeros((4, d), dtype=f32, device=dev),
+        "gn_scale": torch.ones((d,), dtype=f32, device=dev),
+        "w_up": _normal(gen, (d, up), s, dtype),
+        "w_down": _normal(gen, (up, d), (4 * d / 3) ** -0.5, dtype),
+    }
+
+
+def _slstm_step(params, xg, state, H: int, dh: int):
+    """xg (B, 4, d): W_x x + b; state (c, n, m, h), each (B, d)."""
+    c0, n0, m0, h0 = state
+    rec = torch.einsum("bhd,hdge->bhge", h0.reshape(-1, H, dh),
+                       params["r_h"])
+    # the reference reshapes (B, H, 4, dh) to (B, 4, H*dh) as it lies
+    g = xg + rec.reshape(xg.shape[0], 4, H * dh)
+    z = act.tanh(g[:, 0])
+    li = g[:, 1]
+    lf = act.log_sigmoid(g[:, 2])
+    o = torch.sigmoid(g[:, 3])
+    m1 = torch.clamp(torch.maximum(lf + m0, li), min=-30.0)
+    fdec = act.exp(lf + m0 - m1)
+    iexp = act.exp(li - m1)
+    c1 = fdec * c0 + iexp * z
+    n1 = fdec * n0 + iexp
+    h1 = o * c1 / torch.clamp(n1, min=1e-6)
+    return c1, n1, m1, h1
+
+
+def _slstm_out(params, h, dtype):
+    var = torch.mean(torch.square(h), dim=-1, keepdim=True)
+    h = (h * torch.rsqrt(var + 1e-5) * params["gn_scale"]).to(dtype)
+    up = h @ params["w_up"]
+    return F.gelu(up, approximate="tanh") @ params["w_down"]
+
+
+def slstm_forward(params, x, cfg: ModelConfig):
+    B, S, D = x.shape
+    H = cfg.num_heads
+    xg = torch.einsum("bsd,dge->bsge", x.float(), params["w_x"]) \
+        + params["b"]
+    zeros = x.new_zeros((B, D), dtype=torch.float32)
+    state = (zeros, zeros, torch.full_like(zeros, -30.0), zeros)
+    hs = []
+    for t in range(S):
+        state = _slstm_step(params, xg[:, t], state, H, D // H)
+        hs.append(state[3])
+    return _slstm_out(params, torch.stack(hs, dim=1), x.dtype)
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> dict:
+    d = cfg.d_model
+    f32 = torch.float32
+
+    def zeros():
+        return torch.zeros((batch, d), dtype=f32, device=device)
+
+    return {"c": zeros(), "n": zeros(),
+            "m": torch.full((batch, d), -30.0, dtype=f32, device=device),
+            "h": zeros()}
+
+
+def slstm_decode(params, x, cache, cfg: ModelConfig):
+    B, _, D = x.shape
+    H = cfg.num_heads
+    xg = torch.einsum("bsd,dge->bsge", x.float(), params["w_x"])[:, 0] \
+        + params["b"]
+    new = _slstm_step(params, xg, (cache["c"], cache["n"], cache["m"],
+                                   cache["h"]), H, D // H)
+    for name, val in zip(("c", "n", "m", "h"), new):
+        cache[name].copy_(val)
+    return _slstm_out(params, new[3], x.dtype)[:, None], cache

@@ -508,3 +508,85 @@ def test_cuda_readers_leave_a_sync_run_bitwise_unchanged(cuda):
     assert client.versions_seen
     for k in plain.last_params:
         assert torch.equal(plain.last_params[k], trainer.last_params[k]), k
+
+
+# ---------------------------------------- chunk mask, MLA head dims
+
+# B, S, H, KV, d, d_v, causal, window, chunk, dtype
+FLASH_NEW_CASES = [
+    # chunked-local: a chunk no tile divides, ragged S, chunk < tile
+    (1, 300, 4, 2, 64, 64, True, None, 100, torch.bfloat16),
+    (1, 300, 4, 2, 64, 64, True, None, 100, torch.float32),
+    (2, 37, 4, 2, 64, 64, True, None, 16, torch.bfloat16),
+    (2, 37, 4, 2, 64, 64, True, None, 16, torch.float32),
+    (1, 200, 4, 1, 128, 128, False, None, 48, torch.bfloat16),
+    (1, 200, 4, 1, 128, 128, True, 20, 48, torch.float32),
+    (1, 1024, 8, 2, 128, 128, True, None, 256, torch.bfloat16),  # llama4
+    # MLA: q and k 192 (80) wide, v 128 (64)
+    (1, 512, 4, 4, 192, 128, True, None, None, torch.bfloat16),
+    (2, 130, 4, 4, 192, 128, False, None, None, torch.float32),
+    (2, 40, 4, 4, 80, 64, True, None, None, torch.bfloat16),
+    (2, 40, 4, 4, 80, 64, True, None, None, torch.float32),
+    (1, 300, 4, 4, 192, 128, True, None, 64, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_NEW_CASES, ids=str)
+def test_cuda_flash_chunk_and_mla_head_dims(cuda, case):
+    """The chunk mask and the (d, d_v) pairs other than square ones:
+    bitwise equal run to run, within the f32 and bf16 tolerances of
+    ``test_cuda_flash_matches_plain``."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, KV, d, dv, causal, window, chunk, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(S + d)
+    q, k = (torch.randn(B, S, n, d, device=cuda, generator=gen).to(dtype)
+            for n in (H, KV))
+    v = torch.randn(B, S, KV, dv, device=cuda, generator=gen).to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    kw = dict(causal=causal, window=window, chunk=chunk)
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 2
+    assert got.shape == (B, S, H, dv) and torch.equal(got, again)
+    want = tref.attention_ref(q, k, v, **kw)
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 else \
+        dict(rtol=1.6e-2, atol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "llama4-scout-17b-a16e",
+                                  "jamba-v0.1-52b", "xlstm-350m",
+                                  "hubert-xlarge", "phi-3-vision-4.2b"])
+def test_cuda_smoke_arch_matches_cpu(cuda, arch):
+    """Each new family's smoke variant on the card (rmsnorm and
+    flash_attention kernels) against the CPU (plain versions), same
+    params and batch, f32: logits within rtol 1e-4 / atol 1e-4; every
+    rmsnorm norm and full-sequence attention launched a kernel."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config, smoke_batch, \
+        smoke_variant
+    from repro_torch.convert import tree_to
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.models import model as M
+    cfg = smoke_variant(get_config(arch))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in smoke_batch(cfg).items() if k != "labels"}
+    with torch.inference_mode():
+        params = M.init_params(torch.Generator().manual_seed(0), cfg)
+        want, _ = M.forward(params, batch, cfg)
+        r0, f0 = rms.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"]
+        got, _ = M.forward(tree_to(params, cuda),
+                           {k: v.to(cuda) for k, v in batch.items()}, cfg)
+        torch.cuda.synchronize()
+    attn = sum(m in ("attn", "attn_global", "mla")
+               for m, _ in cfg.block_pattern) * cfg.num_groups
+    norms = 0 if cfg.norm != "rmsnorm" else 1 + sum(
+        1 + (f != "none") for _, f in cfg.block_pattern) * cfg.num_groups
+    assert (rms.LAUNCHES["rmsnorm"] - r0,
+            fa.LAUNCHES["flash_attention"] - f0) == (norms, attn)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -458,8 +458,9 @@ def test_leader_serves_two_infer_clients_while_training():
 
 def _raw_serve(address, n_frames: int):
     """Subscribe with a raw SERVE frame and return the first
-    ``n_frames`` frames, as bytes."""
-    s = socket.create_connection(tuple(address), timeout=5.0)
+    ``n_frames`` frames, as bytes.  The wait is long: under a loaded
+    test run a hub's threads can be slow to answer."""
+    s = socket.create_connection(tuple(address), timeout=30.0)
     try:
         s.sendall(mpt._serve_frame())
         frames = []
