@@ -63,7 +63,13 @@ main paths:
   one full-width group of jamba (prefill S 2048, greedy decode) and of
   llama4-scout (prefill S 16384 through the chunked kernel),
   hubert-xlarge and phi-3-vision at full width.  Each releases its
-  weights before the next.
+  weights before the next;
+- the SPMD backend: ``torchrun`` of 4 ``python -m repro_torch run
+  --backend spmd`` ranks sharing the card over gloo, xlstm-350m at its
+  published width annealed g 1 -> 2 -> 4 (24 gradients, every merge a
+  ``flush`` launch on rank 0, at K 4, 2 and 1), then h2o-danube-1.8b's
+  smoke variant on 2 ranks, the card against the CPU and a sync run
+  twice (bitwise equal), and ``flush`` alone at the merge's shape.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` gives them, one ``{"kernels": [...]}`` JSON line, and as
@@ -1969,11 +1975,11 @@ MLA_F32_ATOL = 2e-4                 # seed 0, float32 weights (64.8 GB)
 MLA_LONG_S = 4096
 ZOO_SCALE = 1.0        # [zoo-sim]: xlstm-350m's published shape
 ZOO_WORKERS = 16       # ... 16 x 1.76 GB snapshots + 16 staging rows
-ZOO_HORIZON = 0.5      # ... virtual seconds: about 100 gradients
+ZOO_HORIZON = 0.125    # ... virtual seconds: about 25 gradients
 ZOO_SMALL = 0.25       # the width run on the card and on the CPU ...
-ZOO_SMALL_HORIZON = 0.25   # ... for 0.25 virtual s: about 50 gradients
-# SGD at xlstm-350m's width in this run's 0.5 virtual s: the train loss
-# ran away at the default lr 0.01, rose at 3e-4 and 1e-4 and fell at 3e-5
+ZOO_SMALL_HORIZON = 0.0625  # ... for 0.0625 virtual s: about 12 gradients
+# SGD at xlstm-350m's width over 0.5 virtual s: the train loss ran away
+# at the default lr 0.01, rose at 3e-4 and 1e-4 and fell at 3e-5
 # (PERF.md, PR 18)
 ZOO_LR = 3e-5
 JAMBA = "jamba-v0.1-52b"
@@ -2726,6 +2732,196 @@ def drive_arch(torch):
     return totals
 
 
+# --------------------------------------------------------- [spmd]
+
+SPMD_RANKS = 4                   # one rank per data-axis position
+# the SPMD driver's default arch at its published width (--no-smoke: the
+# spec's default is the smoke variant): g 1 -> 2 -> 4 over steps 0-2,
+# 3-5, 6-11, so 4 x 3 + 2 x 3 + 1 x 6 = 24 gradients
+SPMD_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
+            "--schedule",
+            "step:3", "--steps", "12", "--batch", "32", "--seq", "64",
+            "--lr", "3e-5", "--optimizer", "sgd", "--log-every", "1"]
+SPMD_GROUPS = [1] * 3 + [2] * 3 + [4] * 6
+SPMD_SMALL = ["--arch", "h2o-danube-1.8b", "--smoke", "--schedule",
+              "step:2", "--steps", "6", "--batch", "4", "--seq", "16",
+              "--log-every", "1"]
+SPMD_MERGE_P = 440_057_856      # xlstm-350m's params slab, padded
+SPMD_TOL = (1e-5, 1e-6)         # card vs CPU, float32
+
+
+def spmd_launch(nproc: int, args, device: str, out: str,
+                ckpt_dir=None) -> subprocess.Popen:
+    """``torchrun --standalone`` (a free rendezvous port) of ``python -m
+    repro_torch run --backend spmd``; only rank 0 writes ``out``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "-m", "repro_torch", "run",
+           "--backend", "spmd", *args, "--device", device, "--quiet",
+           "--out", out]
+    if ckpt_dir:
+        cmd += ["--ckpt-dir", ckpt_dir]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def spmd_result(proc: subprocess.Popen, out: str, label: str,
+                timeout: float = 600.0) -> dict:
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+        raise AssertionError(f"[spmd] {label}: no end in {timeout} s:\n"
+                             + text[-3000:])
+    check(proc.returncode == 0, f"[spmd] {label}: torchrun exited "
+          f"{proc.returncode} (a rank failed):\n{text[-3000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def spmd_npz(path: str) -> dict:
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def drive_spmd(torch):
+    """The SPMD backend: xlstm-350m at full width, 4 ranks sharing the
+    card over gloo, g annealed 1 -> 2 -> 4 with every merge through the
+    flush kernel; then h2o-danube-1.8b's smoke variant on 2 ranks, the
+    card against the CPU and a sync run twice; then ``flush`` alone at
+    the merge's shape.  Returns the flush launches of the full run (its
+    rank 0's, read through ``RunResult.extra``) and the merge's times."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-spmd-") as tmp:
+        launches = spmd_runs(torch, tmp)
+    return launches, spmd_merge_flush(torch)
+
+
+def spmd_runs(torch, tmp: str) -> dict:
+    import numpy as np
+    out = os.path.join(tmp, "full.json")
+    t0 = time.time()
+    res = spmd_result(spmd_launch(SPMD_RANKS, SPMD_RUN, "cuda", out), out,
+                      "xlstm-350m")
+    wall = time.time() - t0
+    hist, extra = res["extra"]["history"], res["extra"]
+    groups = [h["group_size"] for h in hist]
+    reps = [h["replicas"] for h in hist]
+    check(groups == SPMD_GROUPS and reps == [SPMD_RANKS // g for g in
+                                             SPMD_GROUPS],
+          f"[spmd] group sizes {groups}, replicas {reps}")
+    check((res["num_gradients"], res["num_updates"]) == (24, 12),
+          f"[spmd] {res['num_gradients']} gradients, {res['num_updates']} "
+          "updates, expected 24 and 12")
+    flush_by_k = extra["launches_by_k"].get("flush", {})
+    check(flush_by_k.get("4", 0) >= 1 and flush_by_k.get("2", 0) >= 1,
+          f"[spmd] flush launches by K {flush_by_k}: none at K 4 or K 2")
+    check([m["K"] for m in extra["merges"]] == [4, 2, 1],
+          f"[spmd] merges {extra['merges']}")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"[spmd] losses {losses}")
+    check(all((h["divergence"] > 0) == (h["replicas"] > 1)
+              and math.isfinite(h["divergence"]) for h in hist),
+          f"[spmd] divergence {[h['divergence'] for h in hist]}")
+    check(extra["backend"] == "gloo" and extra["world_size"] == SPMD_RANKS,
+          f"[spmd] backend {extra['backend']}, world {extra['world_size']}")
+    steps, tokens = res["num_updates"], hist[-1]["tokens"]
+    log(f"[spmd] xlstm-350m full width, {SPMD_RANKS} ranks on "
+        f"{extra['device_name']}, backend {extra['backend']}: g "
+        f"{groups}, R {reps}; {res['num_gradients']} gradients, "
+        f"{steps} updates; flush launches by K {flush_by_k}; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; divergence "
+        f"{[float('%.4g' % h['divergence']) for h in hist]}")
+    peaks = [round(b / 2**30, 2) for b in extra["peak_memory_bytes"]]
+    log(f"[spmd] wall {res['wall_s']:.2f} s in rank 0's trainer "
+        f"({steps / res['wall_s']:.3f} steps/s, "
+        f"{tokens / res['wall_s']:.1f} tokens/s), {wall:.2f} s with "
+        f"torchrun and start-up; step wall by step "
+        f"{[h['wall_s'] for h in hist]}; peak card memory by rank "
+        f"(allocator) {peaks} GiB; seconds in collectives by rank "
+        f"{[round(x, 2) for x in extra['collective_s']]}")
+    # the divergence of a logged step gathers every replica's slab to
+    # rank 0 (a diagnostic the reference takes inside its step); each
+    # kind's seconds include the waits for the other ranks
+    by_kind = extra["collective_s_by_kind"]
+    div0 = by_kind[0]["divergence"]
+    log(f"[spmd] seconds in collectives by kind and rank: " + "; ".join(
+        f"{kind} {[round(r[kind], 2) for r in by_kind]}"
+        for kind in ("gradient", "divergence", "merge")) +
+        f"; without rank 0's {div0:.2f} s of divergence gathers "
+        f"{steps / (res['wall_s'] - div0):.3f} steps/s, "
+        f"{tokens / (res['wall_s'] - div0):.1f} tokens/s")
+
+    # smoke width: the card against the CPU, and a sync run twice
+    runs = {
+        "cuda": ("cuda", ["--mode", "hybrid"]),
+        "cpu": ("cpu", ["--mode", "hybrid"]),
+        "sync-a": ("cuda", ["--mode", "sync"]),
+        "sync-b": ("cuda", ["--mode", "sync"]),
+    }
+    procs = {}
+    for label, (dev, mode) in runs.items():
+        procs[label] = spmd_launch(
+            2, SPMD_SMALL + mode, dev, os.path.join(tmp, f"{label}.json"),
+            ckpt_dir=os.path.join(tmp, label))
+    small = {label: spmd_result(p, os.path.join(tmp, f"{label}.json"),
+                                f"h2o smoke {label}")
+             for label, p in procs.items()}
+    final = {label: spmd_npz(os.path.join(tmp, label, "step_6.npz"))
+             for label in runs}
+    rtol, atol = SPMD_TOL
+    worst = 0.0
+    for k, want in final["cpu"].items():
+        got = final["cuda"][k]
+        worst = max(worst, float(np.abs(got - want).max()))
+        check(np.allclose(got, want, rtol=rtol, atol=atol),
+              f"[spmd] h2o smoke hybrid: {k} on the card vs the CPU")
+    for a, b in zip(small["cuda"]["extra"]["history"],
+                    small["cpu"]["extra"]["history"]):
+        check(math.isclose(a["loss"], b["loss"], rel_tol=rtol,
+                           abs_tol=atol), f"[spmd] losses {a} vs {b}")
+    check(all(final["sync-a"][k].tobytes() == final["sync-b"][k].tobytes()
+              for k in final["sync-a"]),
+          "[spmd] h2o smoke sync: two runs on the card differ")
+    log(f"[spmd] h2o-danube-1.8b smoke f32 hybrid step:2, 2 ranks: final "
+        f"params on the card vs the CPU max abs diff {worst:.3e} (rtol "
+        f"{rtol:g}, atol {atol:g}), merges by K "
+        f"{[m['K'] for m in small['cuda']['extra']['merges']]}; sync run "
+        f"twice on the card: final params bitwise equal")
+    return flush_by_k
+
+
+def spmd_merge_flush(torch) -> dict:
+    """``flush`` alone at the merge's shape: K 4 replicas of xlstm-350m's
+    f32 slab."""
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.kernels import ref
+    K, P = SPMD_RANKS, SPMD_MERGE_P
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    g = torch.randn(K, P, device="cuda", generator=gen)
+    w = torch.ones(K, device="cuda")
+    err = hold(torch, "flush", same_twice(torch, lambda: ha.flush(g, w))[0],
+               ref.flush_ref(g, w), 1e-6, 1e-6, f"merge K={K} P={P}")
+    case = f"flush merge K={K} P={P} f32"
+    row = time_cases(torch, Timer(torch, reps=10), {
+        case: (lambda: ha.flush(g, w), lambda: ref.flush_ref(g, w),
+               lambda: w @ g, nbytes(g, w) + P * 4, 2 * K * P)})[case]
+    row["kernel_only_ms"] = kernel_only_ms(torch, lambda: ha.flush(g, w),
+                                           "flush_kernel", reps=10)
+    row["max_abs_err"] = err
+    log(f"[time] flush at the merge's shape: kernel alone "
+        f"{row['kernel_only_ms']:.6f} ms cold (profiler) = "
+        f"{100 * row['bound_ms'] / row['kernel_only_ms']:.1f}% of bound "
+        f"{row['bound_ms']:.6f} ms; wrapper call {row['ms']:.6f} ms; w @ g "
+        f"{row['library_ms']:.6f} ms")
+    del g
+    release(torch)
+    return {case: row}
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -2815,6 +3011,10 @@ def main() -> int:
         for name, n in drive().items():
             launches[name] += n
         log(f"[phase] {phase} done at {time.time() - t_start:.1f} s")
+    reset_counts()
+    spmd_launches, merge_times = drive_spmd(torch)
+    launches["flush"] += sum(spmd_launches.values())
+    log(f"[phase] spmd done at {time.time() - t_start:.1f} s")
     for name in PORTED:
         check(launches[name] > 0, f"{name} was never launched")
 
@@ -2838,6 +3038,8 @@ def main() -> int:
                                 "bound_by")}
                 for case, row in new_times.items()
                 if case.startswith(name.split("_")[0])}})
+    flush_row = next(k for k in kernels if k["name"] == "flush")
+    flush_row["also_timed"].update(merge_times)
     log(smi)
     print(json.dumps({"kernels": kernels, "pending": []}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 
 Subcommands:
   run       execute an ExperimentSpec (flags and/or --spec JSON file) and
-            emit a RunResult JSON: ``--backend sim`` (the simulator) or
+            emit a RunResult JSON: ``--backend sim`` (the simulator),
+            ``--backend spmd`` (group-annealed data parallelism, one
+            rank per process under ``torchrun``; only rank 0 writes
+            ``--out`` and prints the result) or
             ``--backend cluster`` (the wall-clock parameter server:
             ``--transport inproc`` worker threads, ``socket`` threads over
             TCP, ``proc`` worker processes on the same device, ``host``
@@ -40,6 +43,9 @@ Examples:
   python -m repro_torch serve --arch h2o-danube-1.8b --smoke --device cpu
   python -m repro_torch run --backend sim --arch cnn-cifar --no-smoke \\
       --mode hybrid --schedule step:300 --horizon 2 --out /tmp/r.json
+  torchrun --standalone --nproc-per-node 2 -m repro_torch run \\
+      --backend spmd --arch xlstm-350m --smoke --steps 8 --mode hybrid \\
+      --schedule step:4 --batch 4 --seq 32 --device cpu --out /tmp/r.json
   python -m repro_torch run --backend cluster --arch mlp --device cpu \\
       --cluster-workers 4 --wall-budget 5 --straggler 0:0.1 --kill 1:2 \\
       --respawn-after 0.5 --ckpt-every 1 --ckpt-dir /tmp/ck --quiet
@@ -91,8 +97,8 @@ def setup_logging(level: Optional[str] = None) -> None:
 # defaults.
 _SPEC_FLAGS = [
     ("--arch", "arch", str,
-     "workload: mlp | cnn-mnist | cnn-cifar | lm-tiny | zoo:xlstm | "
-     "zoo:transformer"),
+     "workload (sim, cluster: mlp | cnn-mnist | cnn-cifar | lm-tiny | "
+     "zoo:xlstm | zoo:transformer; spmd: registry arch)"),
     ("--mode", "mode", str, f"one of {MODES}"),
     ("--schedule", "schedule", str,
      'threshold schedule spec, e.g. "step:300"'),
@@ -111,6 +117,12 @@ _SPEC_FLAGS = [
     ("--flush-mode", "flush_mode", str, f"one of {FLUSH_MODES}"),
     ("--staleness-decay", "staleness_decay", float,
      "staleness weight decay"),
+    ("--steps", "steps", int, "spmd: optimizer steps"),
+    ("--seq", "seq", int, "spmd: sequence length"),
+    ("--merge-alpha", "merge_alpha", float, "spmd: partial-merge factor"),
+    ("--mesh-model", "mesh_model", int,
+     "spmd: model-parallel axis size (1 in this port)"),
+    ("--log-every", "log_every", int, "spmd: metric logging interval"),
     ("--cluster-workers", "cluster_workers", int,
      "cluster: worker count (threads)"),
     ("--transport", "transport", str,
@@ -185,7 +197,7 @@ def _add_spec_flags(ap: argparse.ArgumentParser, backend_flag: bool):
             ap.add_argument(flag, dest=f"fault_{dest}", type=typ,
                             default=None, help=hlp)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="cluster: checkpoint directory")
+                    help="spmd/cluster: checkpoint directory")
     ap.add_argument("--resume-from", default=None, metavar="CKPT",
                     help="cluster: restore this checkpoint into the "
                          "server before training (K(t) resumes from the "
@@ -272,7 +284,11 @@ def _cmd_run(args, forced_backend: Optional[str] = None) -> int:
               f"live stats and does nothing on backend="
               f"{spec.backend!r}; ignoring it", file=sys.stderr)
         prom_port = None
-    if spec.backend == "cluster":
+    if spec.backend == "spmd":
+        from repro_torch.api.trainers import SpmdTrainer
+        trainer = SpmdTrainer(ckpt_dir=args.ckpt_dir,
+                              verbose=not args.quiet, device=args.device)
+    elif spec.backend == "cluster":
         from repro_torch.cluster.trainer import ClusterTrainer
         trainer = ClusterTrainer(
             ckpt_dir=args.ckpt_dir, resume_from=args.resume_from,
@@ -284,6 +300,8 @@ def _cmd_run(args, forced_backend: Optional[str] = None) -> int:
         from repro_torch.api.trainers import get_trainer
         trainer = get_trainer(spec.backend, device=args.device)
     result = trainer.run(spec)
+    if spec.backend == "spmd" and int(os.environ.get("RANK", "0")):
+        return 0        # a rank other than 0: rank 0 reports the run
     if args.out:
         result.save(args.out)
         print(f"full RunResult written to {args.out}", file=sys.stderr)

@@ -6,21 +6,22 @@ aligned per-metric series, plus update / gradient counters and
 provenance (the spec that produced it).  ``averaged()`` is the paper's
 headline statistic — every metric averaged over the entire training
 interval.  The JSON form is the reference's
-(``src/repro/api/result.py``); the SPMD builder is not ported yet.
+(``src/repro/api/result.py``): ``from_sim``, ``from_history`` (the
+SPMD driver's logged steps) and ``from_cluster``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class RunResult:
-    backend: str                       # "sim" | "cluster"
+    backend: str                       # "sim" | "spmd" | "cluster"
     mode: str                          # "sync" | "async" | "hybrid"
     schedule: Optional[str]            # schedule spec string (hybrid)
-    grid_unit: str                     # "virtual_s" | "wall_s"
+    grid_unit: str                     # "virtual_s" | "step" | "wall_s"
     grid: Tuple[float, ...]            # metric sample points
     metrics: Dict[str, Tuple[float, ...]]  # name -> series, len == len(grid)
     num_updates: int = 0               # parameter updates applied
@@ -99,6 +100,32 @@ class RunResult:
             wall_s=float(wall_s),
             spec=spec.to_dict() if spec is not None else None,
             extra=dict(extra or {}))
+
+    @classmethod
+    def from_history(cls, history: Sequence[Dict[str, Any]], spec=None,
+                     wall_s: float = 0.0, num_updates: int = 0,
+                     num_gradients: int = 0,
+                     metric_keys: Tuple[str, ...] = ("loss", "divergence",
+                                                     "group_size",
+                                                     "replicas"),
+                     extra: Optional[Dict[str, Any]] = None
+                     ) -> "RunResult":
+        """Adapt the SPMD driver's logged ``history`` (list of dicts);
+        ``extra`` adds to the history the reference keeps there."""
+        history = list(history)
+        grid = tuple(float(h["step"]) for h in history)
+        metrics = {k: tuple(float(h[k]) for h in history)
+                   for k in metric_keys if history and k in history[0]}
+        mode = getattr(spec, "mode", "hybrid")
+        return cls(
+            backend="spmd", mode=mode,
+            schedule=getattr(spec, "schedule", None)
+            if mode == "hybrid" else None,
+            grid_unit="step", grid=grid, metrics=metrics,
+            num_updates=num_updates, num_gradients=num_gradients,
+            wall_s=float(wall_s),
+            spec=spec.to_dict() if spec is not None else None,
+            extra={"history": history, **(extra or {})})
 
     @classmethod
     def from_cluster(cls, cres, spec=None, wall_s: float = 0.0

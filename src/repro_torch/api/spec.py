@@ -11,10 +11,11 @@ package loads in the other:
                           schedule="step:300", horizon=8.0)
     result = repro_torch.api.run(spec, device="cuda")
 
-The port runs ``backend="sim"`` and ``backend="cluster"``; ``spmd`` is
-recognised and refused with :class:`NotImplementedError` until its
-slice lands.  The cluster backend runs all four transports: ``inproc``,
-``socket``, ``proc`` and ``host`` (``listen``, ``heartbeat_s`` and the
+The port runs all three backends: ``sim``, ``spmd`` (launched under
+``torchrun`` for more than one rank; ``steps``, ``seq``, ``merge_alpha``,
+``mesh_model`` and ``log_every`` are its fields, and ``mesh_model`` must
+be 1) and ``cluster``.  The cluster backend runs all four transports:
+``inproc``, ``socket``, ``proc`` and ``host`` (``listen``, ``heartbeat_s`` and the
 elastic ceiling ``max_workers`` are the host transport's, and so is
 ``serve_every``, which down-samples the params pushes to read-only
 serve clients).
@@ -32,7 +33,6 @@ from repro_torch.core.simulator import WorkerPool
 from repro_torch.optim.slab_form import OPTIMIZER_NAMES, SlabOptimizer
 
 BACKENDS = ("sim", "spmd", "cluster")
-PORTED_BACKENDS = ("sim", "cluster")
 MODES = ("sync", "async", "hybrid")
 FLUSH_MODES = ("sum", "mean")
 
@@ -108,11 +108,6 @@ class ExperimentSpec:
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")
-        if self.backend not in PORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported to repro_torch "
-                f"yet: it comes with the {self.backend} slice of the "
-                "port (see ROADMAP.md); use backend='sim' or 'cluster'")
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, "
                              f"got {self.mode!r}")

@@ -6,9 +6,12 @@ registered workload (``mlp``, ``cnn-mnist``, ``cnn-cifar``, ``lm-tiny``,
 ``zoo:xlstm``, ``zoo:transformer``; extend via
 :func:`register_sim_workload`), or pass a prepared ``(loss_fn,
 init_params, data, accuracy_fn)`` to the constructor.  Mirrors
-``src/repro/api/trainers.py``.  ``backend="cluster"`` is
+``src/repro/api/trainers.py``.  ``backend="spmd"`` is
+:class:`SpmdTrainer`, the group-annealed data-parallel driver
+(:mod:`repro_torch.launch.train`, one rank per process under
+``torchrun``); ``backend="cluster"`` is
 :class:`repro_torch.cluster.trainer.ClusterTrainer`, loaded on first
-use; the SPMD trainer comes with a later slice of the port.
+use.
 
 Everything runs on ``device``: ``cuda`` unless the caller asks for
 another, and an error when CUDA is asked for and missing.  On CUDA the
@@ -184,6 +187,41 @@ class SimulatorTrainer:
                                          "device_name": name})
 
 
+class SpmdTrainer:
+    """Adapter: ExperimentSpec -> group-annealed SPMD driver -> RunResult.
+
+    Each rank of a ``torchrun`` job runs it (with no process group it is
+    one rank: R = 1 throughout).  ``num_gradients`` counts one gradient
+    per replica per step, exactly as the driver ran them.  Rank 0's
+    result carries the history; ``extra`` adds the collective backend,
+    the world size, each merge's K, the flush launches by K and each
+    rank's peak device memory and seconds in collectives.  ``device``
+    defaults to ``cuda`` (``cuda:{LOCAL_RANK % device_count}`` per rank,
+    each with TF32 off and deterministic cuDNN)."""
+
+    def __init__(self, ckpt_dir: Optional[str] = None,
+                 verbose: bool = True, device: Device = None):
+        self.ckpt_dir = ckpt_dir
+        self.verbose = verbose
+        self.device = resolve_device(device)
+        self.last_params = None
+
+    def run(self, spec: ExperimentSpec) -> RunResult:
+        from repro_torch.launch.train import run_training
+
+        t0 = time.time()
+        params, history, stats = run_training(
+            spec, ckpt_dir=self.ckpt_dir, verbose=self.verbose,
+            device=self.device)
+        self.last_params = params
+        extra = {k: v for k, v in stats.items()
+                 if k not in ("num_updates", "num_gradients")}
+        return RunResult.from_history(
+            history, spec=spec, wall_s=time.time() - t0,
+            num_updates=stats["num_updates"],
+            num_gradients=stats["num_gradients"], extra=extra)
+
+
 def _cluster_trainer(device: Device = None):
     from repro_torch.cluster.trainer import ClusterTrainer
     return ClusterTrainer(device=device)
@@ -191,6 +229,7 @@ def _cluster_trainer(device: Device = None):
 
 TRAINERS: Dict[str, Callable[..., Any]] = {
     "sim": SimulatorTrainer,
+    "spmd": SpmdTrainer,
     "cluster": _cluster_trainer,
 }
 
@@ -199,9 +238,8 @@ def get_trainer(backend: str, device: Device = None):
     try:
         factory = TRAINERS[backend]
     except KeyError:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported to repro_torch yet "
-            f"(ported: {', '.join(sorted(TRAINERS))})") from None
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"(known: {', '.join(sorted(TRAINERS))})") from None
     return factory(device=device)
 
 

@@ -9,7 +9,7 @@ type JAX hands out.
 """
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, List, Union
 
 import numpy as np
 import torch
@@ -55,29 +55,40 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _map(fn, tree: Any) -> Any:
-    """``fn`` on every leaf of nested dicts, tuples and lists."""
+def tree_map(fn, *trees: Any) -> Any:
+    """``fn`` on the leaves of nested dicts, tuples and lists (several
+    trees of one structure: leaf by leaf)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (tuple, list)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of nested dicts, tuples and lists, in iteration order."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def params_from_numpy(tree: Any, device: Device = "cpu") -> Any:
     """Tree of arrays -> the same tree of tensors on ``device``."""
-    return _map(lambda a: _leaf_from_numpy(a, device), tree)
+    return tree_map(lambda a: _leaf_from_numpy(a, device), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:
     """Tree of tensors -> the same tree of numpy arrays (host copies
     that later updates of the tensors do not touch)."""
-    return _map(_leaf_to_numpy, tree)
+    return tree_map(_leaf_to_numpy, tree)
 
 
 def tree_to(tree: Any, device: torch.device) -> Any:
     """Tensors or arrays of a tree, as tensors on ``device``."""
-    return _map(lambda leaf: _leaf_to(leaf, device), tree)
+    return tree_map(lambda leaf: _leaf_to(leaf, device), tree)
 
 
 def _leaf_to(leaf: Any, device: torch.device) -> torch.Tensor:

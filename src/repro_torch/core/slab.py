@@ -27,7 +27,7 @@ PyTorch has no buffer donation.  Instead (enforced by
 chunks, each flushed by its own kernel launch; the fold is elementwise
 along P, so a sharded flush is bitwise equal to the unsharded one.
 The chunks stay on the aggregator's device (the reference spreads them
-over a host's devices; across cards is ROADMAP A13).
+over a host's devices; across cards is ROADMAP A16).
 """
 from __future__ import annotations
 

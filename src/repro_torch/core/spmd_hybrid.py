@@ -1,0 +1,195 @@
+"""Group-size-annealed data parallelism: the Smooth Switch on ranks.
+
+The paper's threshold K(t) ("how many gradients aggregate per update")
+maps onto data parallelism as the *reduction-group size* g:
+
+  * the data axis (the ranks of a ``torch.distributed`` job) is split
+    into R = axis/g replica groups of g consecutive ranks; group r holds
+    ranks ``[r*g, (r+1)*g)`` (:func:`repro_torch.launch.mesh.replica_groups`,
+    the order of the reference's mesh reshape) and trains a replica of
+    its own;
+  * a step averages the gradient only *inside* each group (the analogue
+    of "K gradients aggregated per update");
+  * groups evolve independently ("async": divergence is staleness) until
+    a **merge**, where replicas are averaged: the analogue of the
+    paper's buffer flush, and the same flush kernel;
+  * the threshold schedule anneals g: 1 -> axis (R: axis -> 1), ending
+    in fully synchronous data parallelism.
+
+This module holds the single-process pieces, held against
+``src/repro/core/spmd_hybrid.py``: trees with a leading replica axis of
+size R, their merge, reshard and divergence, the vmapped replica step
+and the phase plan.  :mod:`repro_torch.launch.train` runs them across
+ranks.  The reference's ``factored_mesh`` and ``replica_param_shardings``
+are the rank-group layout of :mod:`repro_torch.launch.mesh`: a replica
+is held whole on every rank of its group (ROADMAP C.30).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional
+
+import torch
+
+from repro_torch.convert import tree_leaves, tree_map
+from repro_torch.core.schedule import ThresholdSchedule, group_size_phases
+from repro_torch.core.slab import slab_codec
+from repro_torch.kernels.hybrid_aggregate import flush
+
+
+def replica(params_R, r: int):
+    """Replica ``r`` of a tree with a leading replica axis (views)."""
+    return tree_map(lambda p: p[r], params_R)
+
+
+def stack_replicas(trees):
+    """Trees of one replica each -> one tree with a leading replica axis."""
+    return tree_map(lambda *ps: torch.stack(ps), *trees)
+
+
+def replicate_params(params, R: int):
+    """Add the leading replica axis (same initial values in every group)."""
+    return tree_map(lambda p: p.unsqueeze(0).repeat(
+        (R,) + (1,) * p.dim()), params)
+
+
+def merge_replicas(params_R, alpha: float = 1.0):
+    """Flush: average the replicas.
+
+    alpha < 1 gives a partial (Lookahead-style) merge:
+    θ_r <- α·mean + (1-α)·θ_r.  This is the per-leaf reference; phase
+    switches use :func:`merge_replicas_slab`, which takes the same
+    reduction through the flush kernel."""
+    def m(p):
+        mean = torch.mean(p, dim=0, keepdim=True)
+        return alpha * mean.expand(p.shape) + (1 - alpha) * p
+    return tree_map(m, params_R)
+
+
+def merge_replicas_slab(params_R, alpha: float = 1.0,
+                        rows: Optional[torch.Tensor] = None):
+    """The hybrid flush on the slab path: the R replicas are encoded into
+    an ``(R, P)`` slab, summed by the parameter server's flush kernel
+    (:func:`repro_torch.kernels.hybrid_aggregate.flush` with weights
+    ``ones(R)``: one launch at K = R on the card), divided by R, decoded
+    and α-blended exactly like :func:`merge_replicas`.
+
+    ``rows`` is that ``(R, P)`` float32 slab when the caller holds it
+    already (the train driver gathers it from the ranks); it must be the
+    encoding of ``params_R``."""
+    codec = slab_codec(replica(params_R, 0))
+    R = tree_leaves(params_R)[0].shape[0]
+    if rows is None:
+        rows = torch.stack([codec.encode(replica(params_R, r))
+                            for r in range(R)])
+    elif tuple(rows.shape) != (R, codec.padded_size):
+        raise ValueError(f"rows must be ({R}, {codec.padded_size}), got "
+                         f"{tuple(rows.shape)}")
+    total = flush(rows, torch.ones((R,), dtype=torch.float32,
+                                   device=rows.device))
+    mean_tree = codec.decode(total / R)
+
+    def m(mean_leaf, p):
+        return alpha * mean_leaf.unsqueeze(0).expand(p.shape) \
+            + (1 - alpha) * p
+    return tree_map(m, mean_tree, params_R)
+
+
+def reshard_replicas(params_R, R_new: int):
+    """Change the replica count at a phase switch: merge down (average
+    consecutive groups) or split up (copies)."""
+    R_old = tree_leaves(params_R)[0].shape[0]
+    if R_new == R_old:
+        return params_R
+    if R_new < R_old:
+        assert R_old % R_new == 0, (R_old, R_new)
+        f = R_old // R_new
+        return tree_map(lambda p: torch.mean(
+            p.reshape((R_new, f) + tuple(p.shape[1:])), dim=1), params_R)
+    assert R_new % R_old == 0, (R_old, R_new)
+    f = R_new // R_old
+    return tree_map(lambda p: torch.repeat_interleave(p, f, dim=0),
+                    params_R)
+
+
+def replica_divergence(params_R) -> torch.Tensor:
+    """Root of the summed squared distance of the replicas from their
+    mean: the SPMD analogue of the paper's staleness (how far apart the
+    groups have drifted)."""
+    def d(p):
+        mean = torch.mean(p, dim=0, keepdim=True)
+        return torch.sum(torch.square(p - mean))
+    return torch.sqrt(sum(d(p) for p in tree_leaves(params_R)))
+
+
+def make_replica_step(loss_fn: Callable, opt_update: Callable):
+    """Build ``step(params_R, opt_R, batch_R) -> (params, opt, metrics)``.
+
+    ``loss_fn(params, batch) -> (loss, metrics)``; ``opt_update(grads,
+    opt, params) -> (updates, new_opt)``.  Every replica steps on its own
+    slice of the leading axis (``torch.func.vmap``), so no gradient
+    crosses replicas.  The metrics are the reference's: ``loss`` (mean
+    over replicas), ``loss_per_replica``, ``replicas`` (the replica axis
+    the step ran, one gradient each) and ``divergence``, plus the mean
+    of each of ``loss_fn``'s metrics."""
+    def one(params, opt_state, batch):
+        grads, (loss, metrics) = torch.func.grad_and_value(
+            loss_fn, has_aux=True)(params, batch)
+        updates, new_opt = opt_update(grads, opt_state, params)
+        new_params = tree_map(lambda p, u: p + u, params, updates)
+        return new_params, new_opt, loss, metrics
+
+    def step(params_R, opt_R, batch_R):
+        new_p, new_o, loss, metrics = torch.func.vmap(one)(
+            params_R, opt_R, batch_R)
+        return new_p, new_o, {
+            "loss": torch.mean(loss), "loss_per_replica": loss,
+            "replicas": torch.tensor(loss.shape[0], dtype=torch.int32),
+            "divergence": replica_divergence(new_p),
+            **{k: torch.mean(v) for k, v in metrics.items()}}
+
+    return step
+
+
+@dataclasses.dataclass
+class HybridPhase:
+    t_start: int
+    group_size: int
+    num_replicas: int
+
+
+def build_phases(schedule: ThresholdSchedule, horizon: int,
+                 data_axis: int, g_min: int = 1) -> List[HybridPhase]:
+    """Threshold schedule -> [(t_start, g, R)] with g clamped to >= g_min."""
+    phases: List[HybridPhase] = []
+    for t_start, g in group_size_phases(schedule, horizon, data_axis):
+        g = max(g, g_min)
+        R = data_axis // g
+        if phases and phases[-1].group_size == g:
+            continue
+        phases.append(HybridPhase(t_start, g, R))
+    if not phases or phases[0].t_start > 0:
+        phases.insert(0, HybridPhase(0, max(g_min, 1),
+                                     data_axis // max(g_min, 1)))
+    return phases
+
+
+def min_group_size(param_bytes: int, opt_bytes: int, model_axis: int,
+                   hbm_per_chip: Optional[int] = None,
+                   act_budget_frac: float = 0.5,
+                   device: Optional[torch.device] = None) -> int:
+    """Smallest replica-group size whose per-card state fits in device
+    memory, if a replica were sharded over its group (this port holds it
+    whole, C.30).  ``hbm_per_chip`` is read from ``device``'s properties
+    when not given; on the CPU the caller passes it."""
+    if hbm_per_chip is None:
+        dev = torch.device(device) if device is not None else None
+        if dev is None or dev.type != "cuda":
+            raise ValueError("min_group_size needs hbm_per_chip, or a "
+                             "CUDA device to read it from")
+        hbm_per_chip = torch.cuda.get_device_properties(dev).total_memory
+    budget = hbm_per_chip * (1 - act_budget_frac)
+    g = 1
+    while (param_bytes + opt_bytes) / (g * model_axis) > budget:
+        g *= 2
+    return g

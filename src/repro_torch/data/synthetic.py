@@ -73,3 +73,27 @@ def random_classification(seed: int = 0, n: int = 10_000, dim: int = 20,
     y = np.argmax(logits, axis=-1).astype(np.int32)
     k = int(train_frac * n)
     return x[:k], y[:k], x[k:], y[k:]
+
+
+def token_stream(seed: int, vocab_size: int, batch: int, seq: int):
+    """Deterministic LM token batches: a bigram-ish synthetic language so
+    loss actually decreases during example training runs."""
+    rng = np.random.default_rng(seed)
+    # random sparse bigram table
+    next_tok = rng.integers(0, vocab_size, size=(vocab_size, 4))
+
+    def batches():
+        r = np.random.default_rng(seed + 1)
+        while True:
+            t = np.empty((batch, seq + 1), np.int64)
+            t[:, 0] = r.integers(0, vocab_size, size=batch)
+            for i in range(seq):
+                choice = r.integers(0, 4, size=batch)
+                noise = r.random(batch) < 0.1
+                nxt = next_tok[t[:, i], choice]
+                t[:, i + 1] = np.where(
+                    noise, r.integers(0, vocab_size, size=batch), nxt)
+            yield {"tokens": t[:, :-1].astype(np.int32),
+                   "labels": t[:, 1:].astype(np.int32)}
+
+    return batches()

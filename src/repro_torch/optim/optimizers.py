@@ -1,4 +1,5 @@
-"""Optimizers as ``(init, update)`` pairs over dicts of tensors.
+"""Optimizers as ``(init, update)`` pairs over trees of tensors (nested
+dicts, tuples and lists, as the model stack's ``params["groups"]``).
 
 ``update(grads, state, params) -> (updates, new_state)``; apply with
 ``params + updates``.  All state is f32 whatever the params' dtype.  A
@@ -12,6 +13,7 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.kernels.ref import sqrt_rn
 
 
@@ -21,14 +23,8 @@ class Optimizer:
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]
 
 
-def _map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def _cast_like(src, ref):
-    return _map(lambda s, r: s.to(r.dtype), src, ref)
+    return tree_map(lambda s, r: s.to(r.dtype), src, ref)
 
 
 def bias_correction(count, b1: float, b2: float):
@@ -45,10 +41,8 @@ def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
 
 
 def _count(params) -> torch.Tensor:
-    leaf = params
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return torch.zeros((), dtype=torch.int32, device=leaf.device)
+    return torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
 
 
 def sgd(lr: float) -> Optimizer:
@@ -56,7 +50,7 @@ def sgd(lr: float) -> Optimizer:
         return {"count": _count(params)}
 
     def update(grads, state, params):
-        updates = _map(lambda g: -lr * g.float(), grads)
+        updates = tree_map(lambda g: -lr * g.float(), grads)
         return _cast_like(updates, params), {"count": state["count"] + 1}
 
     return Optimizer(init, update)
@@ -65,14 +59,15 @@ def sgd(lr: float) -> Optimizer:
 def momentum(lr: float, beta: float = 0.9, nesterov: bool = False
              ) -> Optimizer:
     def init(params):
-        return {"count": _count(params), "mu": _map(_zeros_f32, params)}
+        return {"count": _count(params), "mu": tree_map(_zeros_f32, params)}
 
     def update(grads, state, params):
-        mu = _map(lambda m, g: beta * m + g.float(), state["mu"], grads)
+        mu = tree_map(lambda m, g: beta * m + g.float(), state["mu"], grads)
         if nesterov:
-            upd = _map(lambda m, g: -lr * (beta * m + g.float()), mu, grads)
+            upd = tree_map(lambda m, g: -lr * (beta * m + g.float()), mu,
+                           grads)
         else:
-            upd = _map(lambda m: -lr * m, mu)
+            upd = tree_map(lambda m: -lr * m, mu)
         return _cast_like(upd, params), {"count": state["count"] + 1,
                                          "mu": mu}
 
@@ -82,21 +77,21 @@ def momentum(lr: float, beta: float = 0.9, nesterov: bool = False
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.0) -> Optimizer:
     def init(params):
-        return {"count": _count(params), "mu": _map(_zeros_f32, params),
-                "nu": _map(_zeros_f32, params)}
+        return {"count": _count(params), "mu": tree_map(_zeros_f32, params),
+                "nu": tree_map(_zeros_f32, params)}
 
     def update(grads, state, params):
         c = state["count"] + 1
-        mu = _map(lambda m, g: b1 * m + (1 - b1) * g.float(),
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
                   state["mu"], grads)
-        nu = _map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
                   state["nu"], grads)
         bc1, bc2 = bias_correction(c, b1, b2)
 
         def u(m, v, p):
             return -lr * ((m / bc1) / (sqrt_rn(v / bc2) + eps)
                           + weight_decay * p.float())
-        upd = _map(u, mu, nu, params)
+        upd = tree_map(u, mu, nu, params)
         return _cast_like(upd, params), {"count": c, "mu": mu, "nu": nu}
 
     return Optimizer(init, update)

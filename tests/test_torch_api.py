@@ -46,13 +46,21 @@ def test_spec_loads_reference_json(fields):
 
 @pytest.mark.parametrize("backend", ["spmd", "cluster"])
 def test_unported_backends_refuse(backend, tmp_path):
-    """spmd is refused by the spec; the cluster backend runs on all four
+    """No backend is refused any more: an spmd spec (the reference's
+    JSON) loads and ``get_trainer`` gives the SPMD trainer (its runs are
+    in ``test_torch_spmd.py``); the cluster backend runs on all four
     transports, and with its trace and Prometheus exports: ``trace=``
     writes the Chrome trace and ``prom_port=0`` serves ``/metrics``
     while the run lasts."""
     if backend == "spmd":
-        with pytest.raises(NotImplementedError, match=backend):
-            ExperimentSpec(backend=backend)
+        from repro_torch.api import SpmdTrainer, get_trainer
+        ref = JaxSpec(backend=backend, arch="xlstm-350m", steps=40,
+                      seq=64, merge_alpha=0.5, log_every=5)
+        spec = ExperimentSpec.from_json(ref.to_json())
+        assert spec.to_json() == ref.to_json()
+        assert isinstance(get_trainer(backend, device="cpu"), SpmdTrainer)
+        with pytest.raises(ValueError, match="unknown backend"):
+            get_trainer("tpu", device="cpu")
         return
     import threading
     import time
@@ -173,7 +181,8 @@ def test_port_imports_no_jax():
         "'configs.h2o_danube_18b', 'checkpoint.ckpt', 'obs.telemetry', "
         "'data.pipeline', 'cluster.faults', 'cluster.transport', "
         "'cluster.server', 'cluster.worker', 'cluster.runtime', "
-        "'cluster.trainer'):\n"
+        "'cluster.trainer', 'core.spmd_hybrid', 'launch.mesh', "
+        "'launch.steps', 'launch.train', 'examples.train_hybrid_spmd'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
