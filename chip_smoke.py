@@ -66,7 +66,7 @@ main paths:
   weights before the next;
 - the SPMD backend: ``torchrun`` of 4 ``python -m repro_torch run
   --backend spmd`` ranks sharing the card over gloo, xlstm-350m at its
-  published width annealed g 1 -> 2 -> 4 (24 gradients, every merge a
+  published width annealed g 1 -> 2 -> 4 (21 gradients, every merge a
   ``flush`` launch on rank 0, at K 4, 2 and 1), then h2o-danube-1.8b's
   smoke variant on 2 ranks, the card against the CPU and a sync run
   twice (bitwise equal), and ``flush`` alone at the merge's shape.
@@ -95,7 +95,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 K_MAX = 25                       # the paper's fleet: at most one row each
-HORIZON = 2.0                    # virtual seconds per main-path run
+HORIZON = 1.0                    # virtual seconds per main-path run
 CLUSTER_BUDGET_S = 4.0           # wall seconds per timed cluster run
 # K grows by one every 10 updates: about 800 gradients in a 4 s run (the
 # async run's rate) take K from 1 to about 12 of the 25 workers
@@ -230,6 +230,29 @@ def bound_ms(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def storage_bytes(tree) -> int:
+    """What a tree's tensors hold on the card: each storage's bytes,
+    rounded up to the caching allocator's 512-byte unit.  (The
+    allocator's own count can be higher by up to 1 MiB an allocation: a
+    request above 1 MiB takes a whole segment when less than 1 MiB would
+    be left over.)"""
+    seen = {}
+    for t in tree_leaves(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = -(-st.nbytes() // 512) * 512
+    return sum(seen.values())
+
+
+def step_bytes(torch):
+    """Start measuring a step's own device bytes; the returned function,
+    called after the step (synchronized), gives its peak minus what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    return lambda: torch.cuda.max_memory_allocated() - held
 
 
 # -------------------------------------------------------------- phases
@@ -403,21 +426,20 @@ def time_kernels(torch, P: int):
     h = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)
     bc = torch.tensor([0.1, 0.05], device="cuda")
     cases = {
-        # name: (kernel, plain, library call or None, bytes, flops)
+        # name: (kernel, plain, library call or None, (flops, bytes))
         "flush": (lambda: ha.flush(g, w), lambda: ref.flush_ref(g, w),
-                  lambda: w @ g, nbytes(g, w) + P * 4, 2 * K * P),
+                  lambda: w @ g, ha.cost("flush", K, P, 4)),
         "flush_momentum": (
             lambda: ha.flush_momentum(g, wn, m, 0.9),
             lambda: ref.flush_momentum_ref(g, wn, m, 0.9),
             lambda: torch.addmv(m, g.t(), wn, beta=0.9),
-            nbytes(g, wn, m) + P * 4, 2 * K * P + 2 * P),
+            ha.cost("flush_momentum", K, P, 4)),
         "flush_adamw": (
             lambda: ha.flush_adamw(g, wn, p, mu, nu, bc[0], bc[1], 1e-9,
                                    **h),
             lambda: ref.flush_adamw_ref(g, wn, p, mu, nu, bc[0], bc[1],
                                         1e-9, **h),
-            None, nbytes(g, wn, p, mu, nu) + 12 + 3 * P * 4,
-            2 * K * P + 16 * P),
+            None, ha.cost("flush_adamw", K, P, 4)),
     }
     out = time_cases(torch, Timer(torch), cases)
     # the kernel alone, from the profiler, beside the wrapper call's
@@ -435,9 +457,11 @@ def time_kernels(torch, P: int):
 def time_cases(torch, timer, cases, plain_timer=None, peak=F32_FLOPS_PER_S):
     """Cold and warm kernel times, the plain version's and the library
     call's (cold), and the bound, for each case
-    ``name: (kernel, plain, library or None, bytes, flops)``."""
+    ``name: (kernel, plain, library or None, (flops, bytes))``: the work
+    is the kernel module's own ``cost``, the formula the dry-run counts
+    its launches by."""
     out = {}
-    for name, (kern, plain, lib, nb, flops) in cases.items():
+    for name, (kern, plain, lib, (flops, nb)) in cases.items():
         ms_cold = timer(kern, cold=True)
         ms_warm = timer(kern, cold=False)
         plain_ms = (plain_timer or timer)(plain, cold=True)
@@ -1720,17 +1744,6 @@ def compare_lm_kernels(torch, D: int):
     return errs
 
 
-def window_pairs(S: int, causal: bool, window) -> int:
-    """(query, key) pairs that the masks leave reachable: the work the
-    attention must do for one (batch, head)."""
-    total = 0
-    for i in range(S):
-        hi = i + 1 if causal else S
-        lo = max(0, i - window + 1) if window else 0
-        total += hi - lo
-    return total
-
-
 def time_lm_kernels(torch, D: int):
     """rmsnorm and flash_attention at the serve path's shapes, and flash
     at every head dim it takes."""
@@ -1753,7 +1766,7 @@ def time_lm_kernels(torch, D: int):
             lambda x=x: rms.rmsnorm(x, scale),
             lambda x=x: ref.rmsnorm_ref(x, scale),
             lambda x=x: F.rms_norm(x, (D,), scale_bf16, 1e-5),
-            2 * nbytes(x) + nbytes(scale), 4 * n * D)
+            rms.cost(n, D, x.element_size()))
     out = time_cases(torch, timer, rms_cases)
     # the kernel alone (profiler) at the shape the path launches most
     decode = f"rmsnorm decode N={SERVE['batch']}"
@@ -1770,7 +1783,6 @@ def time_lm_kernels(torch, D: int):
         q, k, v = qkv(torch, 10 + seed, B, S, H, KV, d, dtype)
         mask = ref.attention_mask(S, causal, window, "cuda")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        flops = 4 * d * B * H * window_pairs(S, causal, window)
         case = {f"flash {label} S={S}": (
             lambda: fa.flash_attention(q, k, v, causal=causal,
                                        window=window),
@@ -1778,7 +1790,7 @@ def time_lm_kernels(torch, D: int):
                                       window=window),
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True),
-            2 * nbytes(q) + nbytes(k, v), flops)}
+            fa.cost(B, S, H, KV, d, d, q.element_size(), causal, window))}
         big = S >= 2048
         out.update(time_cases(
             torch, Timer(torch, reps=5) if big else timer, case,
@@ -1858,9 +1870,12 @@ def drive_serve_path(torch):
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         t0 = time.time()
+        held0 = torch.cuda.memory_allocated()
         params = M.init_params(torch.Generator(device=dev).manual_seed(0),
                                cfg)
         torch.cuda.synchronize()
+        param_bytes = (storage_bytes(params),
+                       torch.cuda.memory_allocated() - held0)
         n_params = sum(t.numel() for t in tree_leaves(params))
         n_bytes = sum(nbytes(t) for t in tree_leaves(params))
         log(f"[serve] {cfg.name}: {L} layers, d {cfg.d_model}, "
@@ -1909,11 +1924,13 @@ def drive_serve_path(torch):
             f"{2 * L + 1}, flash {L}")
 
         before = counts()
+        long_step = step_bytes(torch)
         t0 = time.time()
         long_logits = serve.prefill_step(params, {"tokens": long_toks},
                                          cfg)
         torch.cuda.synchronize()
         long_s = time.time() - t0
+        long_step = long_step()
         check(delta(before) == (2 * L + 1, L),
               f"long prefill_step launches {delta(before)}")
         check(tuple(long_logits.shape) == (1, V)
@@ -1952,7 +1969,8 @@ def drive_serve_path(torch):
         f"{int(agree.sum())}/{B} ({int(clear.sum())} rows with a clear "
         f"margin)")
     return launches, dict(gen_s=gen_s, short_s=short_s, long_s=long_s,
-                          n_params=n_params)
+                          n_params=n_params, param_bytes=param_bytes,
+                          long_step_bytes=long_step)
 
 
 
@@ -2020,20 +2038,6 @@ def qkv_v(torch, seed, B, S, H, KV, d, dv, dtype):
             for n, w in ((H, d), (KV, d), (KV, dv))]
 
 
-def reachable_pairs(S: int, causal: bool, window, chunk) -> int:
-    """(query, key) pairs the causal, window and chunk masks leave: the
-    work of one (batch, head)."""
-    total = 0
-    for i in range(S):
-        hi = i + 1 if causal else S
-        lo = max(0, i - window + 1) if window else 0
-        if chunk:
-            lo = max(lo, (i // chunk) * chunk)
-            hi = min(hi, (i // chunk + 1) * chunk)
-        total += hi - lo
-    return total
-
-
 def compare_new_kernel_shapes(torch):
     """flash_attention with a chunk and with d_v != d, and rmsnorm at the
     new families' widths, against their plain versions (the plain
@@ -2092,7 +2096,7 @@ def time_new_kernel_shapes(torch):
                 lambda x=x, sc=scale: ref.rmsnorm_ref(x, sc),
                 lambda x=x, w=width, ls=lib_scale: F.rms_norm(
                     x, (w,), ls, 1e-5),
-                2 * nbytes(x) + nbytes(scale), 4 * x.numel())}
+                rms.cost(4096, width, x.element_size()))}
             out.update(time_cases(torch, timer, case))
             out[name]["kernel_only_ms"] = kernel_only_ms(
                 torch, case[name][0], "rmsnorm_kernel")
@@ -2106,8 +2110,6 @@ def time_new_kernel_shapes(torch):
         kw = dict(causal=causal, window=window, chunk=chunk)
         mask = ref.attention_mask(S, causal, window, "cuda", chunk)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        flops = 2 * (d + dv) * B * H * reachable_pairs(S, causal, window,
-                                                       chunk)
         name = f"flash {label} S={S}"
 
         def library():
@@ -2126,7 +2128,8 @@ def time_new_kernel_shapes(torch):
             lambda: fa.flash_attention(q, k, v, **kw),
             lambda: ref.attention_ref(q, k, v, q_block=1024 if S > 4096
                                       else None, **kw),
-            library, nbytes(q, k, v) + nbytes(q) // d * dv, flops)}
+            library, fa.cost(B, S, H, KV, d, dv, q.element_size(), causal,
+                             window, chunk))}
         out.update(time_cases(
             torch, Timer(torch, reps=5) if big else timer, case,
             plain_timer=Timer(torch, reps=2) if big else None,
@@ -2282,7 +2285,10 @@ def drive_mla_moe_serve(torch):
         return res, dt, (got["rmsnorm"], got["flash_attention"])
 
     with torch.inference_mode():
+        held0 = torch.cuda.memory_allocated()
         params = init_full(torch, cfg, "serve-mla-moe")
+        param_bytes = (storage_bytes(params),
+                       torch.cuda.memory_allocated() - held0)
         serve.greedy_generate(cfg, params, prompts[:, :2], 1)   # set-up
         serve.prefill_step(params, {"tokens": long_toks[:, :64]}, cfg)
         torch.cuda.synchronize()
@@ -2308,8 +2314,10 @@ def drive_mla_moe_serve(torch):
             f"{n[0]}, flash {n[1]} (at d "
             f"{cfg.resolved_head_dim + cfg.rope_head_dim} / d_v "
             f"{cfg.resolved_v_head_dim})")
+        long_step = step_bytes(torch)
         long_logits, long_s, n = counted(lambda: serve.prefill_step(
             params, {"tokens": long_toks}, cfg))
+        long_step = long_step()
         check(n == per_fwd and tuple(long_logits.shape) == (1, V)
               and bool(torch.isfinite(long_logits).all()),
               f"deepseek long prefill: launches {n} or logits malformed")
@@ -2340,7 +2348,8 @@ def drive_mla_moe_serve(torch):
     del params
     release(torch)
     return totals, dict(gen_s=gen_s, short_s=short_s, long_s=long_s,
-                        peak_gb=peak)
+                        peak_gb=peak, param_bytes=param_bytes,
+                        long_step_bytes=long_step)
 
 
 def _slab(trainer, spec):
@@ -2484,6 +2493,8 @@ def drive_zoo_sim(torch):
         check((runs["cuda"].num_gradients, runs["cuda"].num_updates) ==
               (runs["cpu"].num_gradients, runs["cpu"].num_updates),
               f"{arch}: cuda and cpu runs disagree on event counts")
+        check(runs["cuda"].num_updates > 0, f"{arch}: no update to compare "
+              "(the horizon is too short)")
         diff = float((slabs["cuda"] - slabs["cpu"]).abs().max())
         strict = torch.allclose(slabs["cuda"], slabs["cpu"], rtol=1e-5,
                                 atol=1e-6)
@@ -2737,12 +2748,12 @@ def drive_arch(torch):
 SPMD_RANKS = 4                   # one rank per data-axis position
 # the SPMD driver's default arch at its published width (--no-smoke: the
 # spec's default is the smoke variant): g 1 -> 2 -> 4 over steps 0-2,
-# 3-5, 6-11, so 4 x 3 + 2 x 3 + 1 x 6 = 24 gradients
+# 3-5, 6-8, so 4 x 3 + 2 x 3 + 1 x 3 = 21 gradients
 SPMD_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
             "--schedule",
-            "step:3", "--steps", "12", "--batch", "32", "--seq", "64",
+            "step:3", "--steps", "9", "--batch", "32", "--seq", "64",
             "--lr", "3e-5", "--optimizer", "sgd", "--log-every", "1"]
-SPMD_GROUPS = [1] * 3 + [2] * 3 + [4] * 6
+SPMD_GROUPS = [1] * 3 + [2] * 3 + [4] * 3
 SPMD_SMALL = ["--arch", "h2o-danube-1.8b", "--smoke", "--schedule",
               "step:2", "--steps", "6", "--batch", "4", "--seq", "16",
               "--log-every", "1"]
@@ -2813,9 +2824,10 @@ def spmd_runs(torch, tmp: str) -> dict:
     check(groups == SPMD_GROUPS and reps == [SPMD_RANKS // g for g in
                                              SPMD_GROUPS],
           f"[spmd] group sizes {groups}, replicas {reps}")
-    check((res["num_gradients"], res["num_updates"]) == (24, 12),
+    want = (sum(SPMD_RANKS // g for g in SPMD_GROUPS), len(SPMD_GROUPS))
+    check((res["num_gradients"], res["num_updates"]) == want,
           f"[spmd] {res['num_gradients']} gradients, {res['num_updates']} "
-          "updates, expected 24 and 12")
+          f"updates, expected {want}")
     flush_by_k = extra["launches_by_k"].get("flush", {})
     check(flush_by_k.get("4", 0) >= 1 and flush_by_k.get("2", 0) >= 1,
           f"[spmd] flush launches by K {flush_by_k}: none at K 4 or K 2")
@@ -2908,7 +2920,7 @@ def spmd_merge_flush(torch) -> dict:
     case = f"flush merge K={K} P={P} f32"
     row = time_cases(torch, Timer(torch, reps=10), {
         case: (lambda: ha.flush(g, w), lambda: ref.flush_ref(g, w),
-               lambda: w @ g, nbytes(g, w) + P * 4, 2 * K * P)})[case]
+               lambda: w @ g, ha.cost("flush", K, P, 4))})[case]
     row["kernel_only_ms"] = kernel_only_ms(torch, lambda: ha.flush(g, w),
                                            "flush_kernel", reps=10)
     row["max_abs_err"] = err
@@ -2922,6 +2934,156 @@ def spmd_merge_flush(torch) -> dict:
     return {case: row}
 
 
+# ------------------------------------------------------------- dry-run
+
+# [dryrun]: one h2o-danube-1.8b train step at full width, B 1; at S 2048
+# the dry-run predicts about 93 GB (the plain attention's S x S scores
+# saved for the backward, no rematerialisation), above the card's 85 GB,
+# so the card takes S 1024 and the phase logs S 2048's prediction
+DRYRUN_TRAIN_S = 1024
+DRYRUN_TRAIN_S_TOO_BIG = 2048
+DRYRUN_RTOL = 0.10                # a step's own bytes: within 10% ...
+DRYRUN_SLACK = 256 << 20          # ... or 256 MiB, the larger
+
+
+DRYRUN_CHILD = "--dryrun-train-step"
+
+
+def dryrun_train_step(torch) -> dict:
+    """One h2o-danube-1.8b AdamW train step (B 1, S ``DRYRUN_TRAIN_S``)
+    through ``make_train_step`` on the card, after a warm-up step at S
+    64: its params' and moments' storage bytes, its own bytes (peak
+    above what was allocated before it), its seconds."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    h2o, dev = get_config(ARCH), torch.device("cuda")
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), h2o)
+    opt = adamw(3e-4)
+    opt_state = opt.init(params)
+    rng = np.random.default_rng(0)
+
+    def batch(S):
+        return {k: torch.as_tensor(rng.integers(0, h2o.vocab_size, (1, S))
+                                   .astype(np.int32), device=dev)
+                for k in ("tokens", "labels")}
+    train_step = make_train_step(h2o, opt)
+    warm = train_step(params, opt_state, batch(64))     # set-up, not timed
+    torch.cuda.synchronize()
+    del warm
+    b = batch(DRYRUN_TRAIN_S)
+    measured = step_bytes(torch)
+    t0 = time.time()
+    new_params, _, loss = train_step(params, opt_state, b)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(new_params))
+    return dict(params=storage_bytes(params),
+                opt_state=storage_bytes(opt_state), step=measured(),
+                seconds=seconds, finite=finite)
+
+
+def drive_dryrun(torch, serve_read: dict, mla_read: dict) -> dict:
+    """The meta-device dry-run (``launch/dryrun.py``) against the card:
+    state bytes (params, KV cache, AdamW moments) exactly, each step's
+    own bytes (its peak above what was allocated before it) within 10%
+    or 256 MiB, and each step's time at or above the dry-run's bound.
+    The prefills are ``[serve]``'s (h2o-danube-1.8b, B 1, S 8192) and
+    ``[serve-mla-moe]``'s (deepseek-v2-lite-16b, S 4096).  The train step
+    runs in a child process of its own (:func:`dryrun_train_step`): in
+    this one, after the other phases, one call of five read 10.4 GB
+    above the step's 33.8 GB that every fresh process reads (PERF.md
+    section 7)."""
+    from repro_torch.configs.registry import InputShape, get_config
+    from repro_torch.launch import cost as C
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import H100_MEMORY_BYTES, card_memory_bytes
+    from repro_torch.models import model as M
+
+    t_phase = time.time()
+    card = card_memory_bytes("cuda")
+    log(f"[dryrun] card memory {card} B (torch.cuda.get_device_properties);"
+        f" the dry-run's constant on the meta device {H100_MEMORY_BYTES} B")
+    h2o, ds = get_config(ARCH), get_config(DEEPSEEK)
+    t0 = time.time()
+    pre_h2o, info_h2o = dryrun.analyze_step(
+        h2o, InputShape("prefill", LONG_S, 1, "prefill"))
+    pre_ds, info_ds = dryrun.analyze_step(
+        ds, InputShape("prefill", MLA_LONG_S, 1, "prefill"))
+    train, info_tr = dryrun.analyze_step(
+        h2o, InputShape("train", DRYRUN_TRAIN_S, 1, "train"))
+    big, _ = dryrun.analyze_step(
+        h2o, InputShape("train", DRYRUN_TRAIN_S_TOO_BIG, 1, "train"))
+    fits = "fits" if big.peak_bytes <= card else "does not fit"
+    log(f"[dryrun] predictions on the meta device in {time.time() - t0:.1f}"
+        f" s; train B=1 S={DRYRUN_TRAIN_S_TOO_BIG} would peak at "
+        f"{big.peak_bytes} B ({fits} in {card} B), so the card runs "
+        f"S={DRYRUN_TRAIN_S}")
+    out = {}
+
+    def state(label, measured, meta_tree, allocator=None):
+        want = C.tree_bytes(meta_tree)
+        check(measured == want, f"[dryrun] {label}: {measured} B on the card,"
+              f" {want} B predicted")
+        extra = "" if allocator is None else \
+            f" (the allocator's count rose {allocator} B)"
+        log(f"[dryrun] state {label}: {measured} B = predicted{extra}")
+        out[f"state {label}"] = measured
+
+    def step(label, measured, report, seconds, dtype):
+        want = report.step_bytes
+        check(abs(measured - want) <= max(DRYRUN_RTOL * want, DRYRUN_SLACK),
+              f"[dryrun] {label}: step bytes {measured} on the card, {want} "
+              "predicted")
+        bound = dryrun.bound_seconds(report.cost.flops,
+                                     report.cost.hbm_bytes, dtype)
+        check(seconds >= bound, f"[dryrun] {label}: {seconds} s is under "
+              f"the dry-run's bound {bound} s")
+        log(f"[dryrun] {label}: step bytes {measured} on the card / {want} "
+            f"predicted = {measured / want:.6f}; {seconds:.6f} s against "
+            f"the bound {bound:.6f} s ({report.cost.flops:.6e} FLOP, "
+            f"{report.cost.hbm_bytes:.6e} B) = {100 * bound / seconds:.1f}% "
+            f"of bound; kernels {report.kernels}")
+        out[label] = dict(ratio=measured / want, seconds=seconds,
+                          bound_s=bound, share=bound / seconds)
+
+    state("h2o params", serve_read["param_bytes"][0], info_h2o["params"],
+          serve_read["param_bytes"][1])
+    step(f"h2o prefill B=1 S={LONG_S}", serve_read["long_step_bytes"],
+         pre_h2o, serve_read["long_s"], torch.bfloat16)
+    state("deepseek params", mla_read["param_bytes"][0], info_ds["params"],
+          mla_read["param_bytes"][1])
+    step(f"deepseek prefill B=1 S={MLA_LONG_S}", mla_read["long_step_bytes"],
+         pre_ds, mla_read["long_s"], torch.bfloat16)
+
+    dev = torch.device("cuda")
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    cache = M.init_cache(h2o, B, P + G, device=dev)
+    state(f"h2o KV cache B={B} S={P + G}", storage_bytes(cache),
+          M.init_cache(h2o, B, P + G, device="meta"))
+    del cache
+    release(torch)          # the child needs the cached blocks back
+
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           DRYRUN_CHILD], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"[dryrun] the train step's process exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(child["finite"], "[dryrun] the train step gave a non-finite loss "
+          "or params")
+    state("h2o train params", child["params"], info_tr["params"])
+    state("h2o AdamW state", child["opt_state"], info_tr["opt_state"])
+    step(f"h2o train step B=1 S={DRYRUN_TRAIN_S} AdamW (own process)",
+         child["step"], train, child["seconds"], torch.bfloat16)
+    out["phase_s"] = time.time() - t_phase
+    log(f"[dryrun] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -2932,6 +3094,10 @@ def tree_leaves(tree):
 
 def main() -> int:
     import torch
+    if sys.argv[1:] == [DRYRUN_CHILD]:        # drive_dryrun's child
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(dryrun_train_step(torch)), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA "
               "GPU", file=sys.stderr)
@@ -2995,7 +3161,7 @@ def main() -> int:
             f"{100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of bound; "
             f"wrapper call {t['ms']:.6f} ms (CUDA events)")
     cross_check_serve_small(torch)
-    serve_launches, _ = drive_serve_path(torch)
+    serve_launches, serve_read = drive_serve_path(torch)
     for name, n in serve_launches.items():
         launches[name] += n
     log(f"[phase] serving path done at {time.time() - t_start:.1f} s")
@@ -3004,10 +3170,15 @@ def main() -> int:
         errs[name] = max(errs[name], err)
     new_times = time_new_kernel_shapes(torch)
     log(f"[phase] new kernel shapes done at {time.time() - t_start:.1f} s")
-    for phase, drive in (("serve-mla-moe", lambda: drive_mla_moe_serve(
-            torch)[0]), ("zoo-sim", lambda: drive_zoo_sim(torch)),
-            ("zoo-wire", lambda: drive_zoo_wire(torch)),
-            ("arch", lambda: drive_arch(torch))):
+    mla_launches, mla_read = drive_mla_moe_serve(torch)
+    for name, n in mla_launches.items():
+        launches[name] += n
+    log(f"[phase] serve-mla-moe done at {time.time() - t_start:.1f} s")
+    drive_dryrun(torch, serve_read, mla_read)
+    log(f"[phase] dryrun done at {time.time() - t_start:.1f} s")
+    for phase, drive in (("zoo-sim", lambda: drive_zoo_sim(torch)),
+                         ("zoo-wire", lambda: drive_zoo_wire(torch)),
+                         ("arch", lambda: drive_arch(torch))):
         for name, n in drive().items():
             launches[name] += n
         log(f"[phase] {phase} done at {time.time() - t_start:.1f} s")

@@ -29,6 +29,10 @@ Subcommands:
   trace     run a cluster experiment with tracing on and write a Chrome
             trace-event / Perfetto JSON timeline: sugar for ``run
             --backend cluster --trace FILE``
+  dryrun    trace a registry model's train, prefill or decode step on
+            the meta device and record per-card FLOPs, bytes moved,
+            collective bytes and peak memory for a layout of H100s, with
+            nothing run on a card (repro_torch.launch.dryrun)
   schedules list the registered threshold-schedule families
 
 Every run, serve, join and infer takes ``--device {cuda,cpu}`` (default
@@ -58,6 +62,7 @@ Examples:
   python -m repro_torch join LEADER_HOST:5555 --workers 2
   python -m repro_torch infer LEADER_HOST:5555 --requests 8
   python -m repro_torch top LEADER_HOST:5555 --duration 10
+  python -m repro_torch dryrun --all --cards 1
   python -m repro_torch trace /tmp/t.json --arch mlp --device cpu \
       --transport proc --cluster-workers 2 --wall-budget 5
 """
@@ -496,6 +501,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _cmd_infer(argv[1:])
     if argv and argv[0] == "top":
         return _cmd_top(argv[1:])
+    if argv and argv[0] == "dryrun":
+        from repro_torch.launch import dryrun
+        return dryrun.main(argv[1:])
     if argv and argv[0] == "serve" and any(
             a == "--listen" or a.startswith("--listen=") for a in argv[1:]):
         return _cmd_serve_leader(argv[1:])
@@ -531,6 +539,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub.add_parser("top", help="read-only stats client: stream live "
                                "telemetry from a training leader "
                                "(top HOST:PORT)", add_help=False)
+    sub.add_parser("dryrun", help="meta-device dry-run of a registry "
+                                  "model's step on a layout of H100s "
+                                  "(dryrun --arch A --shape S --cards N)",
+                   add_help=False)
     sub.add_parser("schedules", help="list threshold-schedule families")
     args = ap.parse_args(argv)
 

@@ -1,12 +1,16 @@
-"""Architecture registry: configs, smoke variants and smoke batches.
+"""Architecture registry: configs, input shapes, applicability, smoke
+variants and the dry-run's input specs.
 
-A copy of the reference's ``configs/registry.py`` without the dry-run's
-input shapes and ``ShapeDtypeStruct`` specs.
+A copy of the reference's ``configs/registry.py``; its
+``ShapeDtypeStruct`` specs are tensors on the ``meta`` device here.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -26,9 +30,84 @@ _MODULES = {
 ARCH_NAMES = tuple(_MODULES)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 def get_config(name: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """(applicable, reason-if-not), the reference's rules."""
+    if shape.kind == "decode" and cfg.encoder_only:
+        return False, "encoder-only: no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "full attention: 500k decode cache is not sub-quadratic"
+    return True, ""
+
+
+def applicable_pairs():
+    out = []
+    for name in ARCH_NAMES:
+        cfg = get_config(name)
+        for shape in SHAPES.values():
+            ok, why = shape_applicable(cfg, shape)
+            out.append((name, shape.name, ok, why))
+    return out
+
+
+# ----------------------------------------------------------- input specs
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                batch_override: Optional[int] = None):
+    """Every model input as a tensor on the ``meta`` device (no memory).
+
+    train/prefill -> ``{"batch": ...}`` for ``loss_fn``/``forward``;
+    decode -> ``cache``, ``tokens`` and ``cur_index`` for ``decode_step``
+    (one new token against a ``seq_len``-deep cache).  ``cur_index`` is
+    a Python int in the port (ROADMAP C.9): the last position.
+    """
+    from repro_torch.models import model as M
+
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "audio":
+            batch = {"features": meta((B, S, cfg.frontend_dim), f32),
+                     "labels": meta((B, S), i32),
+                     "loss_mask": meta((B, S), f32)}
+        elif cfg.frontend == "vision":
+            n_img = cfg.num_image_tokens
+            batch = {"tokens": meta((B, S - n_img), i32),
+                     "image_embeds": meta((B, n_img, cfg.frontend_dim), f32),
+                     "labels": meta((B, S - n_img), i32)}
+        else:
+            batch = {"tokens": meta((B, S), i32), "labels": meta((B, S), i32)}
+        return {"batch": batch}
+    return {
+        "cache": M.init_cache(cfg, B, S, device="meta"),
+        "tokens": meta((B, 1), i32),
+        "cur_index": S - 1,
+    }
 
 
 # --------------------------------------------------------- smoke variants

@@ -1,5 +1,11 @@
 """What every kernel wrapper of the port does around a launch: pick the
-device path from its inputs, and launch on the current stream."""
+device path from its inputs, and launch on the current stream.
+
+Three routes: CUDA tensors launch the kernel; CPU tensors run its plain
+version; ``meta`` tensors (a dry-run, ``launch/cost.py``) get the
+kernel's outputs as meta tensors and report its closed-form cost to
+``core/counting.py``.  The meta route never runs a plain version.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -9,17 +15,19 @@ import torch
 
 
 def on_cuda(what: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix, on
-    another device type, and on CUDA tensors the kernels cannot read."""
+    """True for CUDA tensors, False for CPU and meta ones (the caller
+    tells those apart by ``is_meta``); raises on a mix, on another device
+    type, and on CUDA tensors the kernels cannot read."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{what} inputs are on several devices: "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type == "cpu" or dev.type == "meta":
         return False
     if dev.type != "cuda":
-        raise ValueError(f"{what} kernels run on cuda or cpu, not {dev}")
+        raise ValueError(f"{what} kernels run on cuda, cpu or meta, not "
+                         f"{dev}")
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what} kernels need contiguous, 16-byte "

@@ -15,8 +15,10 @@ Pallas kernel they take any S: the tail of the last tile is masked.
 For tensors on the CPU the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`); for CUDA tensors it
 launches the kernel on the current stream, adds one to
-``LAUNCHES["flash_attention"]``, and raises if the launch failed.
-Forward only, as the reference: an input that requires grad is refused.
+``LAUNCHES["flash_attention"]``, and raises if the launch failed; for
+``meta`` tensors it returns the kernel's output as a meta tensor and
+reports :func:`cost`.  Forward only, as the reference: an input that
+requires grad is refused.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import counting
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load
 from repro_torch.kernels._launch import bind, launch, on_cuda
@@ -61,6 +64,40 @@ def _lib() -> ctypes.CDLL:
                 "flash_attention_error_string")
 
 
+def _seq_pairs(L: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs of one unchunked sequence of length ``L``."""
+    w = window or 0
+    if causal:
+        if not w or L <= w:
+            return L * (L + 1) // 2
+        return w * (w + 1) // 2 + (L - w) * w
+    if not w or L <= w:
+        return L * L
+    return L * L - (L - w) * (L - w + 1) // 2
+
+
+def reachable_pairs(S: int, causal: bool, window: Optional[int] = None,
+                    chunk: Optional[int] = None) -> int:
+    """(query, key) pairs the causal, window and chunk masks leave: the
+    work of one (batch, head), in closed form.  A chunk mask cuts the
+    sequence into independent chunks (``S // chunk`` whole ones and the
+    rest), and within one the window counts from the chunk's start."""
+    if not chunk or chunk >= S:
+        return _seq_pairs(S, causal, window)
+    return (S // chunk) * _seq_pairs(chunk, causal, window) \
+        + _seq_pairs(S % chunk, causal, window)
+
+
+def cost(B: int, S: int, H: int, KV: int, d: int, dv: int, itemsize: int,
+         causal: bool = True, window: Optional[int] = None,
+         chunk: Optional[int] = None):
+    """(flops, bytes) of one launch: QK^T and PV over the reachable pairs
+    (2 d and 2 d_v a pair and head), q, k, v read and o written once."""
+    flops = 2 * (d + dv) * B * H * reachable_pairs(S, causal, window, chunk)
+    nbytes = itemsize * B * S * (H * d + KV * (d + dv) + H * dv)
+    return flops, nbytes
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     chunk: Optional[int] = None) -> torch.Tensor:
@@ -85,6 +122,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError("the flash_attention kernel is forward only; "
                            "its inputs must not require grad")
     if not on_cuda("flash_attention", q, k, v):
+        if q.is_meta:
+            counting.kernel("flash_attention", *cost(
+                B, S, H, KV, d, dv, q.element_size(), causal, window, chunk))
+            return q.new_empty((B, S, H, dv))
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  chunk=chunk)
     if (d, dv) not in HEAD_DIMS:

@@ -14,7 +14,10 @@ inputs, then:
   :mod:`repro_torch.kernels.ref`;
 * for CUDA tensors launches its kernel on the current stream, adds one
   to its count in :data:`LAUNCHES` and to its count at this many staging
-  rows in :data:`LAUNCHES_BY_K`, and raises if the launch failed.
+  rows in :data:`LAUNCHES_BY_K`, and raises if the launch failed;
+* for ``meta`` tensors returns the kernel's outputs as meta tensors (the
+  moment and parameter slabs it updates in place are returned as they
+  are) and reports its :func:`cost`.
 
 There is no fallback from CUDA to the plain version.  No wrapper reads a
 device value on the host, so a flush never waits for the card.
@@ -26,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import counting
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load
 from repro_torch.kernels._launch import bind, launch, on_cuda
@@ -107,11 +111,37 @@ def _launch(name: str, K: int, fn, *args) -> None:
     LAUNCHES_BY_K[name, K] = LAUNCHES_BY_K.get((name, K), 0) + 1
 
 
+def cost(kind: str, K: int, P: int, itemsize: int):
+    """(flops, bytes) of one launch of ``kind`` ("flush",
+    "flush_momentum", "flush_adamw") on (K, P) staging rows of
+    ``itemsize`` bytes: the K x P multiply-adds, the staging rows and f32
+    weights read once; the plain flush writes the (P,) sum in the rows'
+    dtype, momentum reads and writes its f32 moment (and adds beta m),
+    AdamW reads and writes params, mu and nu (16 operations an element)
+    and reads its three f32 scalars."""
+    flops, nbytes = 2 * K * P, K * P * itemsize + 4 * K
+    if kind == "flush":
+        return flops, nbytes + P * itemsize
+    if kind == "flush_momentum":
+        return flops + 2 * P, nbytes + 2 * 4 * P
+    if kind == "flush_adamw":
+        return flops + 16 * P, nbytes + 12 + 2 * 3 * 4 * P
+    raise ValueError(f"no flush kernel {kind!r}")
+
+
+def _meta(kind: str, grads: torch.Tensor) -> None:
+    K, P = grads.shape
+    counting.kernel(kind, *cost(kind, K, P, grads.element_size()))
+
+
 def flush(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """grads (K, P) f32 or bf16, weights (K,) f32 -> (P,) weighted sum
     in grads' dtype, accumulated in f32.  Replaces ``flush_pallas``."""
     K, P = _check_rows(grads, weights)
     if not on_cuda("flush", grads, weights):
+        if grads.is_meta:
+            _meta("flush", grads)
+            return grads.new_empty((P,))
         return ref.flush_ref(grads, weights)
     out = torch.empty((P,), dtype=grads.dtype, device=grads.device)
     with torch.cuda.device(grads.device):
@@ -134,6 +164,9 @@ def flush_momentum(grads: torch.Tensor, weights: torch.Tensor,
     K, P = _check_rows(grads, weights)
     _check_slab("momentum", momentum, P)
     if not on_cuda("flush", grads, weights, momentum):
+        if grads.is_meta:
+            _meta("flush_momentum", grads)
+            return momentum.to(grads.dtype), momentum
         return ref.flush_momentum_ref(grads, weights, momentum, beta)
     with torch.cuda.device(grads.device):
         fn = getattr(_lib(), f"hybrid_flush_momentum_{_SUFFIX[grads.dtype]}")
@@ -172,6 +205,9 @@ def flush_adamw(grads, weights, params, mu, nu, bc1, bc2, scale, *,
     for name, t in (("params", params), ("mu", mu), ("nu", nu)):
         _check_slab(name, t, P)
     if not on_cuda("flush", grads, weights, params, mu, nu):
+        if grads.is_meta:
+            _meta("flush_adamw", grads)
+            return params, mu, nu
         return ref.flush_adamw_ref(grads, weights, params, mu, nu, bc1,
                                    bc2, scale, b1=b1, b2=b2, eps=eps,
                                    weight_decay=weight_decay)

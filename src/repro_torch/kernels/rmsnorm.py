@@ -7,8 +7,9 @@ kernel ``src/repro/kernels/rmsnorm.py:23 rmsnorm_pallas``.  For tensors
 on the CPU the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.rmsnorm_ref`); for CUDA tensors it
 launches the kernel on the current stream, adds one to
-``LAUNCHES["rmsnorm"]``, and raises if the launch failed.  Forward
-only: an input that requires grad is refused.
+``LAUNCHES["rmsnorm"]``, and raises if the launch failed; for ``meta``
+tensors it returns the kernel's output as a meta tensor and reports
+:func:`cost`.  Forward only: an input that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core import counting
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load
 from repro_torch.kernels._launch import bind, launch, on_cuda
@@ -39,6 +41,12 @@ def _lib() -> ctypes.CDLL:
                 "rmsnorm_error_string")
 
 
+def cost(N: int, D: int, itemsize: int):
+    """(flops, bytes) of one launch: x read and y written once, the f32
+    scale once; square, sum, and two products an element."""
+    return 4 * N * D, 2 * N * D * itemsize + 4 * D
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """x (N, D) float32 or bfloat16, scale (D,) float32 -> (N, D) in x's
@@ -55,6 +63,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError("the rmsnorm kernel is forward only; its "
                            "inputs must not require grad")
     if not on_cuda("rmsnorm", x, scale):
+        if x.is_meta:
+            counting.kernel("rmsnorm", *cost(N, D, x.element_size()))
+            return torch.empty_like(x)
         return ref.rmsnorm_ref(x, scale, eps)
     y = torch.empty_like(x)
     if N == 0:

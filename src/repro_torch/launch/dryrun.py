@@ -1,0 +1,466 @@
+"""Dry-run: trace every (architecture x input shape x layout of H100s) on
+the ``meta`` device and record per-card FLOPs, bytes moved, collective
+bytes and peak memory, without running anything on a card.  The
+counterpart of the reference's ``launch/dryrun.py``, which lowers and
+compiles against forced host devices.
+
+Usage:
+  python -m repro_torch dryrun --arch qwen1.5-110b --shape train_4k
+  python -m repro_torch dryrun --all --cards 1
+  python -m repro_torch dryrun --arch xlstm-350m --cards 8 \\
+      --hybrid-rep 4            # group-annealed hybrid step, R groups
+
+A layout is ``--cards N`` H100s on the data axis (the ``model`` axis is
+1, as everywhere in the port), with ``--hybrid-rep R`` groups of N/R
+cards for the group-annealed step.  Each record holds two layouts side
+by side:
+
+* ``spmd_whole_replica``: the port today (ROADMAP C.30): every card
+  holds its replica whole (params, AdamW moments, the decode cache of
+  its batch rows) and a train step all-reduces one float32 gradient
+  slab over its group;
+* ``fsdp_partition_rules``: the reference's layout, which ROADMAP A16
+  brings: params, moments and cache sharded over the group's cards by
+  ``parallel/partition.py``; a train step all-gathers each sharded leaf
+  for the forward and again for the backward and reduce-scatters its
+  gradient, and all-reduces the replicated leaves' gradients.
+
+Collective bytes are what each card sends on a ring: ``2 (g-1)/g`` of
+the bytes for an all-reduce over g cards, ``(g-1)/g`` for an all-gather
+or a reduce-scatter.  Activations are traced for the per-card batch
+through the code the port runs (``launch/cost.py``): train is the plain,
+differentiable forward under ``torch.func.grad_and_value`` and the AdamW
+update (``launch/steps.py::make_train_step``), with no rematerialisation
+(``remat: "none"``: the port has none, ROADMAP C.34); prefill and
+decode are the serving forward through the kernels' meta routes.  A
+model that does not fit is a result (``fits: false`` and the bytes it
+would need), not an error.  ``--mesh pod|multipod`` (a 16-wide
+``model`` axis) and ``--remat block`` are refused, ``--q-block`` too
+(ROADMAP C.10).
+
+Results are JSON files under ``experiments/dryrun_torch/`` (not the
+reference's ``experiments/dryrun/``), reused unless ``--force``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import traceback
+from typing import Any, Dict, Optional
+
+import torch
+from torch.overrides import TorchFunctionMode
+
+from repro_torch.configs.registry import (ARCH_NAMES, SHAPES, get_config,
+                                          input_specs, shape_applicable)
+from repro_torch.convert import tree_leaves
+from repro_torch.launch import cost as C
+from repro_torch.launch.serve import prefill_step
+from repro_torch.launch.steps import (card_memory_bytes, derive_microbatch,
+                                      make_train_step)
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+from repro_torch.parallel.partition import (cache_shardings,
+                                            opt_state_shardings,
+                                            param_shardings)
+
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                       "experiments", "dryrun_torch")
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM
+PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor cores
+              torch.float32: 67e12}      # outside the tensor cores
+SPMD = "spmd_whole_replica"
+FSDP = "fsdp_partition_rules"
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every factory call with a ``device=`` lands on ``meta``: the
+    model's own init code, unchanged, builds shapes without memory."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "device" in kwargs:
+            kwargs = {**kwargs, "device": "meta"}
+        return func(*args, **kwargs)
+
+
+_PARAMS: Dict[Any, Any] = {}
+
+
+def meta_params(cfg):
+    """The model's params as meta tensors (cached by config)."""
+    if cfg not in _PARAMS:
+        with _OnMeta():
+            _PARAMS[cfg] = M.init_params(torch.Generator(), cfg)
+    return _PARAMS[cfg]
+
+
+def bound_seconds(flops: float, nbytes: float, dtype) -> float:
+    """The least time an H100 could take: bytes over the memory rate or
+    operations over the peak rate of the model's dtype, the larger."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
+
+
+def _check_mesh(mesh_kind: Optional[str]) -> None:
+    if mesh_kind is not None:
+        raise ValueError(
+            f"--mesh {mesh_kind}: a 16-wide model axis (tensor-parallel "
+            "activations and collectives) is ROADMAP A16; the port's "
+            "layouts are --cards N on the data axis")
+
+
+def _per_card_batch(B: int, g: int) -> int:
+    """Batch rows a card takes: split over the data axis when it divides,
+    else replicated (long_500k's B 1), as the reference's batch
+    shardings do."""
+    return B // g if B % g == 0 else B
+
+
+def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
+               accum_dtype: str = "float32", hybrid_rep: int = 1):
+    """``(fn, args, info)``: the step a card runs, on meta tensors.
+    ``arch`` is a registry name or a ``ModelConfig``, ``shape`` a name in
+    ``SHAPES`` or an ``InputShape``.  ``info`` has the config, the
+    per-card batch and the state trees."""
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    if cards % hybrid_rep:
+        raise ValueError(f"--hybrid-rep {hybrid_rep} must divide --cards "
+                         f"{cards}")
+    b = _per_card_batch(shape.global_batch, cards)
+    specs = input_specs(cfg, shape, batch_override=b)
+    params = meta_params(cfg)
+    info = {"cfg": cfg, "per_card_batch": b, "params": params,
+            "group": cards // hybrid_rep}
+    if shape.kind == "train":
+        if b % microbatch:
+            raise ValueError(f"microbatch {microbatch} does not divide the "
+                             f"per-card batch {b}")
+        opt = adamw(3e-4)
+        opt_state = opt.init(params)
+        info["opt_state"] = opt_state
+        step = make_train_step(cfg, opt, microbatch=microbatch,
+                               accum_dtype=getattr(torch, accum_dtype))
+        return step, (params, opt_state, specs["batch"]), info
+    if shape.kind == "prefill":
+        def prefill(params, batch):
+            with torch.no_grad():
+                return prefill_step(params, batch, cfg)
+        return prefill, (params, specs["batch"]), info
+    info["cache"] = specs["cache"]
+    cur_index = specs["cur_index"]
+
+    def serve_step(params, cache, tokens):
+        with torch.no_grad():
+            logits, cache = M.decode_step(params, cache, tokens, cur_index,
+                                          cfg)
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return serve_step, (params, specs["cache"], specs["tokens"]), info
+
+
+def _ring(g: int) -> float:
+    return (g - 1) / g
+
+
+def _layouts(shape, info, report: C.Report) -> Dict[str, Any]:
+    """Per-card state, peak and collectives in both layouts."""
+    g = info["group"]
+    params = info["params"]
+    mesh = {"data": g, "model": 1}
+    state = {"params": params}
+    if "opt_state" in info:
+        state["opt_state"] = info["opt_state"]
+    if "cache" in info:
+        state["cache"] = info["cache"]
+    whole = {k: C.tree_bytes(v) for k, v in state.items()}
+
+    # fsdp: shard shapes from the partition rules
+    def shard_bytes(shards, tree):
+        return sum(C.alloc_bytes(_numel(s) * t.element_size())
+                   for s, t in zip(_shape_leaves(shards), tree_leaves(tree)))
+    p_sh = param_shardings(params, mesh)
+    sharded = {"params": shard_bytes(p_sh, params)}
+    if "opt_state" in info:
+        sharded["opt_state"] = shard_bytes(
+            opt_state_shardings(info["opt_state"], params, mesh),
+            info["opt_state"])
+    if "cache" in info:
+        # the spmd cache holds the card's rows; the fsdp one is the
+        # global batch's cache, sharded by the rules
+        full = M.init_cache(info["cfg"], shape.global_batch, shape.seq_len,
+                            device="meta")
+        sharded["cache"] = shard_bytes(
+            cache_shardings(full, shape.global_batch, mesh), full)
+    gathered = 0
+    ag = rs = ar = 0.0
+    for shard, leaf in zip(_shape_leaves(p_sh), tree_leaves(params)):
+        nb = leaf.numel() * leaf.element_size()
+        if _numel(shard) < leaf.numel():
+            ag += nb * _ring(g) * (2 if shape.kind == "train" else 1)
+            rs += nb * _ring(g) if shape.kind == "train" else 0
+        elif shape.kind == "train":
+            ar += 2 * nb * _ring(g)
+    for grp in params["groups"]:       # one group's layer gathered at once
+        gathered = max(gathered, sum(
+            C.alloc_bytes(t[0].numel() * t.element_size())
+            for t in tree_leaves(grp)))
+    held_whole = sum(whole.values())
+    held_sharded = sum(sharded.values())
+    spmd_coll = {"all-reduce": 2 * 4 * _num_params(params) * _ring(g)
+                 if shape.kind == "train" else 0.0}
+    fsdp_coll = {"all-gather": ag, "reduce-scatter": rs, "all-reduce": ar}
+    spmd_peak = report.peak_bytes
+    gathered = gathered if g > 1 else 0
+    # the forward (and backward): the held state shrinks to its shards,
+    # one group's layer is gathered whole at a time, activations as
+    # traced; the optimizer update (every tensor in it is the size of
+    # the params or a moment): all of it sharded
+    fsdp_peak = report.phases["start"]["peak"] - held_whole + held_sharded \
+        + gathered
+    if "update" in report.phases:
+        fsdp_peak = max(fsdp_peak, report.phases["update"]["peak"] / g)
+    out = {}
+    for name, st, peak, coll in (
+            (SPMD, whole, spmd_peak, spmd_coll),
+            (FSDP, sharded, fsdp_peak, fsdp_coll)):
+        out[name] = {
+            "state_bytes": st, "state_bytes_total": sum(st.values()),
+            "peak_bytes": int(peak),
+            "collective_bytes_per_device": {"total": sum(coll.values()),
+                                            **coll}}
+    out[FSDP]["peak_is_estimate"] = (
+        "forward/backward: the traced peak with the held state replaced by "
+        "its shards plus one group's layer gathered whole; optimizer "
+        "update: its traced peak over the group's cards")
+    return out
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+def _shape_leaves(tree):
+    """Leaves of a tree whose leaves are shape tuples."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _shape_leaves(v)]
+    if isinstance(tree, list) or (isinstance(tree, tuple) and tree
+                                  and not isinstance(tree[0], int)):
+        return [x for v in tree for x in _shape_leaves(v)]
+    return [tree]
+
+
+def _num_params(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def analyze_step(arch, shape, cards: int = 1, microbatch: int = 1,
+                 accum_dtype: str = "float32", hybrid_rep: int = 1):
+    """``(Report, info)`` of the step :func:`build_step` builds."""
+    fn, args, info = build_step(arch, shape, cards, microbatch, accum_dtype,
+                                hybrid_rep)
+    _, report = C.analyze(fn, *args)
+    return report, info
+
+
+def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
+            remat: Optional[str] = None, q_block: Optional[int] = None,
+            microbatch: Optional[int] = None, accum_dtype: str = "float32",
+            tag: str = "", cards: int = 1,
+            hybrid_rep: int = 1) -> Dict[str, Any]:
+    _check_mesh(mesh_kind)
+    _check_flags(remat, q_block)
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    result: Dict[str, Any] = {"arch": arch, "shape": shape_name,
+                              "mesh": "card", "cards": cards,
+                              "hybrid_rep": hybrid_rep, "tag": tag}
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        return {**result, "status": "skipped", "reason": why}
+    card_bytes = card_memory_bytes("meta")
+    result.update({"remat": "none", "accum_dtype": accum_dtype,
+                   "card_memory_bytes": card_bytes})
+    t0 = time.time()
+    try:
+        if shape.kind == "train" and microbatch is None:
+            b = _per_card_batch(shape.global_batch, cards)
+            reports = {}
+
+            def peak_of(m):
+                reports[m] = analyze_step(arch, shape_name, cards, m,
+                                          accum_dtype, hybrid_rep)
+                return reports[m][0].peak_bytes
+            microbatch, _ = derive_microbatch(b, peak_of, card_bytes)
+            report, info = reports[microbatch]
+            result["microbatch_derived"] = True
+        else:
+            microbatch = microbatch or 1
+            report, info = analyze_step(arch, shape_name, cards,
+                                        microbatch, accum_dtype, hybrid_rep)
+        layouts = _layouts(shape, info, report)
+        dtype = getattr(torch, cfg.dtype)
+        spmd = layouts[SPMD]
+        result.update({
+            "status": "ok",
+            "microbatch": microbatch,
+            "per_card_batch": info["per_card_batch"],
+            "num_params": _num_params(info["params"]),
+            "analysis_s": round(time.time() - t0, 2),
+            "flops_per_device": report.cost.flops,
+            "hbm_bytes_per_device": report.cost.hbm_bytes,
+            "collective_bytes_per_device":
+                spmd["collective_bytes_per_device"],
+            "kernels": report.kernels,
+            "aten_ops": report.ops,
+            "memory": {"held_bytes": report.held_bytes,
+                       "step_bytes": report.step_bytes,
+                       "peak_bytes": report.peak_bytes,
+                       "phases": report.phases},
+            "peak_bytes_per_device": spmd["peak_bytes"],
+            "fits": spmd["peak_bytes"] <= card_bytes,
+            "bound_s": bound_seconds(report.cost.flops,
+                                     report.cost.hbm_bytes, dtype),
+            "layouts": layouts,
+        })
+        for lay in layouts.values():
+            lay["fits"] = lay["peak_bytes"] <= card_bytes
+        if not result["fits"]:
+            result["needs_bytes"] = spmd["peak_bytes"]
+    except Exception as e:  # noqa: BLE001 — record the failure verbatim
+        result.update({"status": "error", "error": repr(e),
+                       "traceback": traceback.format_exc()[-2000:]})
+    return result
+
+
+def run_hybrid_one(arch: str, rep: int, cards: int,
+                   microbatch: Optional[int] = None,
+                   tag: str = "") -> Dict[str, Any]:
+    """The group-annealed hybrid train step (train_4k) with ``rep``
+    replica groups of ``cards // rep`` cards: gradients reduce only
+    within a group.  R=1 is the fully synchronous endpoint."""
+    return run_one(arch, "train_4k", cards=cards, hybrid_rep=rep,
+                   microbatch=microbatch, tag=tag or f"hybrid_R{rep}")
+
+
+def _check_flags(remat: Optional[str], q_block: Optional[int]) -> None:
+    if remat not in (None, "none"):
+        raise ValueError(
+            f"--remat {remat}: the port has no rematerialisation yet "
+            "(torch.func.grad does not take saved-tensor hooks; ROADMAP "
+            "C.34 and A17); its dry-run records remat 'none'")
+    if q_block is not None:
+        raise ValueError("--q-block: the port's kernels tile themselves and "
+                         "its plain attention takes no query block "
+                         "(ROADMAP C.10)")
+
+
+def result_path(arch, shape_name, mesh_kind, tag="", out_dir=None):
+    out_dir = out_dir or OUT_DIR
+    os.makedirs(out_dir, exist_ok=True)
+    suffix = f"_{tag}" if tag else ""
+    return os.path.join(out_dir,
+                        f"{arch}__{shape_name}__{mesh_kind}{suffix}.json")
+
+
+def _summary(res) -> str:
+    lay = res["layouts"]
+    gib = 2 ** 30
+    return (f"{res['flops_per_device']:.3e} flops/card, "
+            f"{res['hbm_bytes_per_device'] / 1e9:.1f} GB moved, "
+            f"peak {res['peak_bytes_per_device'] / gib:.2f} GiB/card "
+            f"({'fits' if res['fits'] else 'does not fit'}; fsdp "
+            f"{lay[FSDP]['peak_bytes'] / gib:.2f}), coll "
+            f"{res['collective_bytes_per_device']['total'] / gib:.3f} GiB, "
+            f"microbatch {res['microbatch']} "
+            f"({res['analysis_s']}s)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch dryrun")
+    ap.add_argument("--arch", choices=ARCH_NAMES)
+    ap.add_argument("--shape", choices=tuple(SHAPES))
+    ap.add_argument("--mesh", choices=("pod", "multipod", "both"),
+                    default=None,
+                    help="pod/multipod/both (a 16-wide model axis) are "
+                         "ROADMAP A16 and refused")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="H100s on the data axis (default 1)")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--remat", default=None,
+                    help="only 'none': the port has no rematerialisation")
+    ap.add_argument("--q-block", type=int, default=None,
+                    help="refused: no counterpart in the port")
+    ap.add_argument("--microbatch", type=int, default=None,
+                    help="micro-batches per train step (default: the "
+                         "smallest power of two whose peak fits a card)")
+    ap.add_argument("--accum-dtype", default="float32")
+    ap.add_argument("--hybrid-rep", type=int, default=None,
+                    help="the group-annealed hybrid train step with R "
+                         "replica groups (train_4k only)")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out-dir", default=None,
+                    help=f"where results go (default {OUT_DIR})")
+    args = ap.parse_args(argv)
+    try:
+        _check_mesh(args.mesh)
+        _check_flags(args.remat, args.q_block)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    if args.hybrid_rep is not None:
+        if not args.arch:
+            print("error: --hybrid-rep requires --arch", file=sys.stderr)
+            return 2
+        res = run_hybrid_one(args.arch, args.hybrid_rep, args.cards,
+                             microbatch=args.microbatch, tag=args.tag)
+        path = result_path(args.arch, "train_4k", f"card{args.cards}",
+                           res["tag"], args.out_dir)
+        with open(path, "w") as f:
+            json.dump(res, f, indent=2)
+        if res["status"] == "ok":
+            print(f"hybrid R={args.hybrid_rep} on {args.cards} cards: "
+                  f"{_summary(res)}")
+            return 0
+        print("ERROR:", res.get("error", res.get("reason")))
+        return 1
+
+    archs = ARCH_NAMES if args.all or not args.arch else (args.arch,)
+    shapes = tuple(SHAPES) if args.all or not args.shape else (args.shape,)
+    combos = [(a, s) for a in archs for s in shapes]
+    failures = 0
+    mesh_kind = f"card{args.cards}"
+    for a, s in combos:
+        path = result_path(a, s, mesh_kind, args.tag, args.out_dir)
+        if os.path.exists(path) and not args.force:
+            with open(path) as f:
+                prev = json.load(f)
+            print(f"[cached] {a} x {s} x {mesh_kind}: {prev['status']}")
+            failures += prev["status"] == "error"
+            continue
+        print(f"[run] {a} x {s} x {mesh_kind} ...", flush=True)
+        res = run_one(a, s, remat=args.remat, microbatch=args.microbatch,
+                      accum_dtype=args.accum_dtype, tag=args.tag,
+                      cards=args.cards)
+        with open(path, "w") as f:
+            json.dump(res, f, indent=2)
+        if res["status"] == "ok":
+            print(f"  ok: {_summary(res)}", flush=True)
+        elif res["status"] == "skipped":
+            print(f"  skipped: {res['reason']}")
+        else:
+            failures += 1
+            print(f"  ERROR: {res['error']}")
+    print(f"done: {len(combos)} combos, {failures} failures")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

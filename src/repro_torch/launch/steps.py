@@ -3,19 +3,62 @@
 After ``src/repro/launch/steps.py::make_train_step``: a gradient of the
 model's loss (the plain, differentiable forward), an optional gradient
 accumulation over micro-batches, and the optimizer's update.  The
-reference's ``q_block`` has no counterpart (ROADMAP C.10), nor its
-per-arch ``TRAIN_MICROBATCH`` table, which is sized for a 16 GiB TPU
-(ROADMAP A14b derives the card's).
+reference's ``q_block`` has no counterpart (ROADMAP C.10).  In place of
+its per-arch ``TRAIN_MICROBATCH`` table, sized for a 16 GiB TPU,
+:func:`derive_microbatch` picks the micro-batch count from a predicted
+peak (``launch/dryrun.py`` predicts it on the meta device) and the
+card's memory (:func:`card_memory_bytes`).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.convert import tree_map
+from repro_torch.core import counting
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+
+
+# torch.cuda.get_device_properties(0).total_memory of the H100 the port
+# is measured on ("NVIDIA H100 80GB HBM3", 700 W power limit; read by
+# chip_smoke.py's [dryrun] phase, PERF.md section 6): what a dry-run on
+# the meta device takes for a card's memory
+H100_MEMORY_BYTES = 85_017_493_504
+
+
+def card_memory_bytes(device="cuda") -> int:
+    """A card's memory in bytes: its properties on a CUDA device, the
+    H100's constant on the meta device (a dry-run, no card)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    if device.type == "meta":
+        return H100_MEMORY_BYTES
+    raise ValueError(f"no card memory for device {device}")
+
+
+def derive_microbatch(per_card_batch: int, peak_of: Callable[[int], int],
+                      card_bytes: int) -> Tuple[int, bool]:
+    """The smallest power of two ``m`` dividing ``per_card_batch`` whose
+    predicted peak ``peak_of(m)`` fits in ``card_bytes``, and True; if
+    none fits, the largest such ``m`` (one row a slice when the batch is
+    a power of two) and False.  A peak falls as ``m`` grows (each slice
+    is smaller), so the count is bisected: ``peak_of`` is called about
+    log2(log2(batch)) + 1 times."""
+    cands = [m for m in (2 ** i for i in range(per_card_batch.bit_length()))
+             if per_card_batch % m == 0]
+    if peak_of(cands[-1]) > card_bytes:
+        return cands[-1], False
+    lo, hi = 0, len(cands) - 1          # cands[hi] fits
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if peak_of(cands[mid]) <= card_bytes:
+            hi = mid
+        else:
+            lo = mid + 1
+    return cands[hi], True
 
 
 def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
@@ -42,7 +85,7 @@ def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=accum_dtype, device=p.device), params)
             loss = 0.0
-            for i in range(microbatch):
+            for i in counting.trips(microbatch):
                 g, (l_i, _) = grad_fn(params,
                                       {k: v[i] for k, v in slices.items()})
                 grads = tree_map(lambda a, gg: a + gg.to(accum_dtype),
@@ -50,6 +93,7 @@ def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
                 loss = loss + l_i
             grads = tree_map(lambda g: g / microbatch, grads)
             loss = loss / microbatch
+        counting.phase("update")
         if reduce_grads is not None:
             grads = reduce_grads(grads)
         updates, opt_state = opt.update(grads, opt_state, params)

@@ -13,6 +13,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.core import counting
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
@@ -89,11 +90,14 @@ def layer_forward(p, x, mixer: str, ffn: str, cfg: ModelConfig,
         h = mla_mod.mla_forward(p["mixer"], h, cfg,
                                 ropes[cfg.rope_head_dim], plain=plain)
     elif mixer == MAMBA:
-        h = mamba_mod.mamba_forward(p["mixer"], h, cfg)
+        h = counting.recurrence(mamba_mod.mamba_forward, p["mixer"], h, cfg,
+                                unit=min(cfg.ssm_chunk, h.shape[1]))
     elif mixer == MLSTM:
-        h = xlstm_mod.mlstm_forward(p["mixer"], h, cfg)
+        h = counting.recurrence(xlstm_mod.mlstm_forward, p["mixer"], h, cfg,
+                                unit=min(xlstm_mod.MLSTM_CHUNK, h.shape[1]))
     else:
-        h = xlstm_mod.slstm_forward(p["mixer"], h, cfg)
+        h = counting.recurrence(xlstm_mod.slstm_forward, p["mixer"], h, cfg,
+                                unit=1)
     return _ffn(p, x + h, ffn, cfg, plain)
 
 

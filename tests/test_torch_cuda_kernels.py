@@ -590,3 +590,38 @@ def test_cuda_smoke_arch_matches_cpu(cuda, arch):
     assert (rms.LAUNCHES["rmsnorm"] - r0,
             fa.LAUNCHES["flash_attention"] - f0) == (norms, attn)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_meta_route_shapes_match_the_kernels(cuda):
+    """Each wrapper's meta route (the dry-run's) gives the shapes and
+    dtypes its kernel gives on the card, at the main paths' shapes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    K, P = 25, 33 * TILE_P
+    g = torch.randn(K, P, device=cuda)
+    w = torch.full((K,), 1.0 / K, device=cuda)
+    slabs = [torch.randn(P, device=cuda) for _ in range(3)]
+    q = torch.randn(1, 256, 32, 80, device=cuda).bfloat16()
+    kv = torch.randn(1, 256, 8, 80, device=cuda).bfloat16()
+    x = torch.randn(4, 2560, device=cuda).bfloat16()
+    scale = torch.ones(2560, device=cuda)
+    adamw_kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)
+    cases = [
+        (ha.flush, (g, w), {}),
+        (ha.flush_momentum, (g, w, slabs[0], 0.9), {}),
+        (ha.flush_adamw, (g, w, *slabs, 0.5, 0.3, 1e-3), adamw_kw),
+        (rms.rmsnorm, (x, scale), {}),
+        (fa.flash_attention, (q, kv, kv), dict(window=64)),
+    ]
+    for fn, args, kw in cases:
+        out = fn(*[a.clone() if isinstance(a, torch.Tensor) else a
+                   for a in args], **kw)
+        meta = fn(*[a.to("meta") if isinstance(a, torch.Tensor) else a
+                    for a in args], **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        meta = meta if isinstance(meta, tuple) else (meta,)
+        torch.cuda.synchronize()
+        assert [(t.shape, t.dtype) for t in meta] == \
+            [(t.shape, t.dtype) for t in out]
+        assert all(t.is_meta for t in meta)
