@@ -64,9 +64,17 @@ main paths:
   llama4-scout (prefill S 16384 through the chunked kernel),
   hubert-xlarge and phi-3-vision at full width.  Each releases its
   weights before the next;
+- the dry-run against the card (``[dryrun]``): state, prefill and train
+  step bytes and times against the meta device's predictions, the
+  train step being h2o-danube-1.8b's AdamW step at full width at S 1024
+  without rematerialisation and at S 2048 and S 4096 with the config's
+  remat "block", the remat gradient against the no-remat one, and
+  ``torch.sqrt`` of float32 on the card against the correctly rounded
+  root on every non-negative float32;
 - the SPMD backend: ``torchrun`` of 4 ``python -m repro_torch run
   --backend spmd`` ranks sharing the card over gloo, xlstm-350m at its
-  published width annealed g 1 -> 2 -> 4 (21 gradients, every merge a
+  published width with its remat "block", annealed g 1 -> 2 -> 4 (7
+  gradients, every merge a
   ``flush`` launch on rank 0, at K 4, 2 and 1), then h2o-danube-1.8b's
   smoke variant on 2 ranks, the card against the CPU and a sync run
   twice (bitwise equal), and ``flush`` alone at the merge's shape.
@@ -190,32 +198,48 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+KERNEL_TRACE_TRIES = 3            # traces of kernel_only_ms before it fails
+
+
 def kernel_only_ms(torch, fn, kernel: str, reps: int = 50) -> float:
     """Median device duration of the kernel named ``kernel`` over the
     last ``reps`` of ``reps + 30`` cold calls of ``fn``, from the
     profiler's raw trace: the kernel alone, without the gaps the CUDA
-    events around a call also time.  The tracer can miss kernels that
-    run just after it starts (12 of 60 calls once, after the long traced
-    cluster runs): the calls queue behind a 0.1 s device sleep, and the
-    first ones are spares."""
+    events around a call also time.  The tracer can miss kernels (12 of
+    60 calls once, after the long traced cluster runs; 31 of 40 once at
+    the end of the script): the calls queue behind a 0.1 s device
+    sleep, the first ones are spares, the trace stays open 0.2 s after
+    the last kernel ends, and a trace that still holds fewer than
+    ``reps`` of them is logged and taken again, up to
+    ``KERNEL_TRACE_TRIES`` times."""
     from torch.profiler import ProfilerActivity, profile
     scrub = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(int(2e8))
-        for _ in range(reps + 30):
-            scrub.sum()
-            fn()
-        torch.cuda.synchronize()
-    durations = [(e.start_ns(), (e.end_ns() - e.start_ns()) / 1e3)
-                 for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == torch.autograd.DeviceType.CUDA
-                 and kernel in e.name()]
-    check(len(durations) >= reps, f"{kernel}: {len(durations)} kernels "
-          f"in the trace of {reps + 30} calls")
-    return statistics.median(d for _, d in sorted(durations)[-reps:]) / 1e3
+    calls = reps + 30
+    for attempt in range(1, KERNEL_TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(2e8))
+            for _ in range(calls):
+                scrub.sum()
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+        durations = sorted((e.start_ns(), (e.end_ns() - e.start_ns()) / 1e3)
+                           for e in events if kernel in e.name())
+        if len(durations) >= reps:
+            return statistics.median(d for _, d in durations[-reps:]) / 1e3
+        starts = [e.start_ns() for e in events]
+        span = ((max(starts) - min(starts)) / 1e6) if starts else 0.0
+        log(f"[time] {kernel}: trace {attempt} of {KERNEL_TRACE_TRIES} "
+            f"holds {len(durations)} of its {calls} launches and "
+            f"{len(events)} device events of {2 * calls + 1}, over "
+            f"{span:.3f} ms")
+    check(False, f"{kernel}: fewer than {reps} kernels in each of "
+          f"{KERNEL_TRACE_TRIES} traces of {calls} calls")
 
 
 def bound_ms(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S):
@@ -2747,13 +2771,13 @@ def drive_arch(torch):
 
 SPMD_RANKS = 4                   # one rank per data-axis position
 # the SPMD driver's default arch at its published width (--no-smoke: the
-# spec's default is the smoke variant): g 1 -> 2 -> 4 over steps 0-2,
-# 3-5, 6-8, so 4 x 3 + 2 x 3 + 1 x 3 = 21 gradients
+# spec's default is the smoke variant, and the published config's remat
+# is "block"): g 1 -> 2 -> 4, one step each, so 4 + 2 + 1 = 7 gradients
 SPMD_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
             "--schedule",
-            "step:3", "--steps", "9", "--batch", "32", "--seq", "64",
+            "step:1", "--steps", "3", "--batch", "32", "--seq", "64",
             "--lr", "3e-5", "--optimizer", "sgd", "--log-every", "1"]
-SPMD_GROUPS = [1] * 3 + [2] * 3 + [4] * 3
+SPMD_GROUPS = [1, 2, 4]
 SPMD_SMALL = ["--arch", "h2o-danube-1.8b", "--smoke", "--schedule",
               "step:2", "--steps", "6", "--batch", "4", "--seq", "16",
               "--log-every", "1"]
@@ -2840,8 +2864,12 @@ def spmd_runs(torch, tmp: str) -> dict:
           f"[spmd] divergence {[h['divergence'] for h in hist]}")
     check(extra["backend"] == "gloo" and extra["world_size"] == SPMD_RANKS,
           f"[spmd] backend {extra['backend']}, world {extra['world_size']}")
+    # the published config's remat: block groups and mLSTM chunks
+    # checkpointed (sLSTM is not, as in the reference)
+    check(extra["remat"] == "block", f"[spmd] remat {extra['remat']}")
     steps, tokens = res["num_updates"], hist[-1]["tokens"]
-    log(f"[spmd] xlstm-350m full width, {SPMD_RANKS} ranks on "
+    log(f"[spmd] xlstm-350m full width, remat {extra['remat']}, "
+        f"{SPMD_RANKS} ranks on "
         f"{extra['device_name']}, backend {extra['backend']}: g "
         f"{groups}, R {reps}; {res['num_gradients']} gradients, "
         f"{steps} updates; flush launches by K {flush_by_k}; loss "
@@ -2936,12 +2964,14 @@ def spmd_merge_flush(torch) -> dict:
 
 # ------------------------------------------------------------- dry-run
 
-# [dryrun]: one h2o-danube-1.8b train step at full width, B 1; at S 2048
-# the dry-run predicts about 93 GB (the plain attention's S x S scores
-# saved for the backward, no rematerialisation), above the card's 85 GB,
-# so the card takes S 1024 and the phase logs S 2048's prediction
-DRYRUN_TRAIN_S = 1024
-DRYRUN_TRAIN_S_TOO_BIG = 2048
+# [dryrun]: h2o-danube-1.8b's AdamW train step at full width, B 1, at
+# three points, each held against its own meta-device prediction: S 1024
+# without rematerialisation (what fitted the card before remat), S 2048
+# and S 4096 (train_4k's length) with the config's remat "block" (each
+# block group, each 512-row query block of the attention checkpointed)
+DRYRUN_POINTS = ((1024, "none"), (2048, "block"), (4096, "block"))
+DRYRUN_COMPARE_S = 1024           # remat against no remat, gradients
+DRYRUN_COMPARE_RUNS = 3           # no-remat gradients: the run-to-run spread
 DRYRUN_RTOL = 0.10                # a step's own bytes: within 10% ...
 DRYRUN_SLACK = 256 << 20          # ... or 256 MiB, the larger
 
@@ -2949,41 +2979,168 @@ DRYRUN_SLACK = 256 << 20          # ... or 256 MiB, the larger
 DRYRUN_CHILD = "--dryrun-train-step"
 
 
-def dryrun_train_step(torch) -> dict:
-    """One h2o-danube-1.8b AdamW train step (B 1, S ``DRYRUN_TRAIN_S``)
-    through ``make_train_step`` on the card, after a warm-up step at S
-    64: its params' and moments' storage bytes, its own bytes (peak
-    above what was allocated before it), its seconds."""
+def _h2o_train_state(torch, dev):
+    """h2o-danube-1.8b's params (seed 0) and AdamW state on ``dev``, and
+    a batch maker: ``batch(S)`` gives B 1 tokens and labels of length S
+    (one generator, seed 0)."""
     import numpy as np
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
-    h2o, dev = get_config(ARCH), torch.device("cuda")
+    h2o = get_config(ARCH)
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), h2o)
     opt = adamw(3e-4)
-    opt_state = opt.init(params)
     rng = np.random.default_rng(0)
 
     def batch(S):
         return {k: torch.as_tensor(rng.integers(0, h2o.vocab_size, (1, S))
                                    .astype(np.int32), device=dev)
                 for k in ("tokens", "labels")}
-    train_step = make_train_step(h2o, opt)
-    warm = train_step(params, opt_state, batch(64))     # set-up, not timed
+    return h2o, params, opt, opt.init(params), batch
+
+
+def remat_gradient_check(torch, params, h2o, b) -> dict:
+    """The gradient of one batch with remat "block" against the one
+    without, leaf by leaf: bitwise where ``DRYRUN_COMPARE_RUNS`` runs
+    without remat are bitwise equal to each other, else within their
+    spread (the largest difference between two of them)."""
+    import dataclasses
+    from repro_torch.core import gradient
+    from repro_torch.models import model as M
+
+    def grads(cfg):
+        g, _ = gradient.grad_and_value(
+            lambda p, bb: M.loss_fn(p, bb, cfg), has_aux=True)(params, b)
+        torch.cuda.synchronize()
+        return tree_leaves(g)
+
+    none = [grads(dataclasses.replace(h2o, remat="none"))
+            for _ in range(DRYRUN_COMPARE_RUNS)]
+    block = grads(dataclasses.replace(h2o, remat="block"))
+
+    def diff(a, c):
+        return float((a.float() - c.float()).abs().max())
+    leaves, spread_leaves, bad = len(block), [], []
+    for i, got in enumerate(block):
+        runs = [g[i] for g in none]
+        steady = all(torch.equal(runs[0], r) for r in runs[1:])
+        d = diff(runs[0], got)
+        if steady:
+            if not torch.equal(runs[0], got):
+                bad.append((i, "bitwise", 0.0, d))
+            continue
+        spread = max(diff(a, c) for j, a in enumerate(runs)
+                     for c in runs[j + 1:])
+        spread_leaves.append((i, spread, d))
+        if d > spread:
+            bad.append((i, "spread", spread, d))
+    return dict(leaves=leaves, spread_leaves=spread_leaves, bad=bad)
+
+
+def remat_step_seconds(torch, params, opt, opt_state, h2o, b, warm_b):
+    """What remat costs a step: the same AdamW step on batch ``b`` with
+    remat "none" and "block", in turns (none, block, block, none, each
+    warmed on ``warm_b`` first); the fastest of each side's two."""
+    import dataclasses
+    from repro_torch.launch.steps import make_train_step
+    steps = {r: make_train_step(dataclasses.replace(h2o, remat=r), opt)
+             for r in ("none", "block")}
+    for step in steps.values():
+        step(params, opt_state, warm_b)
+    times = {"none": [], "block": []}
+    for r in ("none", "block", "block", "none"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = steps[r](params, opt_state, b)
+        torch.cuda.synchronize()
+        times[r].append(time.time() - t0)
+        del out
+    return {r: min(t) for r, t in times.items()}
+
+
+def dryrun_train_step(torch) -> dict:
+    """h2o-danube-1.8b's AdamW train step (B 1) through
+    ``make_train_step`` on the card at each of ``DRYRUN_POINTS``, after a
+    warm-up step at S 64: its params' and moments' storage bytes, its own
+    bytes (peak above what was allocated before it) and seconds, and the
+    own bytes of its gradient alone; at ``DRYRUN_COMPARE_S`` the remat
+    gradient against the no-remat one (:func:`remat_gradient_check`) and
+    the step's seconds with and without remat
+    (:func:`remat_step_seconds`)."""
+    import dataclasses
+    from repro_torch.core import gradient
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    h2o, params, opt, opt_state, batch = _h2o_train_state(
+        torch, torch.device("cuda"))
+    out = dict(params=storage_bytes(params),
+               opt_state=storage_bytes(opt_state), points=[])
+    for S, remat in DRYRUN_POINTS:
+        cfg = dataclasses.replace(h2o, remat=remat)
+        train_step = make_train_step(cfg, opt)
+        warm = train_step(params, opt_state, batch(64))   # not timed
+        torch.cuda.synchronize()
+        del warm
+        b = batch(S)
+        measured = step_bytes(torch)
+        t0 = time.time()
+        new_params, _, loss = train_step(params, opt_state, b)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        step = measured()
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(new_params))
+        del new_params, loss
+        measured = step_bytes(torch)
+        g = gradient.grad_and_value(
+            lambda p, bb: M.loss_fn(p, bb, cfg), has_aux=True)(params, b)
+        torch.cuda.synchronize()
+        grad_step = measured()
+        del g
+        point = dict(S=S, remat=remat, step=step, seconds=seconds,
+                     grad_step=grad_step, finite=finite)
+        if S == DRYRUN_COMPARE_S:
+            point["compare"] = remat_gradient_check(torch, params, h2o, b)
+            point["remat_cost"] = remat_step_seconds(
+                torch, params, opt, opt_state, h2o, b, batch(64))
+        out["points"].append(point)
+        del b
+        torch.cuda.empty_cache()
+    return out
+
+
+def c38_reading(torch, report) -> dict:
+    """ROADMAP C.38: the S 1024 no-remat step taken once more in this
+    process (after every earlier phase), under the allocator's memory
+    history, as a logged reading, not a check.  When it reads above the
+    prediction by more than ``DRYRUN_SLACK`` the history goes to
+    ``chiprun_out/c38_snapshot.pickle``."""
+    import dataclasses
+    from repro_torch.launch.steps import make_train_step
+    h2o, params, opt, opt_state, batch = _h2o_train_state(
+        torch, torch.device("cuda"))
+    S, remat = DRYRUN_POINTS[0]
+    train_step = make_train_step(dataclasses.replace(h2o, remat=remat),
+                                 opt)
+    warm = train_step(params, opt_state, batch(64))
     torch.cuda.synchronize()
     del warm
-    b = batch(DRYRUN_TRAIN_S)
+    b = batch(S)
+    torch.cuda.memory._record_memory_history(max_entries=100000)
     measured = step_bytes(torch)
-    t0 = time.time()
-    new_params, _, loss = train_step(params, opt_state, b)
+    out = train_step(params, opt_state, b)
     torch.cuda.synchronize()
-    seconds = time.time() - t0
-    finite = bool(torch.isfinite(loss)) and all(
-        bool(torch.isfinite(t).all()) for t in tree_leaves(new_params))
-    return dict(params=storage_bytes(params),
-                opt_state=storage_bytes(opt_state), step=measured(),
-                seconds=seconds, finite=finite)
+    got = measured()
+    excess = got - report.step_bytes
+    dump = None
+    if excess > DRYRUN_SLACK:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        dump = os.path.join(ROOT, "chiprun_out", "c38_snapshot.pickle")
+        torch.cuda.memory._dump_snapshot(dump)
+    torch.cuda.memory._record_memory_history(enabled=None)
+    del out, params, opt_state, b
+    release(torch)
+    return dict(step=got, excess=excess, snapshot=dump)
 
 
 def drive_dryrun(torch, serve_read: dict, mla_read: dict) -> dict:
@@ -2992,11 +3149,16 @@ def drive_dryrun(torch, serve_read: dict, mla_read: dict) -> dict:
     own bytes (its peak above what was allocated before it) within 10%
     or 256 MiB, and each step's time at or above the dry-run's bound.
     The prefills are ``[serve]``'s (h2o-danube-1.8b, B 1, S 8192) and
-    ``[serve-mla-moe]``'s (deepseek-v2-lite-16b, S 4096).  The train step
-    runs in a child process of its own (:func:`dryrun_train_step`): in
-    this one, after the other phases, one call of five read 10.4 GB
-    above the step's 33.8 GB that every fresh process reads (PERF.md
-    section 7)."""
+    ``[serve-mla-moe]``'s (deepseek-v2-lite-16b, S 4096).  The train
+    steps (``DRYRUN_POINTS``) run in a child process of their own
+    (:func:`dryrun_train_step`), their gradients' own bytes held too: in
+    this process, after the other phases, one call of five read 10.4 GB
+    above the step's 33.8 GB that every fresh process reads (ROADMAP
+    C.38), which :func:`c38_reading` keeps reading.  Before them the
+    square-root sweep (``repro_torch/sqrt_sweep.py``) shows ``torch.sqrt``
+    of CUDA float32 correctly rounded, which ``sqrt_rn`` relies on."""
+    import dataclasses
+    from repro_torch import sqrt_sweep
     from repro_torch.configs.registry import InputShape, get_config
     from repro_torch.launch import cost as C
     from repro_torch.launch import dryrun
@@ -3013,15 +3175,18 @@ def drive_dryrun(torch, serve_read: dict, mla_read: dict) -> dict:
         h2o, InputShape("prefill", LONG_S, 1, "prefill"))
     pre_ds, info_ds = dryrun.analyze_step(
         ds, InputShape("prefill", MLA_LONG_S, 1, "prefill"))
-    train, info_tr = dryrun.analyze_step(
-        h2o, InputShape("train", DRYRUN_TRAIN_S, 1, "train"))
-    big, _ = dryrun.analyze_step(
-        h2o, InputShape("train", DRYRUN_TRAIN_S_TOO_BIG, 1, "train"))
-    fits = "fits" if big.peak_bytes <= card else "does not fit"
+    train = {}
+    for S, remat in DRYRUN_POINTS:
+        train[S, remat] = dryrun.analyze_step(
+            dataclasses.replace(h2o, remat=remat),
+            InputShape("train", S, 1, "train"))
     log(f"[dryrun] predictions on the meta device in {time.time() - t0:.1f}"
-        f" s; train B=1 S={DRYRUN_TRAIN_S_TOO_BIG} would peak at "
-        f"{big.peak_bytes} B ({fits} in {card} B), so the card runs "
-        f"S={DRYRUN_TRAIN_S}")
+        " s; train B=1: " + "; ".join(
+            f"S={S} remat {remat}: peak {r.peak_bytes} B "
+            f"({'fits' if r.peak_bytes <= card else 'does not fit'} in "
+            f"{card} B), step bytes {r.step_bytes}, gradient bytes "
+            f"{r.phases['start']['peak'] - r.held_bytes}"
+            for (S, remat), (r, _) in train.items()))
     out = {}
 
     def state(label, measured, meta_tree, allocator=None):
@@ -3067,18 +3232,62 @@ def drive_dryrun(torch, serve_read: dict, mla_read: dict) -> dict:
     del cache
     release(torch)          # the child needs the cached blocks back
 
+    t0 = time.time()
+    sweep = sqrt_sweep.sweep(torch.device("cuda"))
+    check(sweep["mismatches"] == 0, f"[dryrun] torch.sqrt of CUDA float32 "
+          f"is not the correctly rounded root: {sweep}")
+    log(f"[dryrun] sqrt sweep: torch.sqrt of CUDA float32 against the "
+        f"float64 root rounded once over {sweep['compared']} values "
+        f"({sweep['range']}): {sweep['mismatches']} mismatches in "
+        f"{time.time() - t0:.2f} s; kernels/ref.py::sqrt_rn takes the "
+        "float32 root on the card")
+
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            DRYRUN_CHILD], capture_output=True, text=True,
-                          timeout=300)
-    check(proc.returncode == 0, f"[dryrun] the train step's process exited "
+                          timeout=400)
+    check(proc.returncode == 0, f"[dryrun] the train steps' process exited "
           f"{proc.returncode}: {proc.stderr[-2000:]}")
     child = json.loads(proc.stdout.strip().splitlines()[-1])
-    check(child["finite"], "[dryrun] the train step gave a non-finite loss "
-          "or params")
+    info_tr = train[DRYRUN_POINTS[0]][1]
     state("h2o train params", child["params"], info_tr["params"])
     state("h2o AdamW state", child["opt_state"], info_tr["opt_state"])
-    step(f"h2o train step B=1 S={DRYRUN_TRAIN_S} AdamW (own process)",
-         child["step"], train, child["seconds"], torch.bfloat16)
+    for pt in child["points"]:
+        S, remat = pt["S"], pt["remat"]
+        report = train[S, remat][0]
+        check(pt["finite"], f"[dryrun] the train step at S={S} remat "
+              f"{remat} gave a non-finite loss or params")
+        step(f"h2o train step B=1 S={S} remat {remat} AdamW (own process)",
+             pt["step"], report, pt["seconds"], torch.bfloat16)
+        want = report.phases["start"]["peak"] - report.held_bytes
+        got = pt["grad_step"]
+        check(abs(got - want) <= max(DRYRUN_RTOL * want, DRYRUN_SLACK),
+              f"[dryrun] S={S} remat {remat}: gradient bytes {got} on the "
+              f"card, {want} predicted")
+        log(f"[dryrun] S={S} remat {remat}: gradient bytes {got} on the "
+            f"card / {want} predicted = {got / want:.6f}")
+        out[f"gradient S={S} remat {remat}"] = got / want
+        if "compare" in pt:
+            cmp = pt["compare"]
+            check(not cmp["bad"], f"[dryrun] S={S}: the remat gradient "
+                  f"differs from the no-remat one (leaf, kind, spread, "
+                  f"diff): {cmp['bad']}")
+            log(f"[dryrun] S={S}: gradient with remat block against "
+                f"{DRYRUN_COMPARE_RUNS} without, {cmp['leaves']} leaves: "
+                f"{cmp['leaves'] - len(cmp['spread_leaves'])} bitwise equal"
+                f" (each steady run to run without remat); leaves that "
+                f"vary run to run (leaf, spread, remat diff): "
+                f"{cmp['spread_leaves']}")
+        if "remat_cost" in pt:
+            t = pt["remat_cost"]
+            log(f"[dryrun] S={S}: the AdamW step with remat block "
+                f"{t['block']:.6f} s, without {t['none']:.6f} s (fastest "
+                f"of two each, in turns) = {t['block'] / t['none']:.3f}x")
+
+    c38 = c38_reading(torch, train[DRYRUN_POINTS[0]][0])
+    log(f"[dryrun] C.38 reading (not a check): S={DRYRUN_POINTS[0][0]} "
+        f"remat {DRYRUN_POINTS[0][1]} step in this process under the "
+        f"memory history: {c38['step']} B, {c38['excess']} B above the "
+        f"prediction; snapshot {c38['snapshot']}")
     out["phase_s"] = time.time() - t_phase
     log(f"[dryrun] phase {out['phase_s']:.1f} s")
     return out

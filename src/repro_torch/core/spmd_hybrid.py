@@ -18,7 +18,7 @@ maps onto data parallelism as the *reduction-group size* g:
 
 This module holds the single-process pieces, held against
 ``src/repro/core/spmd_hybrid.py``: trees with a leading replica axis of
-size R, their merge, reshard and divergence, the vmapped replica step
+size R, their merge, reshard and divergence, the replica step
 and the phase plan.  :mod:`repro_torch.launch.train` runs them across
 ranks.  The reference's ``factored_mesh`` and ``replica_param_shardings``
 are the rank-group layout of :mod:`repro_torch.launch.mesh`: a replica
@@ -32,6 +32,7 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch.convert import tree_leaves, tree_map
+from repro_torch.core import gradient
 from repro_torch.core.schedule import ThresholdSchedule, group_size_phases
 from repro_torch.core.slab import slab_codec
 from repro_torch.kernels.hybrid_aggregate import flush
@@ -127,21 +128,28 @@ def make_replica_step(loss_fn: Callable, opt_update: Callable):
 
     ``loss_fn(params, batch) -> (loss, metrics)``; ``opt_update(grads,
     opt, params) -> (updates, new_opt)``.  Every replica steps on its own
-    slice of the leading axis (``torch.func.vmap``), so no gradient
-    crosses replicas.  The metrics are the reference's: ``loss`` (mean
-    over replicas), ``loss_per_replica``, ``replicas`` (the replica axis
-    the step ran, one gradient each) and ``divergence``, plus the mean
-    of each of ``loss_fn``'s metrics."""
+    slice of the leading axis, one after another, and the results are
+    stacked, so no gradient crosses replicas.  The gradient is taken with
+    ``core/gradient.py``, which a rematerialising loss needs (the
+    reference's ``vmap`` has no counterpart that takes a checkpoint).
+    The metrics are the reference's: ``loss`` (mean over replicas),
+    ``loss_per_replica``, ``replicas`` (the replica axis the step ran,
+    one gradient each) and ``divergence``, plus the mean of each of
+    ``loss_fn``'s metrics."""
+    grad_fn = gradient.grad_and_value(loss_fn, has_aux=True)
+
     def one(params, opt_state, batch):
-        grads, (loss, metrics) = torch.func.grad_and_value(
-            loss_fn, has_aux=True)(params, batch)
+        grads, (loss, metrics) = grad_fn(params, batch)
         updates, new_opt = opt_update(grads, opt_state, params)
         new_params = tree_map(lambda p, u: p + u, params, updates)
         return new_params, new_opt, loss, metrics
 
     def step(params_R, opt_R, batch_R):
-        new_p, new_o, loss, metrics = torch.func.vmap(one)(
-            params_R, opt_R, batch_R)
+        R = tree_leaves(params_R)[0].shape[0]
+        outs = [one(*tree_map(lambda t: t[r], (params_R, opt_R, batch_R)))
+                for r in range(R)]
+        new_p, new_o, loss, metrics = tree_map(lambda *xs: torch.stack(xs),
+                                               *outs)
         return new_p, new_o, {
             "loss": torch.mean(loss), "loss_per_replica": loss,
             "replicas": torch.tensor(loss.shape[0], dtype=torch.int32),

@@ -28,15 +28,22 @@ def _fold(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded float32 square root of ``x`` on any device,
-    as the CUDA kernels' ``__fsqrt_rn``: taken in float64 and rounded
-    once (53 >= 2*24 + 2 bits, so rounding twice loses nothing).
+    as the CUDA kernels' ``__fsqrt_rn``.
 
-    ``torch.sqrt`` of a float32 CPU tensor runs MKL's VML sqrt, which
-    is within 1 ulp but not always correctly rounded, over chunks split
-    across the intra-op threads.  The first such call of a process has,
-    about once in 200 processes, returned one thread's chunk with
-    relative errors up to 2.9e-4 (ROADMAP C.8)."""
-    return torch.sqrt(x.double()).float()
+    On the CPU it is taken in float64 and rounded once (53 >= 2*24 + 2
+    bits, so rounding twice loses nothing): ``torch.sqrt`` of a float32
+    CPU tensor runs MKL's VML sqrt, which is within 1 ulp but not always
+    correctly rounded, over chunks split across the intra-op threads.
+    The first such call of a process has, about once in 200 processes,
+    returned one thread's chunk with relative errors up to 2.9e-4
+    (ROADMAP C.8).  On a CUDA tensor (and on the meta device, which
+    stands for the card in a dry-run) ``torch.sqrt`` of float32 is the
+    correctly rounded root: ``python -m repro_torch.sqrt_sweep`` found
+    it bitwise equal to the float64 root on every non-negative float32
+    on an H100 (ROADMAP C.43), and it needs no float64 temporaries."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x.float())
 
 
 def flush_ref(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -94,6 +101,28 @@ def attention_mask(S: int, causal: bool, window: Optional[int], device,
     return mask
 
 
+def attention_rows(q, k, v, r0: int, r1: int, *, causal: bool = True,
+                   window: Optional[int] = None,
+                   chunk: Optional[int] = None,
+                   scale: Optional[float] = None):
+    """Query rows ``r0:r1`` of :func:`attention_ref`: q (B,S,H,d), k
+    (B,S,KV,d), v (B,S,KV,d_v) -> (B, r1 - r0, H, d_v), with an
+    (r1 - r0, S) score matrix per head."""
+    B, S, H, d = q.shape
+    KV, dv = k.shape[2], v.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else d ** -0.5
+    rows = slice(r0, r1)
+    qg = q[:, rows].reshape(B, -1, KV, G, d).float() * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    mask = attention_mask(S, causal, window, q.device, chunk, rows)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[:, None], p, 0.0)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, -1, H, dv).to(q.dtype)
+
+
 def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None, chunk: Optional[int] = None,
                   scale: Optional[float] = None,
@@ -104,20 +133,10 @@ def attention_ref(q, k, v, *, causal: bool = True,
     ``d ** -0.5``, as the reference's ``_sdpa_block`` scales by q's head
     dim.  ``q_block`` evaluates that many query rows at a time (the same
     function without an (S, S) matrix)."""
-    B, S, H, d = q.shape
-    KV, dv = k.shape[2], v.shape[3]
-    G = H // KV
-    scale = scale if scale is not None else d ** -0.5
+    B, S, H, _ = q.shape
     step = q_block or max(S, 1)
-    outs = []
-    for r0 in range(0, S, step):
-        rows = slice(r0, min(S, r0 + step))
-        qg = q[:, rows].reshape(B, -1, KV, G, d).float() * scale
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
-        mask = attention_mask(S, causal, window, q.device, chunk, rows)
-        s = torch.where(mask, s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        p = torch.where(mask.any(-1)[:, None], p, 0.0)
-        o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-        outs.append(o.reshape(B, -1, H, dv).to(q.dtype))
-    return torch.cat(outs, dim=1) if outs else q.new_zeros((B, S, H, dv))
+    outs = [attention_rows(q, k, v, r0, min(S, r0 + step), causal=causal,
+                           window=window, chunk=chunk, scale=scale)
+            for r0 in range(0, S, step)]
+    return torch.cat(outs, dim=1) if outs else \
+        q.new_zeros((B, S, H, v.shape[3]))

@@ -29,21 +29,28 @@ Collective bytes are what each card sends on a ring: ``2 (g-1)/g`` of
 the bytes for an all-reduce over g cards, ``(g-1)/g`` for an all-gather
 or a reduce-scatter.  Activations are traced for the per-card batch
 through the code the port runs (``launch/cost.py``): train is the plain,
-differentiable forward under ``torch.func.grad_and_value`` and the AdamW
-update (``launch/steps.py::make_train_step``), with no rematerialisation
-(``remat: "none"``: the port has none, ROADMAP C.34); prefill and
-decode are the serving forward through the kernels' meta routes.  A
-model that does not fit is a result (``fits: false`` and the bytes it
-would need), not an error.  ``--mesh pod|multipod`` (a 16-wide
-``model`` axis) and ``--remat block`` are refused, ``--q-block`` too
-(ROADMAP C.10).
+differentiable forward, its gradient (``core/gradient.py``) and the
+AdamW update (``launch/steps.py::make_train_step``), rematerialised as
+the config says (every registry config's ``remat`` is ``"block"``) or
+as ``--remat none|block`` overrides it, as the reference's ``--remat``
+does; the record says which.  Under remat the backward's recomputed
+forward ops are counted, as the reference's HLO count includes them,
+and the peak is what the checkpoints leave live.  Prefill and decode
+are the serving forward through the kernels' meta routes.  A model that
+does not fit is a result (``fits: false`` and the bytes it would need),
+not an error.  ``--mesh pod|multipod`` (a 16-wide ``model`` axis) is
+refused, as are ``--q-block`` (ROADMAP C.10) and any ``--remat`` but
+``none`` and ``block``.
 
 Results are JSON files under ``experiments/dryrun_torch/`` (not the
-reference's ``experiments/dryrun/``), reused unless ``--force``.
+reference's ``experiments/dryrun/``), reused unless ``--force``, each
+named by the remat it was taken with (``..._remat-<value>.json``: the
+config's unless ``--remat`` overrides it).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -273,9 +280,12 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             microbatch: Optional[int] = None, accum_dtype: str = "float32",
             tag: str = "", cards: int = 1,
             hybrid_rep: int = 1) -> Dict[str, Any]:
+    """One record.  ``remat`` overrides the config's (None keeps it)."""
     _check_mesh(mesh_kind)
     _check_flags(remat, q_block)
     cfg = get_config(arch)
+    if remat:
+        cfg = dataclasses.replace(cfg, remat=remat)
     shape = SHAPES[shape_name]
     result: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                               "mesh": "card", "cards": cards,
@@ -284,7 +294,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
     if not ok:
         return {**result, "status": "skipped", "reason": why}
     card_bytes = card_memory_bytes("meta")
-    result.update({"remat": "none", "accum_dtype": accum_dtype,
+    result.update({"remat": cfg.remat, "accum_dtype": accum_dtype,
                    "card_memory_bytes": card_bytes})
     t0 = time.time()
     try:
@@ -293,7 +303,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             reports = {}
 
             def peak_of(m):
-                reports[m] = analyze_step(arch, shape_name, cards, m,
+                reports[m] = analyze_step(cfg, shape_name, cards, m,
                                           accum_dtype, hybrid_rep)
                 return reports[m][0].peak_bytes
             microbatch, _ = derive_microbatch(b, peak_of, card_bytes)
@@ -301,7 +311,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             result["microbatch_derived"] = True
         else:
             microbatch = microbatch or 1
-            report, info = analyze_step(arch, shape_name, cards,
+            report, info = analyze_step(cfg, shape_name, cards,
                                         microbatch, accum_dtype, hybrid_rep)
         layouts = _layouts(shape, info, report)
         dtype = getattr(torch, cfg.dtype)
@@ -340,30 +350,39 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
 
 def run_hybrid_one(arch: str, rep: int, cards: int,
                    microbatch: Optional[int] = None,
-                   tag: str = "") -> Dict[str, Any]:
+                   tag: str = "", remat: Optional[str] = None
+                   ) -> Dict[str, Any]:
     """The group-annealed hybrid train step (train_4k) with ``rep``
     replica groups of ``cards // rep`` cards: gradients reduce only
     within a group.  R=1 is the fully synchronous endpoint."""
     return run_one(arch, "train_4k", cards=cards, hybrid_rep=rep,
-                   microbatch=microbatch, tag=tag or f"hybrid_R{rep}")
+                   microbatch=microbatch, tag=tag or f"hybrid_R{rep}",
+                   remat=remat)
+
+
+REMAT_CHOICES = ("none", "block")
 
 
 def _check_flags(remat: Optional[str], q_block: Optional[int]) -> None:
-    if remat not in (None, "none"):
+    if remat is not None and remat not in REMAT_CHOICES:
         raise ValueError(
-            f"--remat {remat}: the port has no rematerialisation yet "
-            "(torch.func.grad does not take saved-tensor hooks; ROADMAP "
-            "C.34 and A17); its dry-run records remat 'none'")
+            f"--remat {remat}: the port's remat is 'none' or 'block' "
+            "(each block group checkpointed, and the attention's query "
+            "blocks and the recurrences' chunks; ROADMAP A17)")
     if q_block is not None:
         raise ValueError("--q-block: the port's kernels tile themselves and "
                          "its plain attention takes no query block "
                          "(ROADMAP C.10)")
 
 
-def result_path(arch, shape_name, mesh_kind, tag="", out_dir=None):
+def result_path(arch, shape_name, mesh_kind, tag="", out_dir=None,
+                remat: Optional[str] = None):
+    """Where a record goes; ``remat`` is ``--remat`` (None: the
+    config's), so a record is never reused for another remat."""
     out_dir = out_dir or OUT_DIR
     os.makedirs(out_dir, exist_ok=True)
-    suffix = f"_{tag}" if tag else ""
+    remat = remat or get_config(arch).remat
+    suffix = (f"_{tag}" if tag else "") + f"_remat-{remat}"
     return os.path.join(out_dir,
                         f"{arch}__{shape_name}__{mesh_kind}{suffix}.json")
 
@@ -377,7 +396,7 @@ def _summary(res) -> str:
             f"({'fits' if res['fits'] else 'does not fit'}; fsdp "
             f"{lay[FSDP]['peak_bytes'] / gib:.2f}), coll "
             f"{res['collective_bytes_per_device']['total'] / gib:.3f} GiB, "
-            f"microbatch {res['microbatch']} "
+            f"microbatch {res['microbatch']}, remat {res['remat']} "
             f"({res['analysis_s']}s)")
 
 
@@ -394,7 +413,8 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--remat", default=None,
-                    help="only 'none': the port has no rematerialisation")
+                    help="none | block (default: the config's own, "
+                         "'block' for every registry config)")
     ap.add_argument("--q-block", type=int, default=None,
                     help="refused: no counterpart in the port")
     ap.add_argument("--microbatch", type=int, default=None,
@@ -420,9 +440,10 @@ def main(argv=None) -> int:
             print("error: --hybrid-rep requires --arch", file=sys.stderr)
             return 2
         res = run_hybrid_one(args.arch, args.hybrid_rep, args.cards,
-                             microbatch=args.microbatch, tag=args.tag)
+                             microbatch=args.microbatch, tag=args.tag,
+                             remat=args.remat)
         path = result_path(args.arch, "train_4k", f"card{args.cards}",
-                           res["tag"], args.out_dir)
+                           res["tag"], args.out_dir, args.remat)
         with open(path, "w") as f:
             json.dump(res, f, indent=2)
         if res["status"] == "ok":
@@ -438,7 +459,8 @@ def main(argv=None) -> int:
     failures = 0
     mesh_kind = f"card{args.cards}"
     for a, s in combos:
-        path = result_path(a, s, mesh_kind, args.tag, args.out_dir)
+        path = result_path(a, s, mesh_kind, args.tag, args.out_dir,
+                           args.remat)
         if os.path.exists(path) and not args.force:
             with open(path) as f:
                 prev = json.load(f)

@@ -1,9 +1,12 @@
 """The train step of the SPMD driver and the examples.
 
 After ``src/repro/launch/steps.py::make_train_step``: a gradient of the
-model's loss (the plain, differentiable forward), an optional gradient
-accumulation over micro-batches, and the optimizer's update.  The
-reference's ``q_block`` has no counterpart (ROADMAP C.10).  In place of
+model's loss (the plain, differentiable forward, rematerialised as the
+config says), an optional gradient accumulation over micro-batches, and
+the optimizer's update.  The gradient is taken with
+``core/gradient.py`` (``torch.autograd.grad``), which a checkpointed
+forward needs.  The reference's ``q_block`` is a constant here
+(``models/attention.py::Q_BLOCK``; ROADMAP C.10).  In place of
 its per-arch ``TRAIN_MICROBATCH`` table, sized for a 16 GiB TPU,
 :func:`derive_microbatch` picks the micro-batch count from a predicted
 peak (``launch/dryrun.py`` predicts it on the meta device) and the
@@ -16,7 +19,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.convert import tree_map
-from repro_torch.core import counting
+from repro_torch.core import counting, gradient
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -72,7 +75,7 @@ def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
     ``reduce_grads(grads) -> grads``, when given, runs between the
     gradient and the update: the SPMD driver averages the gradient over
     a replica group there."""
-    grad_fn = torch.func.grad_and_value(
+    grad_fn = gradient.grad_and_value(
         lambda p, b: M.loss_fn(p, b, cfg), has_aux=True)
 
     def train_step(params, opt_state, batch):

@@ -279,6 +279,7 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend):
                 by_k.setdefault(name, {})[str(K)] = n
         stats.update(
             backend=backend, world_size=W, device=str(dev),
+            remat=cfg.remat,
             device_name=torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else "cpu",
             merges=merges, launches_by_k=by_k,

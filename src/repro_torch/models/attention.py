@@ -9,19 +9,33 @@ JAX package's tests pin the two together:
 ``tests/kernels/test_kernels.py::test_flash_matches_model_rowblock``),
 or with ``plain=True`` (the training path: the reference trains through
 jnp, and the kernel has no backward) through the plain PyTorch version,
-which autograd differentiates.
+which autograd differentiates (:func:`plain_attention`): at S above
+``Q_BLOCK`` in query blocks of ``Q_BLOCK`` rows, as the reference's
+``rowblock_attention`` with its default ``q_block``, and, when the
+config rematerialises, each block checkpointed
+(``src/repro/models/attention.py:149``), so no layer keeps an (S, S)
+score matrix for the backward.  Each block takes every key: the
+reference's narrower key slab for a window or a chunk is not taken
+(ROADMAP C.41).
 Decode attention stays plain PyTorch, as it is jnp outside any Pallas
 kernel in the reference.
 """
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.models import remat
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import RopeTable, apply_rope
 
 NEG_INF = -1e30
+# the reference's query block (``q_block=512``,
+# ``src/repro/models/model.py:98-99``)
+Q_BLOCK = 512
 
 
 # ---------------------------------------------------------------- params
@@ -64,13 +78,30 @@ def _project_qkv(params, x, cfg: ModelConfig, rope: RopeTable):
 
 # ------------------------------------------------------------- full-seq
 
+def plain_attention(q, k, v, cfg: ModelConfig, *, causal: bool,
+                    window: Optional[int] = None,
+                    chunk: Optional[int] = None):
+    """The training attention: ``ref.attention_ref``'s arithmetic in
+    query blocks of ``Q_BLOCK`` rows, each block checkpointed when S is
+    longer and ``cfg.remat`` is on (the reference checkpoints none when
+    one block covers S)."""
+    S = q.shape[1]
+    rows = functools.partial(ref.attention_rows, causal=causal,
+                             window=window, chunk=chunk)
+    blocked = S > Q_BLOCK and remat.on(cfg)
+    return torch.cat([remat.run(blocked, rows, q, k, v, r0,
+                                min(S, r0 + Q_BLOCK))
+                      for r0 in range(0, S, Q_BLOCK)], dim=1)
+
+
 def attention_forward(params, x, cfg: ModelConfig, rope: RopeTable,
                       global_layer: bool = False, plain: bool = False):
     """Full-sequence attention.  x: (B, S, D) -> (B, S, D).  ``rope`` is
     the table at positions ``arange(S)`` for every row (``model.forward``
     gives that), which is what the kernel's masks assume."""
     q, k, v = _project_qkv(params, x, cfg, rope)
-    attend = ref.attention_ref if plain else ops.flash_attention
+    attend = functools.partial(plain_attention, cfg=cfg) if plain \
+        else ops.flash_attention
     out = attend(q, k, v, causal=cfg.causal,
                  window=None if global_layer else cfg.sliding_window,
                  chunk=None if global_layer else cfg.attn_chunk)

@@ -5,8 +5,10 @@ The reference scans each chunk of ``cfg.ssm_chunk`` positions with
 builds the scan inputs one chunk at a time as well (so only one chunk's
 ``(B, chunk, d_inner, d_state)`` tensors exist at once) and runs the
 recurrence ``h_t = a_t h_{t-1} + bx_t`` position by position in float32.
-The two add in a different order; ROADMAP C.24 states the gap.  Plain
-PyTorch, as the reference's scan is jnp outside any Pallas kernel.
+The two add in a different order; ROADMAP C.24 states the gap.  When
+the config rematerialises, each chunk is checkpointed with its carry in
+and out (``src/repro/models/mamba.py:92``).  Plain PyTorch, as the
+reference's scan is jnp outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import activations as act
+from repro_torch.models import remat
 from repro_torch.models.config import ModelConfig
 
 
@@ -81,14 +84,21 @@ def mamba_forward(params, x, cfg: ModelConfig):
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of the scan "
                          f"chunk {chunk}")
-    h = x.new_zeros((B, di, cfg.mamba_d_state), dtype=torch.float32)
-    ys = []
-    for c0 in range(0, S, chunk):
-        a, bx, Cm = _ssm_inputs(params, xc[:, c0:c0 + chunk], cfg)
+
+    def body(h, xci):
+        a, bx, Cm = _ssm_inputs(params, xci, cfg)
+        ys = []
         for t in range(a.shape[1]):
             h = a[:, t] * h + bx[:, t]
             ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
-    y = torch.stack(ys, dim=1)
+        return h, torch.stack(ys, dim=1)
+
+    h = x.new_zeros((B, di, cfg.mamba_d_state), dtype=torch.float32)
+    ys = []
+    for c0 in range(0, S, chunk):
+        h, y = remat.run(remat.on(cfg), body, h, xc[:, c0:c0 + chunk])
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
     y = y + params["D"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     return y @ params["w_out"]

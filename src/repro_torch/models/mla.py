@@ -8,16 +8,19 @@ full-sequence path runs the flash_attention kernel with q and k of
 width ``head_dim + rope_head_dim`` and v of ``v_head_dim`` (as the
 reference passes them to ``rowblock_attention`` with
 ``global_layer=True``: no window, no chunk), or with ``plain=True`` its
-plain version.  The decode cache holds only ``(c_kv, k_rope)`` and
-decode is the absorbed form, plain PyTorch in float32 as the reference's
-jnp.
+plain version in query blocks, checkpointed under remat
+(``attention.py::plain_attention``).  The decode cache holds only
+``(c_kv, k_rope)`` and decode is the absorbed form, plain PyTorch in
+float32 as the reference's jnp.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.kernels import ops, ref
-from repro_torch.models.attention import NEG_INF
+from repro_torch.kernels import ops
+from repro_torch.models.attention import NEG_INF, plain_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import RopeTable, apply_rope
 
@@ -67,7 +70,8 @@ def mla_forward(params, x, cfg: ModelConfig, rope: RopeTable,
     v = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uv"]).contiguous()
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, k_rope.shape[-1])], dim=-1)
-    attend = ref.attention_ref if plain else ops.flash_attention
+    attend = functools.partial(plain_attention, cfg=cfg) if plain \
+        else ops.flash_attention
     out = attend(q.contiguous(), k, v, causal=cfg.causal)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 

@@ -7,18 +7,23 @@ leading ``num_groups`` axis, and the leaf names and shapes are the
 reference's (``wq`` (d, H, hd), ``wo`` (H, hd, d), ``embed`` (V, D),
 ``lm_head`` (D, V), f32 norm scales).  The reference's ``lax.scan`` over
 groups is a Python loop over that axis here.  There is no sharding
-constraint and no rematerialisation.  The frontends are the reference's
-stubs (``src/repro/models/model.py:40-53``, ``:64-86``): an audio model
-(hubert) projects precomputed frame features into d_model and has no
-token embedding; a vision model (phi-3-vision) projects precomputed
-patch embeddings and puts them before the text tokens, and its loss
-covers the text only.
+constraint.  With ``cfg.remat == "block"`` (every registry config's
+default) the training forward checkpoints each block group, as the
+reference's ``jax.checkpoint(group_body, policy=nothing_saveable)``
+(``src/repro/models/model.py:112-114``): only the group's input is kept
+for the backward, and the group runs again there (``models/remat.py``;
+the gradient is taken with ``core/gradient.py``).  The frontends are
+the reference's stubs (``src/repro/models/model.py:40-53``,
+``:64-86``): an audio model (hubert) projects precomputed frame
+features into d_model and has no token embedding; a vision model
+(phi-3-vision) projects precomputed patch embeddings and puts them
+before the text tokens, and its loss covers the text only.
 
 Two forwards share the code: the serving one (``plain=False``) takes
 every norm and full-sequence attention through the kernels, and the
 training one (``plain=True``, what :func:`loss_fn` runs) through their
-plain PyTorch versions, which autograd and ``torch.func.grad``
-differentiate.  The reference trains through jnp the same way
+plain PyTorch versions, which autograd differentiates.  The reference
+trains through jnp the same way
 (``src/repro/kernels/flash_attention.py:82-83``); the kernels have no
 backward, and their wrappers refuse inputs that require grad.
 """
@@ -29,6 +34,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import remat
 from repro_torch.models.blocks import (init_layer, init_layer_cache,
                                        layer_decode, layer_forward,
                                        rope_tables)
@@ -65,6 +71,17 @@ def _index(tree, g: int):
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+def _unstack(tree, n: int):
+    """The ``n`` groups of a stacked tree (views, no copy), taken by one
+    ``unbind`` per leaf: its backward stacks the groups' gradients once,
+    where indexing each group would write a zero-filled gradient of the
+    whole stack per group and add them up."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[g] for k, v in parts.items()} for g in range(n)]
+    return torch.unbind(tree)
 
 
 # ------------------------------------------------------------------ init
@@ -136,11 +153,17 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
     x, positions = embed_inputs(params, batch, cfg)
     ropes = rope_tables(positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.num_groups):
+
+    def group_body(x, aux, group):
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
-            x, a = layer_forward(_index(params["groups"][j], g), x, mixer,
-                                 ffn, cfg, ropes, plain)
+            x, a = layer_forward(group[j], x, mixer, ffn, cfg, ropes, plain)
             aux = aux + a
+        return x, aux
+
+    checkpointed = plain and remat.blocks_on(cfg)
+    for group in zip(*(_unstack(p, cfg.num_groups)
+                       for p in params["groups"])):
+        x, aux = remat.run(checkpointed, group_body, x, aux, group)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps, plain)
     return x @ _head(params, cfg), aux
 

@@ -3,17 +3,23 @@ memory) and sLSTM (scalar memory).
 
 mLSTM runs the stabilized chunkwise form: a loop over chunks of
 ``MLSTM_CHUNK`` carries ``(C, n, m)`` in float32, and within a chunk the
-update is dense products.  sLSTM has recurrent gate connections and is
-a loop over time with per-head recurrent weights.  Plain PyTorch, as
-the reference's are jnp outside any Pallas kernel; ``exp``, ``tanh`` and
-``log_sigmoid`` come from :mod:`repro_torch.models.activations`.
+update is dense products; when the config rematerialises, each chunk
+is checkpointed with its carry in and out
+(``src/repro/models/xlstm.py:131``).  sLSTM has recurrent gate
+connections and is a loop over time with per-head recurrent weights.
+Plain PyTorch, as the reference's are jnp outside any Pallas kernel;
+``exp``, ``tanh`` and ``log_sigmoid`` come from
+:mod:`repro_torch.models.activations`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import activations as act
+from repro_torch.models import remat
 from repro_torch.models.config import ModelConfig
 
 MLSTM_CHUNK = 64
@@ -139,11 +145,12 @@ def mlstm_forward(params, x, cfg: ModelConfig):
     carry = (x.new_zeros((B, H, dh, dh), dtype=torch.float32),
              x.new_zeros((B, H, dh), dtype=torch.float32),
              x.new_zeros((B, H), dtype=torch.float32))
+    chunk = functools.partial(_mlstm_chunk, dh=dh)
     outs = []
     for c0 in range(0, S, c):
         sl = slice(c0, c0 + c)
-        carry, out = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl],
-                                  li[:, sl], lf[:, sl], dh)
+        carry, out = remat.run(remat.on(cfg), chunk, carry, q[:, sl],
+                               k[:, sl], v[:, sl], li[:, sl], lf[:, sl])
         outs.append(out)
     h = torch.cat(outs, dim=1)
     h = _headnorm(h, params["gn_scale"]).reshape(B, S, di).to(x.dtype)

@@ -184,6 +184,45 @@ def test_recurrence_trip_product_equals_direct_count(arch, mixer, fn, unit,
     assert counted.peak_bytes == pytest.approx(direct.peak_bytes, rel=0.10)
 
 
+REMAT_MIXERS = MIXERS[:2]          # sLSTM is not checkpointed
+
+
+@pytest.mark.parametrize("arch,mixer,fn,unit", REMAT_MIXERS,
+                         ids=[m[1] for m in REMAT_MIXERS])
+def test_recurrence_under_remat_trip_product_equals_direct_count(
+        arch, mixer, fn, unit):
+    """With remat each chunk is checkpointed: its forward runs again in
+    the backward, and only the carries and the chunks' inputs stay saved.
+    Counted from 2, 3 and 4 trips against a direct trace at 6: FLOPs and
+    bytes exactly, the peak within 10%, the bytes held at the end of the
+    forward to the byte, and below the no-remat count's."""
+    cfg, pm = _mixer(arch, mixer)
+    u = unit(cfg)
+    held = {}
+
+    def run(cfg, counted):
+        params = tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta", requires_grad=True), pm)
+        x = torch.empty((2, 6 * u, cfg.d_model), device="meta",
+                        requires_grad=True)
+
+        def f(params, x):
+            y = counting.recurrence(fn, params, x, cfg, u) if counted \
+                else fn(params, x, cfg)
+            held[cfg.remat, counted] = counting.ACTIVE.live
+            return torch.autograd.grad(y, [x] + tree_leaves(params),
+                                       torch.empty_like(y),
+                                       allow_unused=True)
+        return C.analyze(f, params, x)[1]
+    block = dataclasses.replace(cfg, remat="block")
+    direct, counted = run(block, False), run(block, True)
+    plain = run(dataclasses.replace(cfg, remat="none"), False)
+    assert counted.cost.flops == direct.cost.flops > plain.cost.flops
+    assert counted.cost.hbm_bytes == direct.cost.hbm_bytes
+    assert counted.peak_bytes == pytest.approx(direct.peak_bytes, rel=0.10)
+    assert held["block", True] == held["block", False] < held["none", False]
+
+
 def test_recurrence_saved_bytes_are_exact():
     """What a train step's recurrence holds for the backward at the end
     of the forward: counted and direct agree to the byte."""

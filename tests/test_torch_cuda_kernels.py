@@ -10,6 +10,8 @@ too):
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 Shapes are the main paths': K = 25 staging rows of the cnn-cifar slab
 for the flushes, h2o-danube-1.8b's widths for rmsnorm and attention.
+The training forward with remat "block" against it without, for each
+mixer family (``tests/test_torch_remat.py``'s cases on the card).
 """
 import pytest
 import torch
@@ -625,3 +627,51 @@ def test_cuda_meta_route_shapes_match_the_kernels(cuda):
         assert [(t.shape, t.dtype) for t in meta] == \
             [(t.shape, t.dtype) for t in out]
         assert all(t.is_meta for t in meta)
+
+
+# the families of tests/test_torch_remat.py: arch, overrides, S
+REMAT_FAMILIES = {
+    "dense-window": ("h2o-danube-1.8b", dict(num_groups=2), 1024),
+    "mla-moe": ("deepseek-v2-lite-16b", dict(num_groups=2), 1024),
+    "mamba-attn": ("jamba-v0.1-52b",
+                   dict(block_pattern=(("mamba", "mlp"), ("attn", "moe"))),
+                   1024),
+    "mlstm-slstm": ("xlstm-350m", dict(num_groups=2), 128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(REMAT_FAMILIES))
+def test_cuda_remat_gradient_equals_no_remat(cuda, family):
+    """The remat gradient against three without: bitwise where those
+    three agree bitwise, else within their spread."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core import gradient
+    from repro_torch.models import model as M
+    arch, kw, S = REMAT_FAMILIES[family]
+    cfg = dataclasses.replace(registry.smoke_variant(
+        registry.get_config(arch)), remat="block", **kw)
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    b = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S))
+                            .astype(np.int32), device=cuda)
+         for k in ("tokens", "labels")}
+
+    def grads(c):
+        g, _ = gradient.grad_and_value(
+            lambda p, bb: M.loss_fn(p, bb, c), has_aux=True)(params, b)
+        return tree_leaves(g)
+    none = [grads(dataclasses.replace(cfg, remat="none")) for _ in range(3)]
+    block = grads(cfg)
+    for i, got in enumerate(block):
+        runs = [g[i] for g in none]
+        if all(torch.equal(runs[0], r) for r in runs[1:]):
+            assert torch.equal(runs[0], got), i
+        else:
+            spread = max(float((a - c).abs().max()) for a in runs
+                         for c in runs)
+            assert float((runs[0] - got).abs().max()) <= spread, i

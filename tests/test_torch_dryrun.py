@@ -7,11 +7,16 @@ dryrun``) and the registry's shapes and input specs.
   ``meta``);
 - ``dryrun --all --cards 1`` writes a record for every pair: ``ok`` (with
   FLOPs, HBM bytes, collective bytes by kind, peak bytes, ``fits`` and
-  ``remat: "none"``) or ``skipped`` for ``shape_applicable``'s reasons,
-  and no ``error``.  No time is asserted;
-- ``--mesh pod|multipod``, ``--remat block`` and ``--q-block`` are
-  refused; the microbatch derivation; layouts over several cards.
+  the config's own ``remat``, "block") or ``skipped`` for
+  ``shape_applicable``'s reasons, and no ``error``.  No time is asserted;
+- ``--remat none|block`` is honoured and recorded, and remat lowers a
+  train step's gradient-phase peak and adds the recomputed forward's
+  FLOPs;
+- ``--mesh pod|multipod``, ``--remat`` other than none/block and
+  ``--q-block`` are refused; the microbatch derivation; layouts over
+  several cards.
 """
+import dataclasses
 import json
 import os
 
@@ -103,7 +108,8 @@ def test_dryrun_all_on_meta(sweep):
             assert r["status"] == "skipped" and r["reason"] == why
             continue
         assert r["status"] == "ok", r.get("error")
-        assert r["remat"] == "none" and r["cards"] == 1
+        assert r["remat"] == tregistry.get_config(arch).remat == "block"
+        assert r["cards"] == 1
         assert r["flops_per_device"] > 0 and r["hbm_bytes_per_device"] > 0
         coll = r["collective_bytes_per_device"]
         assert set(coll) >= {"total", "all-reduce"} and coll["total"] == 0
@@ -145,7 +151,7 @@ def test_a_result_is_cached(sweep, capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--mesh", "pod"], "A16"), (["--mesh", "multipod"], "A16"),
-    (["--mesh", "both"], "A16"), (["--remat", "block"], "remat"),
+    (["--mesh", "both"], "A16"), (["--remat", "foo"], "remat"),
     (["--q-block", "512"], "C.10")])
 def test_refused_flags(argv, needle, capsys, tmp_path):
     rc = cli.main(["dryrun", "--arch", "h2o-danube-1.8b", "--out-dir",
@@ -158,6 +164,59 @@ def test_refused_flags(argv, needle, capsys, tmp_path):
                        mesh_kind=argv[1] if argv[0] == "--mesh" else None,
                        remat=argv[1] if argv[0] == "--remat" else None,
                        q_block=512 if argv[0] == "--q-block" else None)
+
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+def test_remat_flag_is_honoured_and_recorded(remat, tmp_path):
+    argv = ["dryrun", "--arch", "xlstm-350m", "--shape", "train_4k",
+            "--microbatch", "256", "--remat", remat, "--out-dir",
+            str(tmp_path)]
+    assert cli.main(argv) == 0
+    path = dryrun.result_path("xlstm-350m", "train_4k", "card1",
+                              out_dir=str(tmp_path), remat=remat)
+    with open(path) as f:
+        r = json.load(f)
+    assert r["status"] == "ok" and r["remat"] == remat
+    assert r["microbatch"] == 256
+
+
+def test_default_remat_ignores_a_record_without_remat_in_its_name(
+        capsys, tmp_path):
+    """A record of an older dry-run, named without its remat and taken
+    with remat "none", is not reused as the default: the default run
+    takes the config's remat ("block") and names its record by it."""
+    stale = tmp_path / "h2o-danube-1.8b__train_4k__card1.json"
+    stale.write_text(json.dumps({"arch": "h2o-danube-1.8b",
+                                 "shape": "train_4k", "status": "ok",
+                                 "remat": "none"}))
+    argv = ["dryrun", "--arch", "h2o-danube-1.8b", "--shape", "train_4k",
+            "--microbatch", "16", "--out-dir", str(tmp_path)]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "[run]" in out and "[cached]" not in out
+    path = dryrun.result_path("h2o-danube-1.8b", "train_4k", "card1",
+                              out_dir=str(tmp_path))
+    assert path.endswith("__card1_remat-block.json")
+    with open(path) as f:
+        assert json.load(f)["remat"] == "block"
+    assert json.loads(stale.read_text())["remat"] == "none"
+    assert cli.main(argv) == 0
+    assert "[cached]" in capsys.readouterr().out
+
+
+def test_remat_recounts_the_forward_and_frees_the_activations():
+    """h2o-danube-1.8b, B 1, S 2048 on the meta device: with remat each
+    layer's forward runs again in the backward (more FLOPs), and the
+    gradient's peak falls; the update phase is the same."""
+    shape = tregistry.InputShape("train", 2048, 1, "train")
+    cfg = tregistry.get_config("h2o-danube-1.8b")
+    reps = {r: dryrun.analyze_step(dataclasses.replace(cfg, remat=r),
+                                   shape)[0] for r in ("none", "block")}
+    none, block = reps["none"], reps["block"]
+    assert block.cost.flops > 1.2 * none.cost.flops
+    assert block.phases["start"]["peak"] < 0.5 * none.phases["start"]["peak"]
+    assert block.phases["update"] == none.phases["update"]
+    assert block.held_bytes == none.held_bytes
 
 
 def test_derive_microbatch():
