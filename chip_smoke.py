@@ -74,10 +74,14 @@ main paths:
 - the SPMD backend: ``torchrun`` of 4 ``python -m repro_torch run
   --backend spmd`` ranks sharing the card over gloo, xlstm-350m at its
   published width with its remat "block", annealed g 1 -> 2 -> 4 (7
-  gradients, every merge a
-  ``flush`` launch on rank 0, at K 4, 2 and 1), then h2o-danube-1.8b's
-  smoke variant on 2 ranks, the card against the CPU and a sync run
-  twice (bitwise equal), and ``flush`` alone at the merge's shape.
+  gradients; the g 2 and g 4 phases in the reference's FSDP layout,
+  each rank's state held against the partition rules' shard bytes and
+  its step peak against the dry-run's traced FSDP peak; every merge
+  split along P, a ``flush`` launch on each rank at K 4, 2 and 1), then
+  h2o-danube-1.8b's smoke variant on 2 ranks, the card against the CPU
+  and a sync run twice (bitwise equal), and ``flush`` alone at the
+  merge's shape.  Four cards are ``python -m repro_torch.multicard_smoke``'s
+  (NCCL), not this script's.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` gives them, one ``{"kernels": [...]}`` JSON line, and as
@@ -566,7 +570,7 @@ def drive_main_path(torch):
         delta = {k: ha.LAUNCHES[k] - before[k] for k in ha.LAUNCHES}
         engine = trainer.engine(spec)
         agg = engine._agg_cache[1 if spec.mode == "async" else 25]
-        check(all(t.is_cuda for t in (engine.x_tr, engine.y_tr, agg._slab,
+        check(all(t.is_cuda for t in (engine.x_tr, engine.y_tr, *agg._master,
                                       *agg._staging, agg.params_slab)),
               "params, staging or data left the card")
         losses = res.metrics["train_loss"] + res.metrics["test_loss"]
@@ -2773,10 +2777,12 @@ SPMD_RANKS = 4                   # one rank per data-axis position
 # the SPMD driver's default arch at its published width (--no-smoke: the
 # spec's default is the smoke variant, and the published config's remat
 # is "block"): g 1 -> 2 -> 4, one step each, so 4 + 2 + 1 = 7 gradients
+SPMD_BATCH, SPMD_SEQ, SPMD_LR = 32, 64, 3e-5
 SPMD_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
             "--schedule",
-            "step:1", "--steps", "3", "--batch", "32", "--seq", "64",
-            "--lr", "3e-5", "--optimizer", "sgd", "--log-every", "1"]
+            "step:1", "--steps", "3", "--batch", str(SPMD_BATCH), "--seq",
+            str(SPMD_SEQ), "--lr", str(SPMD_LR), "--optimizer", "sgd",
+            "--log-every", "1"]
 SPMD_GROUPS = [1, 2, 4]
 SPMD_SMALL = ["--arch", "h2o-danube-1.8b", "--smoke", "--schedule",
               "step:2", "--steps", "6", "--batch", "4", "--seq", "16",
@@ -2855,6 +2861,10 @@ def spmd_runs(torch, tmp: str) -> dict:
     flush_by_k = extra["launches_by_k"].get("flush", {})
     check(flush_by_k.get("4", 0) >= 1 and flush_by_k.get("2", 0) >= 1,
           f"[spmd] flush launches by K {flush_by_k}: none at K 4 or K 2")
+    # the merges are split along P: every rank flushes its own chunk
+    check(all(r == {"1": 1, "2": 1, "4": 1}
+              for r in extra["flush_launches_by_rank"]),
+          f"[spmd] flush launches by rank {extra['flush_launches_by_rank']}")
     check([m["K"] for m in extra["merges"]] == [4, 2, 1],
           f"[spmd] merges {extra['merges']}")
     losses = [h["loss"] for h in hist]
@@ -2872,7 +2882,8 @@ def spmd_runs(torch, tmp: str) -> dict:
         f"{SPMD_RANKS} ranks on "
         f"{extra['device_name']}, backend {extra['backend']}: g "
         f"{groups}, R {reps}; {res['num_gradients']} gradients, "
-        f"{steps} updates; flush launches by K {flush_by_k}; loss "
+        f"{steps} updates; flush launches by K {flush_by_k} on rank 0, "
+        f"by rank {extra['flush_launches_by_rank']}; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; divergence "
         f"{[float('%.4g' % h['divergence']) for h in hist]}")
     peaks = [round(b / 2**30, 2) for b in extra["peak_memory_bytes"]]
@@ -2883,17 +2894,20 @@ def spmd_runs(torch, tmp: str) -> dict:
         f"{[h['wall_s'] for h in hist]}; peak card memory by rank "
         f"(allocator) {peaks} GiB; seconds in collectives by rank "
         f"{[round(x, 2) for x in extra['collective_s']]}")
-    # the divergence of a logged step gathers every replica's slab to
-    # rank 0 (a diagnostic the reference takes inside its step); each
-    # kind's seconds include the waits for the other ranks
+    # the divergence of a logged step moves each replica's P-chunks to
+    # their ranks (each group gathers its replica, then one all-to-all;
+    # a diagnostic the reference takes inside its step); each kind's
+    # seconds include the waits for the other ranks
     by_kind = extra["collective_s_by_kind"]
     div0 = by_kind[0]["divergence"]
     log(f"[spmd] seconds in collectives by kind and rank: " + "; ".join(
         f"{kind} {[round(r[kind], 2) for r in by_kind]}"
-        for kind in ("gradient", "divergence", "merge")) +
+        for kind in ("gradient", "gather", "divergence", "merge")) +
         f"; without rank 0's {div0:.2f} s of divergence gathers "
         f"{steps / (res['wall_s'] - div0):.3f} steps/s, "
         f"{tokens / (res['wall_s'] - div0):.1f} tokens/s")
+
+    spmd_fsdp_check(extra["layout"])
 
     # smoke width: the card against the CPU, and a sync run twice
     runs = {
@@ -2934,18 +2948,54 @@ def spmd_runs(torch, tmp: str) -> dict:
     return flush_by_k
 
 
+def spmd_fsdp_check(layout) -> None:
+    """The g 2 and g 4 phases run the FSDP layout (parallel/fsdp.py):
+    each rank's state is the partition rules' shard bytes to the byte,
+    and each rank's step peak is the dry-run's traced FSDP peak at
+    [spmd]'s own shape (a rank's 8 rows of 64, SGD) within 10% or
+    256 MiB, the [dryrun] rule."""
+    from repro_torch.configs.registry import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.optimizers import sgd
+    check([(p["g"], p["fsdp"]) for p in layout] ==
+          [(g, g > 1) for g in SPMD_GROUPS], f"[spmd] layout {layout}")
+    shape = InputShape("spmd", SPMD_SEQ, SPMD_BATCH, "train")
+    for p in layout[1:]:
+        pred = dryrun.fsdp_layout(get_config("xlstm-350m"), shape,
+                                  SPMD_RANKS, hybrid_rep=SPMD_RANKS // p["g"],
+                                  optimizer=sgd(SPMD_LR))
+        state, peak = pred["state_bytes_total"], pred["peak_bytes"]
+        check(all(b == state for b in p["state_bytes"]),
+              f"[spmd] g {p['g']}: state bytes by rank {p['state_bytes']}, "
+              f"the partition rules' {state}")
+        tol = max(DRYRUN_RTOL * peak, DRYRUN_SLACK)
+        check(all(abs(b - peak) <= tol for b in p["step_peak_bytes"]),
+              f"[spmd] g {p['g']}: step peaks by rank "
+              f"{p['step_peak_bytes']}, predicted {peak} within {tol:.0f}")
+        log(f"[spmd] FSDP g {p['g']}: state {state} B a rank = the "
+            f"partition rules' shard bytes; held before the first step "
+            f"by rank {p['held_bytes']} B; step peak by rank "
+            f"{p['step_peak_bytes']} B against the dry-run's traced "
+            f"{peak} B (ratios "
+            f"{[round(b / peak, 6) for b in p['step_peak_bytes']]}); "
+            f"predicted collectives a step "
+            f"{ {k: int(v) for k, v in pred['collective_bytes_per_device'].items()} } B")
+
+
 def spmd_merge_flush(torch) -> dict:
-    """``flush`` alone at the merge's shape: K 4 replicas of xlstm-350m's
-    f32 slab."""
+    """``flush`` alone at the merge's shape: K 4 replicas of one rank's
+    P-chunk of xlstm-350m's f32 slab (the merges are split along P over
+    the 4 ranks)."""
+    from repro_torch.core.slab import shard_chunks
     from repro_torch.kernels import hybrid_aggregate as ha
     from repro_torch.kernels import ref
-    K, P = SPMD_RANKS, SPMD_MERGE_P
+    K, P = SPMD_RANKS, shard_chunks(SPMD_MERGE_P, SPMD_RANKS)[0]
     gen = torch.Generator(device="cuda").manual_seed(2)
     g = torch.randn(K, P, device="cuda", generator=gen)
     w = torch.ones(K, device="cuda")
     err = hold(torch, "flush", same_twice(torch, lambda: ha.flush(g, w))[0],
                ref.flush_ref(g, w), 1e-6, 1e-6, f"merge K={K} P={P}")
-    case = f"flush merge K={K} P={P} f32"
+    case = f"flush merge chunk K={K} P={P} f32"
     row = time_cases(torch, Timer(torch, reps=10), {
         case: (lambda: ha.flush(g, w), lambda: ref.flush_ref(g, w),
                lambda: w @ g, ha.cost("flush", K, P, 4))})[case]

@@ -23,15 +23,16 @@ PyTorch has no buffer donation.  Instead (enforced by
   the aggregator writes again, so a caller may hold it across later
   flushes (the simulator's event heap holds old parameter snapshots).
 
-``shards > 1`` splits the staging buffer along P into tile-aligned
-chunks, each flushed by its own kernel launch; the fold is elementwise
-along P, so a sharded flush is bitwise equal to the unsharded one.
-The chunks stay on the aggregator's device (the reference spreads them
-over a host's devices; across cards is ROADMAP A16).
+``shards > 1`` splits the staging buffer, the master slab and the
+moments along P into tile-aligned chunks, each flushed by its own kernel
+launch, and places chunk i on the i-th of the host's cards, round robin,
+as the reference spreads its chunks over a host's devices; the fold is
+elementwise along P, so a sharded flush is bitwise equal to the
+unsharded one.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -247,58 +248,98 @@ class SlabAggregator:
     count kept on the device.  No flush reads a device value on the
     host.
 
-    ``shards`` splits staging along P into :func:`shard_chunks` chunks,
-    one flush launch each; the master and moment slabs stay whole and
-    each launch updates its chunk's slice of them.  ``None`` takes the
-    reference's rule for one device: 1.
+    ``shards`` splits staging, the master slab and the moments along P
+    into :func:`shard_chunks` chunks, one flush launch each, chunk i on
+    ``devices[i % len(devices)]``.  ``devices`` defaults to every card
+    of the host when the params are on a card, else the params' device;
+    ``shards=None`` takes the reference's rule: 1 unless the slab is
+    multi-million-parameter and there are several devices.  Each device
+    gets its own copy of the flush's weights and of AdamW's bias
+    corrections, copied from the aggregator's device, so the copies are
+    equal; the update count stays there.  The published slab is
+    assembled on the aggregator's device.  With one chunk nothing is
+    split: the master slab is one tensor on the aggregator's device.
     """
 
     def __init__(self, codec: SlabCodec, params, k_max: int, *,
                  shards: Optional[int] = None,
-                 optimizer: Optional[SlabOptimizer] = None):
+                 optimizer: Optional[SlabOptimizer] = None,
+                 devices: Optional[Sequence[Any]] = None):
         if k_max < 1:
             raise ValueError(f"k_max must be >= 1, got {k_max}")
         self.codec = codec
         self.k_max = int(k_max)
         self.opt = optimizer or SlabOptimizer("sgd")
+        slab = codec.encode_master(params)
+        self.device = slab.device
+        if devices is None:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())] \
+                if self.device.type == "cuda" else [self.device]
+        devices = [torch.device(d) for d in devices]
         if shards is None:
-            # every chunk stays on this aggregator's device
-            shards = _auto_shards(codec.padded_size, num_devices=1)
+            shards = _auto_shards(codec.padded_size, len(devices))
         self.chunk_sizes = shard_chunks(codec.padded_size, shards)
         self.shards = len(self.chunk_sizes)
         self.chunk_offsets = tuple(int(o) for o in
                                    np.cumsum((0,) + self.chunk_sizes)[:-1])
-        self._slab = codec.encode_master(params)
-        self.device = self._slab.device
+        self.chunk_devices = (self.device,) if self.shards == 1 else tuple(
+            devices[i % len(devices)] for i in range(self.shards))
+        self._master = self._split(slab)
+        del slab
         self._staging = [torch.zeros((self.k_max, n), dtype=codec.slab_dtype,
-                                     device=self.device)
-                         for n in self.chunk_sizes]
+                                     device=d)
+                         for n, d in zip(self.chunk_sizes,
+                                         self.chunk_devices)]
         self._pub = codec.encode(params)
         self._zero_row = torch.zeros((codec.padded_size,),
                                      dtype=codec.slab_dtype,
                                      device=self.device)
         self._init_opt_state()
 
+    def _split(self, full: torch.Tensor) -> List[torch.Tensor]:
+        """A whole f32 slab as the chunks' tensors on their devices (the
+        slab itself when there is one chunk)."""
+        if self.shards == 1:
+            return [full]
+        return [full[off:off + n].to(d, copy=True) for off, n, d in zip(
+            self.chunk_offsets, self.chunk_sizes, self.chunk_devices)]
+
+    def _zeros(self) -> List[torch.Tensor]:
+        return [torch.zeros((n,), dtype=torch.float32, device=d)
+                for n, d in zip(self.chunk_sizes, self.chunk_devices)]
+
     def _init_opt_state(self) -> None:
         """Zero the f32 moment slabs and the int32 update count."""
         self._count = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._moments: Dict[str, torch.Tensor] = {
-            name: torch.zeros((self.codec.padded_size,),
-                              dtype=torch.float32, device=self.device)
-            for name in self.opt.moment_names}
+        self._moments: Dict[str, List[torch.Tensor]] = {
+            name: self._zeros() for name in self.opt.moment_names}
+
+    def _assemble(self, chunks: List[torch.Tensor]) -> torch.Tensor:
+        """The whole slab of per-chunk tensors, on the aggregator's
+        device (a fresh tensor)."""
+        if self.shards == 1:
+            return chunks[0].clone()
+        return torch.cat([c.to(self.device) for c in chunks])
 
     def _published(self) -> torch.Tensor:
         """A fresh copy of the master slab in the slab dtype."""
-        if self.codec.slab_dtype == torch.float32:
-            return self._slab.clone()
-        return self._slab.to(self.codec.slab_dtype)
+        if self.shards == 1 and self.codec.slab_dtype != torch.float32:
+            return self._master[0].to(self.codec.slab_dtype)
+        full = self._assemble(self._master)
+        return full if self.codec.slab_dtype == torch.float32 \
+            else full.to(self.codec.slab_dtype)
 
     def _chunks(self):
-        """(staging rows in f32 or bf16, slice of the P axis) per chunk."""
-        for rows, off, n in zip(self._staging, self.chunk_offsets,
-                                self.chunk_sizes):
-            yield (rows if rows.dtype == torch.float32 else rows.float(),
-                   slice(off, off + n))
+        """(staging rows in f32 or bf16, chunk index) per chunk."""
+        for i, rows in enumerate(self._staging):
+            yield (rows if rows.dtype == torch.float32 else rows.float()), i
+
+    def _on_devices(self, t: torch.Tensor) -> Dict[torch.device, Any]:
+        """``t`` (made on the aggregator's device) copied to each chunk's
+        device."""
+        return {d: t if d == t.device else t.to(d)
+                for d in set(self.chunk_devices)}
 
     # ------------------------------------------------------------- API
     def stage(self, slab: torch.Tensor, slot: int) -> None:
@@ -318,30 +359,36 @@ class SlabAggregator:
         wfull = np.zeros((self.k_max,), np.float32)
         wfull[:k] = np.asarray(weights, np.float32)
         w = to_device(wfull, self.device)
+        devs = self.chunk_devices
+        master = self._master
         if self.opt.name == "sgd":
-            wsum = w.sum()
-            for rows, sl in self._chunks():
-                agg = flush(rows, w)
-                self._slab[sl].sub_(agg.div_(wsum).mul_(scale))
+            ws = self._on_devices(w)
+            wsum = self._on_devices(w.sum())
+            for rows, i in self._chunks():
+                agg = flush(rows, ws[devs[i]])
+                master[i].sub_(agg.div_(wsum[devs[i]]).mul_(scale))
         elif self.opt.name == "momentum":
-            wn = w / w.sum()
+            wn = self._on_devices(w / w.sum())
             mu = self._moments["mu"]
-            for rows, sl in self._chunks():
-                _, new_mu = flush_momentum(rows, wn, mu[sl], self.opt.beta1)
-                _write(mu[sl], new_mu)
-            self._slab.sub_(mu * scale)
+            for rows, i in self._chunks():
+                _, new_mu = flush_momentum(rows, wn[devs[i]], mu[i],
+                                           self.opt.beta1)
+                _write(mu[i], new_mu)
+                master[i].sub_(mu[i] * scale)
             self._count += 1
         else:
-            wn = w / w.sum()
+            wn = self._on_devices(w / w.sum())
             c = self._count + 1
-            bc1, bc2 = bias_correction(c, self.opt.beta1, self.opt.beta2)
+            bc = [self._on_devices(b) for b in
+                  bias_correction(c, self.opt.beta1, self.opt.beta2)]
             mu, nu = self._moments["mu"], self._moments["nu"]
-            for rows, sl in self._chunks():
+            for rows, i in self._chunks():
+                d = devs[i]
                 new = flush_adamw(
-                    rows, wn, self._slab[sl], mu[sl], nu[sl], bc1, bc2,
+                    rows, wn[d], master[i], mu[i], nu[i], bc[0][d], bc[1][d],
                     scale, b1=self.opt.beta1, b2=self.opt.beta2,
                     eps=self.opt.eps, weight_decay=self.opt.weight_decay)
-                for dst, src in zip((self._slab[sl], mu[sl], nu[sl]), new):
+                for dst, src in zip((master[i], mu[i], nu[i]), new):
                     _write(dst, src)
             self._count = c
         self._pub = self._published()
@@ -358,7 +405,8 @@ class SlabAggregator:
 
     def reset_params(self, params) -> None:
         """Replace the live params (checkpoint restore)."""
-        self._slab = self.codec.encode_master(params).to(self.device)
+        self._master = self._split(
+            self.codec.encode_master(params).to(self.device))
         self._pub = self.codec.encode(params).to(self.device)
 
     def reset_opt_state(self, state: Optional[Dict[str, Any]] = None
@@ -382,7 +430,7 @@ class SlabAggregator:
             if full.shape != (self.codec.padded_size,):
                 raise ValueError(f"moment {name!r} has shape {full.shape},"
                                  f" the slab ({self.codec.padded_size},)")
-            moments[name] = to_device(full, self.device)
+            moments[name] = self._split(to_device(full, self.device))
         self._moments = moments
         self._count = torch.tensor(int(state["count"]), dtype=torch.int32,
                                    device=self.device)
@@ -394,8 +442,9 @@ class SlabAggregator:
         while it runs."""
         if self.opt.name == "sgd":
             return None
-        out: Dict[str, Any] = {name: m.cpu().numpy().copy()
-                               for name, m in self._moments.items()}
+        out: Dict[str, Any] = {
+            name: torch.cat([c.cpu() for c in m]).numpy()
+            for name, m in self._moments.items()}
         out["count"] = int(self._count)
         return out
 
@@ -429,7 +478,7 @@ class SlabAggregator:
         grown = []
         for old in self._staging:
             rows = torch.zeros((k_max, old.shape[1]), dtype=old.dtype,
-                               device=self.device)
+                               device=old.device)
             rows[:self.k_max].copy_(old)
             grown.append(rows)
         self._staging = grown

@@ -20,14 +20,15 @@ This module holds the single-process pieces, held against
 ``src/repro/core/spmd_hybrid.py``: trees with a leading replica axis of
 size R, their merge, reshard and divergence, the replica step
 and the phase plan.  :mod:`repro_torch.launch.train` runs them across
-ranks.  The reference's ``factored_mesh`` and ``replica_param_shardings``
-are the rank-group layout of :mod:`repro_torch.launch.mesh`: a replica
-is held whole on every rank of its group (ROADMAP C.30).
+ranks.  The reference's ``factored_mesh`` is the rank-group layout of
+:mod:`repro_torch.launch.mesh`; within a group the replica is sharded
+FSDP-style by :func:`replica_param_shardings` (``parallel/fsdp.py``
+places the tensors).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -36,6 +37,7 @@ from repro_torch.core import gradient
 from repro_torch.core.schedule import ThresholdSchedule, group_size_phases
 from repro_torch.core.slab import slab_codec
 from repro_torch.kernels.hybrid_aggregate import flush
+from repro_torch.parallel.partition import param_shardings
 
 
 def replica(params_R, r: int):
@@ -59,41 +61,70 @@ def merge_replicas(params_R, alpha: float = 1.0):
 
     alpha < 1 gives a partial (Lookahead-style) merge:
     θ_r <- α·mean + (1-α)·θ_r.  This is the per-leaf reference; phase
-    switches use :func:`merge_replicas_slab`, which takes the same
-    reduction through the flush kernel."""
+    switches use :func:`merge_rows`, which takes the same reduction
+    through the flush kernel."""
     def m(p):
         mean = torch.mean(p, dim=0, keepdim=True)
         return alpha * mean.expand(p.shape) + (1 - alpha) * p
     return tree_map(m, params_R)
 
 
-def merge_replicas_slab(params_R, alpha: float = 1.0,
-                        rows: Optional[torch.Tensor] = None):
-    """The hybrid flush on the slab path: the R replicas are encoded into
-    an ``(R, P)`` slab, summed by the parameter server's flush kernel
-    (:func:`repro_torch.kernels.hybrid_aggregate.flush` with weights
-    ``ones(R)``: one launch at K = R on the card), divided by R, decoded
-    and α-blended exactly like :func:`merge_replicas`.
+def slab_segments(codec, lo: int = 0, hi: Optional[int] = None,
+                  join: bool = True) -> List[Tuple[int, int, torch.dtype]]:
+    """The live parts of ``codec``'s slab within ``[lo, hi)`` as
+    ``(a, b, dtype)`` relative to ``lo``, in the codec's leaf order (the
+    padding left out).  ``join`` joins neighbouring leaves of one dtype
+    (for steps that are elementwise); without it there is one entry per
+    leaf that meets the range."""
+    hi = codec.padded_size if hi is None else hi
+    out: List[Tuple[int, int, torch.dtype]] = []
+    for off, n, dt in zip(codec.offsets, codec.sizes, codec.dtypes):
+        a, b = max(off, lo) - lo, min(off + n, hi) - lo
+        if a >= b:
+            continue
+        if join and out and out[-1][1] == a and out[-1][2] == dt:
+            out[-1] = (out[-1][0], b, dt)
+        else:
+            out.append((a, b, dt))
+    return out
 
-    ``rows`` is that ``(R, P)`` float32 slab when the caller holds it
-    already (the train driver gathers it from the ranks); it must be the
-    encoding of ``params_R``."""
+
+def merge_rows(rows: torch.Tensor, segments, alpha: float = 1.0
+               ) -> torch.Tensor:
+    """The merge on ``(R, c)`` float32 rows, R replicas' slabs or the
+    same P-range of each (``segments`` from :func:`slab_segments` over
+    that range): the R rows summed by the parameter server's flush
+    kernel (:func:`repro_torch.kernels.hybrid_aggregate.flush` with
+    weights ``ones(R)``: one launch at K = R on the card), divided by R,
+    and per segment cast to the leaf's dtype and alpha-blended with each
+    replica, as :func:`merge_replicas` does a leaf.  Returns ``(R, c)``
+    float32 rows (the padding zero).  Elementwise along P, so merging a
+    slab's P-chunks one by one is merging it whole, bit for bit."""
+    R, c = rows.shape
+    out = torch.zeros_like(rows)
+    if c == 0:
+        return out
+    mean = flush(rows, torch.ones((R,), dtype=torch.float32,
+                                  device=rows.device)) / R
+    for a, b, dt in segments:
+        reps = rows[:, a:b].to(dt)
+        out[:, a:b] = (alpha * mean[a:b].to(dt).unsqueeze(0).expand(
+            reps.shape) + (1 - alpha) * reps).float()
+    return out
+
+
+def merge_replicas_slab(params_R, alpha: float = 1.0):
+    """The hybrid flush on the slab path: the R replicas are encoded into
+    an ``(R, P)`` float32 slab, merged by :func:`merge_rows` (the flush
+    kernel at K = R) and decoded; the same values as
+    :func:`merge_replicas`.  The train driver runs :func:`merge_rows`
+    on each rank's P-chunk of the slab."""
     codec = slab_codec(replica(params_R, 0))
     R = tree_leaves(params_R)[0].shape[0]
-    if rows is None:
-        rows = torch.stack([codec.encode(replica(params_R, r))
-                            for r in range(R)])
-    elif tuple(rows.shape) != (R, codec.padded_size):
-        raise ValueError(f"rows must be ({R}, {codec.padded_size}), got "
-                         f"{tuple(rows.shape)}")
-    total = flush(rows, torch.ones((R,), dtype=torch.float32,
-                                   device=rows.device))
-    mean_tree = codec.decode(total / R)
-
-    def m(mean_leaf, p):
-        return alpha * mean_leaf.unsqueeze(0).expand(p.shape) \
-            + (1 - alpha) * p
-    return tree_map(m, mean_tree, params_R)
+    rows = torch.stack([codec.encode_master(replica(params_R, r))
+                        for r in range(R)])
+    merged = merge_rows(rows, slab_segments(codec), alpha)
+    return stack_replicas([codec.decode(merged[r]) for r in range(R)])
 
 
 def reshard_replicas(params_R, R_new: int):
@@ -187,9 +218,10 @@ def min_group_size(param_bytes: int, opt_bytes: int, model_axis: int,
                    act_budget_frac: float = 0.5,
                    device: Optional[torch.device] = None) -> int:
     """Smallest replica-group size whose per-card state fits in device
-    memory, if a replica were sharded over its group (this port holds it
-    whole, C.30).  ``hbm_per_chip`` is read from ``device``'s properties
-    when not given; on the CPU the caller passes it."""
+    memory, the replica sharded over its group
+    (:func:`replica_param_shardings`).  ``hbm_per_chip`` is read from
+    ``device``'s properties when not given; on the CPU the caller passes
+    it."""
     if hbm_per_chip is None:
         dev = torch.device(device) if device is not None else None
         if dev is None or dev.type != "cuda":
@@ -201,3 +233,14 @@ def min_group_size(param_bytes: int, opt_bytes: int, model_axis: int,
     while (param_bytes + opt_bytes) / (g * model_axis) > budget:
         g *= 2
     return g
+
+
+def replica_param_shardings(params, g: int):
+    """What each rank of a replica group of ``g`` ranks holds of each
+    leaf: its shard shape under the logical partition rules, FSDP over
+    ``data`` within the group (the ``model`` axis is 1 in this port),
+    sanitized for divisibility.  The reference returns the
+    ``NamedSharding``s (``src/repro/core/spmd_hybrid.py:185-207``) with
+    a leading ``rep`` axis; a rank here holds one replica, so the shapes
+    have none."""
+    return param_shardings(params, {"data": g, "model": 1})

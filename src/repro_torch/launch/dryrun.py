@@ -15,15 +15,18 @@ A layout is ``--cards N`` H100s on the data axis (the ``model`` axis is
 cards for the group-annealed step.  Each record holds two layouts side
 by side:
 
-* ``spmd_whole_replica``: the port today (ROADMAP C.30): every card
-  holds its replica whole (params, AdamW moments, the decode cache of
-  its batch rows) and a train step all-reduces one float32 gradient
-  slab over its group;
-* ``fsdp_partition_rules``: the reference's layout, which ROADMAP A16
-  brings: params, moments and cache sharded over the group's cards by
-  ``parallel/partition.py``; a train step all-gathers each sharded leaf
-  for the forward and again for the backward and reduce-scatters its
-  gradient, and all-reduces the replicated leaves' gradients.
+* ``spmd_whole_replica``: every card holds its replica whole (params,
+  AdamW moments, the decode cache of its batch rows) and a train step
+  all-reduces one float32 gradient slab over its group;
+* ``fsdp_partition_rules``: the reference's layout, which the SPMD
+  driver runs (``parallel/fsdp.py``): params, moments and cache sharded
+  over the group's cards by ``parallel/partition.py``.  With more than
+  one card a train step's peak and collectives are traced through the
+  FSDP step itself: each part gathered where it is used (a
+  rematerialised group again in its recompute), each gradient
+  reduce-scattered in float32, the whole leaves' gradients all-reduced,
+  the update on the shards.  A serving step's FSDP peak is an estimate:
+  the held state replaced by its shards plus one group's layer.
 
 Collective bytes are what each card sends on a ring: ``2 (g-1)/g`` of
 the bytes for an all-reduce over g cards, ``(g-1)/g`` for an all-gather
@@ -50,6 +53,7 @@ config's unless ``--remat`` overrides it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -70,6 +74,7 @@ from repro_torch.launch.steps import (card_memory_bytes, derive_microbatch,
                                       make_train_step)
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel.fsdp import GroupShards
 from repro_torch.parallel.partition import (cache_shardings,
                                             opt_state_shardings,
                                             param_shardings)
@@ -115,7 +120,7 @@ def _check_mesh(mesh_kind: Optional[str]) -> None:
     if mesh_kind is not None:
         raise ValueError(
             f"--mesh {mesh_kind}: a 16-wide model axis (tensor-parallel "
-            "activations and collectives) is ROADMAP A16; the port's "
+            "activations and collectives) is ROADMAP A16b; the port's "
             "layouts are --cards N on the data axis")
 
 
@@ -126,12 +131,45 @@ def _per_card_batch(B: int, g: int) -> int:
     return B // g if B % g == 0 else B
 
 
+class _CountingComm:
+    """The collectives of a traced FSDP step (``parallel/fsdp.py``):
+    nothing moves, the tensors being meta; each call's bytes a card
+    sends on a ring are counted by kind."""
+
+    def __init__(self):
+        self.bytes = {"all-gather": 0.0, "reduce-scatter": 0.0,
+                      "all-reduce": 0.0}
+
+    @contextlib.contextmanager
+    def timing(self, kind):
+        yield
+
+    def all_gather_(self, out, t, g):
+        self.bytes["all-gather"] += _nbytes(out) * _ring(g)
+
+    def reduce_scatter_(self, out, t, g):
+        self.bytes["reduce-scatter"] += _nbytes(t) * _ring(g)
+
+    def all_reduce_sum_(self, t, g):
+        self.bytes["all-reduce"] += 2 * _nbytes(t) * _ring(g)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
 def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
-               accum_dtype: str = "float32", hybrid_rep: int = 1):
+               accum_dtype: str = "float32", hybrid_rep: int = 1,
+               fsdp: bool = False, optimizer=None):
     """``(fn, args, info)``: the step a card runs, on meta tensors.
     ``arch`` is a registry name or a ``ModelConfig``, ``shape`` a name in
     ``SHAPES`` or an ``InputShape``.  ``info`` has the config, the
-    per-card batch and the state trees."""
+    per-card batch and the state trees.  With ``fsdp`` a train step is
+    the FSDP layout's (``parallel/fsdp.py``) over the group's cards:
+    params and optimizer state are one card's shards, the forward
+    gathers each part where it is used and the backward
+    reduce-scatters; ``info["comm"]`` counts its collective bytes.
+    ``optimizer`` is the train step's (default AdamW, lr 3e-4)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     if cards % hybrid_rep:
@@ -146,11 +184,26 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
         if b % microbatch:
             raise ValueError(f"microbatch {microbatch} does not divide the "
                              f"per-card batch {b}")
-        opt = adamw(3e-4)
+        opt = optimizer or adamw(3e-4)
+        kw = {}
+        if fsdp and info["group"] > 1:
+            comm = info["comm"] = _CountingComm()
+            sharding = GroupShards(params, info["group"], 0, comm)
+            params = sharding.shard(params)
+            kw = {"reduce_grads": sharding.group_mean,
+                  "gather": sharding.gather}
         opt_state = opt.init(params)
         info["opt_state"] = opt_state
         step = make_train_step(cfg, opt, microbatch=microbatch,
-                               accum_dtype=getattr(torch, accum_dtype))
+                               accum_dtype=getattr(torch, accum_dtype),
+                               **kw)
+        if "comm" in info:
+            counted = step
+
+            def step(*args):
+                # an analysis may trace the step twice: count the last
+                info["comm"].__init__()
+                return counted(*args)
         return step, (params, opt_state, specs["batch"]), info
     if shape.kind == "prefill":
         def prefill(params, batch):
@@ -172,8 +225,12 @@ def _ring(g: int) -> float:
     return (g - 1) / g
 
 
-def _layouts(shape, info, report: C.Report) -> Dict[str, Any]:
-    """Per-card state, peak and collectives in both layouts."""
+def _layouts(shape, info, report: C.Report, traced=None
+             ) -> Dict[str, Any]:
+    """Per-card state, peak and collectives in both layouts.  ``traced``
+    is ``(report, info)`` of the FSDP layout's own train step
+    (:func:`build_step` with ``fsdp``), whose peak and collectives are
+    then the traced ones."""
     g = info["group"]
     params = info["params"]
     mesh = {"data": g, "model": 1}
@@ -201,34 +258,34 @@ def _layouts(shape, info, report: C.Report) -> Dict[str, Any]:
                             device="meta")
         sharded["cache"] = shard_bytes(
             cache_shardings(full, shape.global_batch, mesh), full)
-    gathered = 0
-    ag = rs = ar = 0.0
-    for shard, leaf in zip(_shape_leaves(p_sh), tree_leaves(params)):
-        nb = leaf.numel() * leaf.element_size()
-        if _numel(shard) < leaf.numel():
-            ag += nb * _ring(g) * (2 if shape.kind == "train" else 1)
-            rs += nb * _ring(g) if shape.kind == "train" else 0
-        elif shape.kind == "train":
-            ar += 2 * nb * _ring(g)
-    for grp in params["groups"]:       # one group's layer gathered at once
-        gathered = max(gathered, sum(
-            C.alloc_bytes(t[0].numel() * t.element_size())
-            for t in tree_leaves(grp)))
-    held_whole = sum(whole.values())
-    held_sharded = sum(sharded.values())
     spmd_coll = {"all-reduce": 2 * 4 * _num_params(params) * _ring(g)
                  if shape.kind == "train" else 0.0}
-    fsdp_coll = {"all-gather": ag, "reduce-scatter": rs, "all-reduce": ar}
     spmd_peak = report.peak_bytes
-    gathered = gathered if g > 1 else 0
-    # the forward (and backward): the held state shrinks to its shards,
-    # one group's layer is gathered whole at a time, activations as
-    # traced; the optimizer update (every tensor in it is the size of
-    # the params or a moment): all of it sharded
-    fsdp_peak = report.phases["start"]["peak"] - held_whole + held_sharded \
-        + gathered
-    if "update" in report.phases:
-        fsdp_peak = max(fsdp_peak, report.phases["update"]["peak"] / g)
+    if traced is not None:
+        f_report, f_info = traced
+        counted = f_info["comm"].bytes
+        m = f_info["microbatch"]
+        fsdp_peak = f_report.peak_bytes
+        fsdp_coll = {"all-gather": counted["all-gather"] * m,
+                     "reduce-scatter": counted["reduce-scatter"] * m,
+                     "all-reduce": counted["all-reduce"]}
+    else:
+        # a serving step (or one card): the held state shrinks to its
+        # shards and one group's layer is gathered whole at a time, each
+        # sharded leaf once
+        ag = sum(leaf.numel() * leaf.element_size() * _ring(g)
+                 for shard, leaf in zip(_shape_leaves(p_sh),
+                                        tree_leaves(params))
+                 if _numel(shard) < leaf.numel())
+        gathered = max(sum(C.alloc_bytes(t[0].numel() * t.element_size())
+                           for t in tree_leaves(grp))
+                       for grp in params["groups"]) if g > 1 else 0
+        fsdp_peak = report.phases["start"]["peak"] - sum(whole.values()) \
+            + sum(sharded.values()) + gathered
+        if "update" in report.phases:
+            fsdp_peak = max(fsdp_peak, report.phases["update"]["peak"])
+        fsdp_coll = {"all-gather": ag, "reduce-scatter": 0.0,
+                     "all-reduce": 0.0}
     out = {}
     for name, st, peak, coll in (
             (SPMD, whole, spmd_peak, spmd_coll),
@@ -238,10 +295,15 @@ def _layouts(shape, info, report: C.Report) -> Dict[str, Any]:
             "peak_bytes": int(peak),
             "collective_bytes_per_device": {"total": sum(coll.values()),
                                             **coll}}
-    out[FSDP]["peak_is_estimate"] = (
-        "forward/backward: the traced peak with the held state replaced by "
-        "its shards plus one group's layer gathered whole; optimizer "
-        "update: its traced peak over the group's cards")
+    if traced is not None:
+        out[FSDP]["peak_traced"] = (
+            "the FSDP train step traced on one card's shards: each part "
+            "gathered where it is used, the backward's reduce-scatters, "
+            "the update on the shards; collectives counted from its calls")
+    else:
+        out[FSDP]["peak_is_estimate"] = (
+            "the traced peak with the held state replaced by its shards "
+            "plus one group's layer gathered whole")
     return out
 
 
@@ -267,12 +329,31 @@ def _num_params(params) -> int:
 
 
 def analyze_step(arch, shape, cards: int = 1, microbatch: int = 1,
-                 accum_dtype: str = "float32", hybrid_rep: int = 1):
+                 accum_dtype: str = "float32", hybrid_rep: int = 1,
+                 fsdp: bool = False, optimizer=None):
     """``(Report, info)`` of the step :func:`build_step` builds."""
     fn, args, info = build_step(arch, shape, cards, microbatch, accum_dtype,
-                                hybrid_rep)
+                                hybrid_rep, fsdp, optimizer)
+    info["microbatch"] = microbatch
     _, report = C.analyze(fn, *args)
     return report, info
+
+
+def fsdp_layout(arch, shape, cards: int, microbatch: int = 1,
+                hybrid_rep: int = 1, optimizer=None) -> Dict[str, Any]:
+    """The ``fsdp_partition_rules`` layout of one train step (per-card
+    state bytes, peak, collective bytes), its peak traced through the
+    FSDP step with ``cards // hybrid_rep`` cards a group: what a card of
+    the SPMD driver's phase holds.  ``shape`` may be an ``InputShape``
+    of the caller's (a smoke run's own batch and length)."""
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    report, info = analyze_step(arch, shape, cards, microbatch,
+                                hybrid_rep=hybrid_rep, optimizer=optimizer)
+    traced = analyze_step(arch, shape, cards, microbatch,
+                          hybrid_rep=hybrid_rep, fsdp=True,
+                          optimizer=optimizer) \
+        if info["group"] > 1 else None
+    return _layouts(shape, info, report, traced)[FSDP]
 
 
 def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
@@ -313,7 +394,11 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             microbatch = microbatch or 1
             report, info = analyze_step(cfg, shape_name, cards,
                                         microbatch, accum_dtype, hybrid_rep)
-        layouts = _layouts(shape, info, report)
+        traced = None
+        if shape.kind == "train" and info["group"] > 1:
+            traced = analyze_step(cfg, shape_name, cards, microbatch,
+                                  accum_dtype, hybrid_rep, fsdp=True)
+        layouts = _layouts(shape, info, report, traced)
         dtype = getattr(torch, cfg.dtype)
         spmd = layouts[SPMD]
         result.update({
@@ -407,7 +492,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", choices=("pod", "multipod", "both"),
                     default=None,
                     help="pod/multipod/both (a 16-wide model axis) are "
-                         "ROADMAP A16 and refused")
+                         "ROADMAP A16b and refused")
     ap.add_argument("--cards", type=int, default=1,
                     help="H100s on the data axis (default 1)")
     ap.add_argument("--all", action="store_true")

@@ -25,6 +25,7 @@ import contextlib
 import logging
 import os
 import time
+import warnings
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -37,6 +38,10 @@ log = logging.getLogger("repro_torch.launch.mesh")
 # elements per staged piece of a collective (128 MB of float32): the
 # pinned host buffer a rank keeps, and well below gloo's 2 GiB messages
 STAGE_ELEMS = 1 << 25
+
+# timed NCCL calls whose CUDA events a rank holds before it reads the
+# older half of them
+EVENTS_HELD = 4096
 
 
 def world() -> Tuple[int, int]:
@@ -125,22 +130,33 @@ class Collectives:
     """The collectives of one rank, each on one flat tensor.
 
     gloo aborts a rank that sends or receives a CUDA tensor (ROADMAP
-    C.31), so with gloo every collective on a CUDA tensor, one path for
-    all of them, is staged through a pinned host buffer in pieces of
-    :data:`STAGE_ELEMS` (:meth:`_staged`).  Compute never leaves the
-    card; only the bytes that cross ranks pass through the host.  NCCL
+    C.31), so with gloo every collective on a CUDA tensor is staged
+    through host memory: an all-reduce, in place, through a pinned host
+    buffer in pieces of :data:`STAGE_ELEMS` (:meth:`_staged`); a gather,
+    a scatter or an all-to-all, whose output is another tensor, through
+    host copies made for the call (:meth:`_staged_pair`).  Compute never
+    leaves the card; only the bytes that cross ranks pass through the
+    host.  NCCL
     takes the CUDA tensors as they are.  With one rank every collective
-    is the identity.  ``seconds`` adds up the host time spent in them,
-    waits for the other ranks included (NCCL's are asynchronous), and
-    ``seconds_by`` splits it by the label of :meth:`timing` around each
-    call."""
+    is the identity.  ``seconds`` adds up the time spent in them, waits
+    for the other ranks included, and ``seconds_by`` splits it by the
+    label of :meth:`timing` around each call.  Under gloo it is the
+    host's clock around the call.  NCCL's collectives return before
+    their work is done, so under NCCL each call is timed by two CUDA
+    events recorded on the card's current stream, before the call and
+    after it (the stream waits for the collective there): the seconds
+    are the collective's own on the device, the compute queued before it
+    not counted, and nothing synchronizes the card.  The events are read
+    when ``seconds`` or ``seconds_by`` is, or once
+    :data:`EVENTS_HELD` are waiting."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.rank, self.world = world()
         self.backend = dist.get_backend() if self.world > 1 else None
-        self.seconds = 0.0
-        self.seconds_by: Dict[str, float] = {}
+        self._seconds = 0.0
+        self._by: Dict[str, float] = {}
+        self._events: List[Tuple[str, object, object]] = []
         self._kind = "other"
         self._groups: Dict[int, object] = {}
         self._pinned: Dict[torch.dtype, torch.Tensor] = {}
@@ -169,19 +185,70 @@ class Collectives:
         finally:
             self._kind = outer
 
-    def _staged(self, t: torch.Tensor, op, read: bool = True,
-                write: bool = True) -> None:
-        """``op(piece)`` on every piece of flat ``t``.  With gloo and a
-        CUDA tensor each piece goes through the pinned host buffer:
-        copied in when ``op`` reads it, back when ``op`` writes it."""
-        t0 = time.perf_counter()
-        self._pieces(t, op, read, write)
-        dt = time.perf_counter() - t0
-        self.seconds += dt
-        self.seconds_by[self._kind] = self.seconds_by.get(self._kind,
-                                                          0.0) + dt
+    @property
+    def seconds(self) -> float:
+        self._settle(len(self._events))
+        return self._seconds
 
-    def _pieces(self, t: torch.Tensor, op, read: bool, write: bool) -> None:
+    @property
+    def seconds_by(self) -> Dict[str, float]:
+        self._settle(len(self._events))
+        return dict(self._by)
+
+    def _add(self, kind: str, dt: float) -> None:
+        self._seconds += dt
+        self._by[kind] = self._by.get(kind, 0.0) + dt
+
+    def _settle(self, n: int) -> None:
+        """Add the first ``n`` timed NCCL calls' event times (waits for
+        their end events)."""
+        for kind, start, end in self._events[:n]:
+            end.synchronize()
+            self._add(kind, start.elapsed_time(end) / 1e3)
+        del self._events[:n]
+
+    @contextlib.contextmanager
+    def _clock(self, t: torch.Tensor) -> Iterator[None]:
+        """Add the block's seconds to ``seconds`` and to the current
+        kind: the host's clock, or under NCCL the device's, from CUDA
+        events on ``t``'s card's current stream."""
+        if self.backend == "nccl" and t.device.type == "cuda":
+            stream = torch.cuda.current_stream(t.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            yield
+            end.record(stream)
+            self._events.append((self._kind, start, end))
+            if len(self._events) >= EVENTS_HELD:
+                self._settle(EVENTS_HELD // 2)
+            return
+        t0 = time.perf_counter()
+        yield
+        self._add(self._kind, time.perf_counter() - t0)
+
+    def _staged(self, t: torch.Tensor, op) -> None:
+        """``op(piece)`` on every piece of flat ``t``, in place.  With
+        gloo and a CUDA tensor each piece goes through the pinned host
+        buffer, copied in and back."""
+        with self._clock(t):
+            self._pieces(t, op)
+
+    def _staged_pair(self, out: torch.Tensor, inp: torch.Tensor,
+                     op) -> None:
+        """``op(out, inp)`` for a collective that reads ``inp`` and
+        writes ``out`` (flat, of other sizes).  With gloo and CUDA
+        tensors both go through host copies made for the call."""
+        with self._clock(out):
+            if self.backend != "gloo" or out.device.type != "cuda":
+                op(out, inp)
+                return
+            host_out = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+            op(host_out, inp.cpu())
+            out.copy_(host_out)
+
+    def _pieces(self, t: torch.Tensor, op) -> None:
         if self.backend != "gloo" or t.device.type != "cuda":
             op(t)
             return
@@ -193,11 +260,9 @@ class Collectives:
         for lo in range(0, flat.numel(), STAGE_ELEMS):
             piece = flat[lo:lo + STAGE_ELEMS]
             host = buf[:piece.numel()]
-            if read:
-                host.copy_(piece)
+            host.copy_(piece)
             op(host)
-            if write:
-                piece.copy_(host)
+            piece.copy_(host)
 
     def all_reduce_sum_(self, t: torch.Tensor, g: int) -> None:
         """Sum ``t`` in place over this rank's replica group of size g."""
@@ -206,16 +271,53 @@ class Collectives:
         grp = self.group(g)
         self._staged(t, lambda x: dist.all_reduce(x, group=grp))
 
-    def broadcast_(self, t: torch.Tensor, src: int = 0) -> None:
-        if self.world > 1:
-            self._staged(t, lambda x: dist.broadcast(x, src),
-                         read=self.rank == src, write=self.rank != src)
+    def all_gather_(self, out: torch.Tensor, t: torch.Tensor,
+                    g: int) -> None:
+        """``out`` (flat, g times ``t``'s size) <- the flat ``t`` of each
+        rank of this rank's replica group of size g, in rank order."""
+        if g == 1:
+            out.copy_(t)
+            return
+        grp = self.group(g)
+        self._staged_pair(out, t, lambda o, i: _quiet(
+            dist.all_gather_into_tensor, o, i, group=grp))
 
-    def send(self, t: torch.Tensor, dst: int) -> None:
-        self._staged(t, lambda x: dist.send(x, dst), write=False)
+    def reduce_scatter_(self, out: torch.Tensor, t: torch.Tensor,
+                        g: int) -> None:
+        """``out`` <- this rank's 1/g of flat ``t`` summed over its
+        replica group of size g (rank k of the group takes the k-th
+        slice)."""
+        if g == 1:
+            out.copy_(t)
+            return
+        grp = self.group(g)
+        self._staged_pair(out, t, lambda o, i: _quiet(
+            dist.reduce_scatter_tensor, o, i, group=grp))
 
-    def recv_(self, t: torch.Tensor, src: int) -> None:
-        self._staged(t, lambda x: dist.recv(x, src), read=False)
+    def all_to_all_(self, out: torch.Tensor, t: torch.Tensor,
+                    out_splits: Sequence[int],
+                    in_splits: Sequence[int]) -> None:
+        """Over the whole world: rank k gets ``in_splits[k]`` elements of
+        flat ``t`` (consecutive slices, in rank order), and ``out`` is
+        what each rank sent this one, ``out_splits[j]`` from rank j."""
+        if self.world == 1:
+            out.copy_(t)
+            return
+        self._staged_pair(out, t, lambda o, i: dist.all_to_all_single(
+            o, i, list(out_splits), list(in_splits)))
+
+    def sum_world(self, t: torch.Tensor) -> torch.Tensor:
+        """A small tensor summed over the world in float64 (one
+        all-reduce: on the card under NCCL, on the host under gloo),
+        returned on the host."""
+        x = t.detach().to(torch.float64)
+        if self.world == 1:
+            return x.cpu()
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        x = x.to(dev)
+        with self._clock(x):
+            dist.all_reduce(x)
+        return x.cpu()
 
     def gather_host(self, values: Sequence[float]) -> List[List[float]]:
         """Every rank's ``values`` (same length on each), by rank."""
@@ -230,3 +332,12 @@ class Collectives:
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier()
+
+
+def _quiet(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` without the ``FutureWarning`` some torch
+    versions give for the ``*_tensor`` collectives' names (the names
+    every version the port runs on has)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return fn(*args, **kwargs)

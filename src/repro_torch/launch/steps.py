@@ -66,7 +66,8 @@ def derive_microbatch(per_card_batch: int, peak_of: Callable[[int], int],
 
 def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
                     accum_dtype: torch.dtype = torch.float32,
-                    reduce_grads: Optional[Callable] = None):
+                    reduce_grads: Optional[Callable] = None,
+                    gather: Optional[Callable] = None):
     """``(params, opt_state, batch) -> (params, opt_state, loss)``.
 
     ``microbatch > 1`` splits the batch into that many slices taken one
@@ -74,9 +75,12 @@ def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
     by ``microbatch``; the loss is the mean of theirs.
     ``reduce_grads(grads) -> grads``, when given, runs between the
     gradient and the update: the SPMD driver averages the gradient over
-    a replica group there."""
+    a replica group there.  ``gather`` is the model's (params and
+    optimizer state are a rank's FSDP shards, ``parallel/fsdp.py``):
+    each micro-batch's backward then reduce-scatters its gradient, and
+    the update runs on the shards."""
     grad_fn = gradient.grad_and_value(
-        lambda p, b: M.loss_fn(p, b, cfg), has_aux=True)
+        lambda p, b: M.loss_fn(p, b, cfg, gather=gather), has_aux=True)
 
     def train_step(params, opt_state, batch):
         if microbatch == 1:

@@ -11,13 +11,25 @@ Modes:
 Every rank of a ``torch.distributed`` job runs :func:`run_training`
 (launched by ``torchrun``; with no process group it is one rank, and
 R = 1).  Each step a rank takes the gradient of its own rows of the
-batch; with g > 1 the gradient is averaged over its replica group and
-every rank of the group applies the same update.  At a phase switch one
-rank per group sends its replica's slab to rank 0, which merges the
-``(R, P)`` rows through the flush kernel (one launch at K = R), reshards
-them to the next phase's R and broadcasts the result; each rank takes
-its new group's replica.  Rank 0 writes the history, the checkpoints and
-``out_json``.
+batch.  With g > 1 a replica group holds its replica in the reference's
+FSDP layout (``parallel/fsdp.py``): each rank keeps its shards of the
+params and of the optimizer state, the forward gathers each part where
+it is used, the backward reduce-scatters the gradient, summed over the
+group, and the update runs on the shards.
+
+The merges and the divergence are split along P: the slab's P axis is
+cut into one tile-aligned chunk per rank (``core/slab.py::shard_chunks``)
+and rank j receives chunk j of every replica's slab (one all-to-all,
+after each group gathers its replica).  A merge flushes that ``(R, c)``
+chunk through the flush kernel (one launch at K = R on each rank),
+divides by R, alpha-blends and reshards it; the next phase's replicas
+are assembled from the merged chunks (another all-to-all) and sharded
+by the next phase's layout.  The flush is elementwise along P, so this
+is the unsharded merge bit for bit.  The divergence of a logged step
+sums each leaf's squared distances within each chunk, in the leaf's
+dtype as the reference does, and all-reduces one vector of those sums.
+Checkpoints and the returned params are assembled on rank 0, which
+writes the history, the checkpoints and ``out_json``.
 
 Example (equivalently ``python -m repro_torch run --backend spmd ...``):
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
@@ -31,25 +43,27 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.ckpt import save_checkpoint
 from repro_torch.configs.registry import ARCH_NAMES, get_config, smoke_variant
 from repro_torch.convert import Device, params_from_numpy, tree_to
-from repro_torch.core.slab import SlabCodec, slab_codec
-from repro_torch.core.spmd_hybrid import (build_phases, merge_replicas_slab,
-                                          replica, replica_divergence,
-                                          reshard_replicas, stack_replicas)
+from repro_torch.core.slab import SlabCodec, shard_chunks, slab_codec
+from repro_torch.core.spmd_hybrid import (build_phases, merge_rows,
+                                         reshard_replicas, slab_segments)
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.data.synthetic import token_stream
 from repro_torch.kernels import hybrid_aggregate
+from repro_torch.launch.cost import tree_bytes
 from repro_torch.launch.mesh import (Collectives, describe_layout,
                                      distributed, rank_device)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import adamw, momentum, sgd
+from repro_torch.parallel.fsdp import GroupShards
 
 
 def _optimizer(spec):
@@ -75,42 +89,106 @@ def _phases(spec, data_axis: int) -> List[Tuple[int, int]]:
             for p in build_phases(sched, spec.steps, data_axis)]
 
 
-def _gather_rows(comm: Collectives, slab: torch.Tensor, R: int,
-                 g: int) -> Optional[torch.Tensor]:
-    """The ``(R, P)`` slab of the R replicas on rank 0 (None elsewhere):
-    the first rank of each group sends its replica's slab."""
-    if comm.rank == 0:
-        rows = torch.empty((R,) + tuple(slab.shape), dtype=slab.dtype,
-                           device=slab.device)
-        rows[0].copy_(slab)
-        for r in range(1, R):
-            comm.recv_(rows[r], r * g)
-        return rows
-    if comm.rank % g == 0:
-        comm.send(slab, 0)
-    return None
+class _Chunks:
+    """The slab's P axis split into one tile-aligned chunk per rank
+    (``core/slab.py::shard_chunks``; a rank past the tiles has an
+    empty one): where a merge and the divergence run."""
 
+    def __init__(self, codec: SlabCodec, comm: Collectives):
+        W = comm.world
+        sizes = shard_chunks(codec.padded_size, W)
+        self.sizes = sizes + (0,) * (W - len(sizes))
+        self.offsets = tuple(int(o) for o in
+                             np.cumsum((0,) + self.sizes)[:-1])
+        self.comm = comm
+        lo = self.offsets[comm.rank]
+        self.mine = slice(lo, lo + self.sizes[comm.rank])
+        self.segments = slab_segments(codec, lo, self.mine.stop)
+        # (leaf index, a, b, dtype) of each leaf that meets this chunk
+        self.dtypes = codec.dtypes
+        self.leaves = [(i, max(off, lo) - lo,
+                        min(off + n, self.mine.stop) - lo, dt)
+                       for i, (off, n, dt) in enumerate(zip(
+                           codec.offsets, codec.sizes, codec.dtypes))
+                       if max(off, lo) < min(off + n, self.mine.stop)]
 
-def _replicas(codec: SlabCodec, rows: torch.Tensor):
-    """The tree with a leading replica axis that ``rows`` encodes."""
-    return stack_replicas([codec.decode(rows[r])
-                           for r in range(rows.shape[0])])
+    def rows(self, slab: torch.Tensor, g: int) -> torch.Tensor:
+        """``(R, c)``: this rank's chunk of every replica's slab, from
+        ``slab``, the whole slab of this rank's replica (one
+        all-to-all: member k of group r sends chunk j to the ranks j
+        with j % g == k)."""
+        comm, W = self.comm, self.comm.world
+        k = comm.rank % g
+        send = [j for j in range(W) if j % g == k]
+        inp = torch.cat([slab[self.offsets[j]:self.offsets[j]
+                              + self.sizes[j]] for j in send])
+        c = self.sizes[comm.rank]
+        out = slab.new_empty((W // g * c,))
+        comm.all_to_all_(
+            out, inp, [c if s % g == comm.rank % g else 0
+                       for s in range(W)],
+            [self.sizes[j] if j % g == k else 0 for j in range(W)])
+        return out.view(W // g, c)
 
+    def assemble(self, rows: torch.Tensor,
+                 row_for: Sequence[Optional[int]]) -> Optional[torch.Tensor]:
+        """Rank k gets the whole slab of row ``row_for[k]`` of the
+        ``(n, c)`` chunk rows every rank holds (one all-to-all); a rank
+        whose entry is None gets None."""
+        comm, W = self.comm, self.comm.world
+        mine = row_for[comm.rank]
+        inp = torch.cat([rows[row_for[k]] for k in range(W)
+                         if row_for[k] is not None])
+        out = rows.new_empty((self.offsets[-1] + self.sizes[-1]
+                              if mine is not None else 0,))
+        comm.all_to_all_(
+            out, inp, [self.sizes[j] if mine is not None else 0
+                       for j in range(W)],
+            [rows.shape[1] if row_for[k] is not None else 0
+             for k in range(W)])
+        return out if mine is not None else None
 
-def _group_mean(codec: SlabCodec, comm: Collectives, g: int):
-    """The gradient averaged over this rank's replica group, as one
-    float32 slab summed across the group."""
-    def reduce(grads):
-        slab = codec.encode_master(grads)
-        with comm.timing("gradient"):
-            comm.all_reduce_sum_(slab, g)
-        return codec.decode(slab / g)
-    return reduce
+    def merge(self, rows: torch.Tensor, alpha: float) -> torch.Tensor:
+        """:func:`merge_rows` on this chunk (one flush launch at K = R),
+        as ``(R, c)`` float32 rows."""
+        return merge_rows(rows, self.segments, alpha)
+
+    def reshard(self, rows: torch.Tensor, R_new: int) -> torch.Tensor:
+        """:func:`reshard_replicas` on this chunk, in each leaf's
+        dtype."""
+        out = rows.new_zeros((R_new, rows.shape[1]))
+        for a, b, dt in self.segments:
+            out[:, a:b] = reshard_replicas(rows[:, a:b].to(dt),
+                                           R_new).float()
+        return out
+
+    def divergence(self, rows: torch.Tensor) -> float:
+        """:func:`replica_divergence` of the replicas, from this chunk:
+        each leaf's part of the squared distances to the replicas' mean,
+        taken in the leaf's dtype as the reference takes them (the mean
+        summed in float32 and rounded once), is summed in float64; one
+        all-reduce adds the parts of every rank, and each leaf's total,
+        rounded to its dtype, is added to the others in the codec's leaf
+        order with the reference's dtype promotion."""
+        parts = torch.zeros((len(self.dtypes),), dtype=torch.float64,
+                            device=rows.device)
+        R = rows.shape[0]
+        for i, a, b, dt in self.leaves:
+            reps = rows[:, a:b].to(dt)
+            mean = (torch.sum(rows[:, a:b], dim=0) / R).to(dt)
+            parts[i] = torch.sum(torch.square(reps - mean),
+                                 dtype=torch.float64)
+        parts = self.comm.sum_world(parts)
+        total = 0
+        for part, dt in zip(parts, self.dtypes):
+            total = total + part.to(dt)
+        return float(torch.sqrt(total))
 
 
 def run_training(spec, ckpt_dir: Optional[str] = None,
                  out_json: Optional[str] = None, verbose: bool = True,
-                 device: Device = None, params: Any = None):
+                 device: Device = None, params: Any = None,
+                 microbatch: int = 1):
     """Run this rank's part of the SPMD driver for an
     :class:`repro_torch.api.ExperimentSpec`.
 
@@ -121,20 +199,27 @@ def run_training(spec, ckpt_dir: Optional[str] = None,
     ``num_gradients``: one gradient per replica per step) on every rank,
     and on rank 0 also the layout (``backend``, ``world_size``,
     ``device``), each merge's K (``merges``), the flush launches by K
-    (``launches_by_k``), and each rank's peak device memory and host
-    seconds in collectives (``collective_s``), split into the gradient
-    all-reduce, the divergence gathers of logged steps and the merges'
-    gathers and broadcasts (``collective_s_by_kind``).
+    (``launches_by_k``; ``flush_launches_by_rank`` has every rank's
+    flush launches at each merge's K), each phase's layout (``layout``: its g and R,
+    whether it is FSDP, and by rank the state bytes, what the card held
+    before the phase's first step and the peak of its steps), and each
+    rank's peak device memory and host seconds in collectives
+    (``collective_s``), split into the gradient (the reduce-scatters and
+    the whole leaves' all-reduce), the FSDP gathers, the divergence of
+    logged steps and the merges (``collective_s_by_kind``).
 
     ``params`` (tests) is an initial params tree of numpy arrays, such
-    as the reference's, in place of the port's own initialisation."""
+    as the reference's, in place of the port's own initialisation.
+    ``microbatch`` splits each rank's rows into that many slices a step
+    (``launch/steps.py::make_train_step``)."""
     dev = rank_device(device)
     with distributed(dev) as backend:
         return _run(spec, ckpt_dir, out_json, verbose, dev, params,
-                    backend or "none")
+                    backend or "none", microbatch)
 
 
-def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend):
+def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
+         microbatch):
     cfg = get_config(spec.arch)
     if spec.smoke:
         cfg = dataclasses.replace(smoke_variant(cfg), name=cfg.name)
@@ -144,8 +229,8 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend):
     if spec.mesh_model != 1:
         raise ValueError(
             f"mesh_model={spec.mesh_model}: a model-parallel axis within "
-            "a replica group is not ported; it comes with the multi-card "
-            "item of ROADMAP.md (A16); use mesh_model=1")
+            "a replica group is not ported; it is the next multi-card "
+            "item of ROADMAP.md (A16b); use mesh_model=1")
     comm = Collectives(dev)
     rank, W = comm.rank, comm.world
     data_axis = W           # / mesh_model, which is 1
@@ -169,11 +254,15 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend):
     codec = slab_codec(params)
     launches_before = dict(hybrid_aggregate.LAUNCHES_BY_K)
 
+    chunks = _Chunks(codec, comm)
     history: List[Dict[str, Any]] = []
     merges: List[Dict[str, Any]] = []
+    layout: List[Dict[str, Any]] = []
+    mine: List[float] = []     # this rank's state, held, step peak a phase
     t0 = time.time()
     tokens_done = grads_done = step = 0
     rows = params_final = None
+    peak_all = 0
     last: Optional[Tuple[Any, float, Any]] = None   # (rows, alpha, merge)
 
     def merged(rows, alpha, kind):
@@ -184,50 +273,80 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend):
             return last[2]
         merges.append({"step": step, "K": int(rows.shape[0]),
                        "alpha": alpha, "kind": kind})
-        out = merge_replicas_slab(_replicas(codec, rows), alpha=alpha,
-                                  rows=rows)
+        out = chunks.merge(rows, alpha)
         last = (rows, alpha, out)
         return out
+
+    def replica_rows(shards, g):
+        # this rank's P-chunk of every replica: each group gathers its
+        # replica whole, and the chunks cross ranks in one all-to-all
+        whole = shards if sharding is None else sharding.gather_tree(shards)
+        slab = codec.encode_master(whole)
+        del whole
+        return chunks.rows(slab, g)
+
+    def write_checkpoint(rows):
+        with comm.timing("merge"):
+            slab = chunks.assemble(merged(rows, 1.0, "checkpoint"),
+                                   [0] + [None] * (W - 1))
+        if rank == 0:
+            save_checkpoint(os.path.join(ckpt_dir, f"step_{step}"),
+                            codec.decode(slab), step,
+                            extra={"arch": spec.arch, "mode": spec.mode})
 
     for idx, (t_start, g) in enumerate(phases):
         t_end = phases[idx + 1][0] if idx + 1 < len(phases) else spec.steps
         R = data_axis // g
         if idx > 0:
-            # the phase switch (the paper's buffer flush): rank 0 merges
-            # the replicas through the flush kernel, reshards them to
-            # this phase's R and sends each rank its group's replica
-            host_R = None
-            if rank == 0:
-                host_R = reshard_replicas(
-                    merged(rows, spec.merge_alpha, "switch"), R)
+            # the phase switch (the paper's buffer flush): each rank
+            # merges its P-chunk of the replicas through the flush kernel
+            # (one launch at K = R_old), reshards it to this phase's R,
+            # and every rank takes its new group's replica whole
+            new = chunks.reshard(merged(rows, spec.merge_alpha, "switch"),
+                                 R)
             rows = last = None
-            buf = torch.empty((codec.padded_size,), dtype=torch.float32,
-                              device=dev)
-            for r in range(R):
-                if rank == 0:
-                    buf.copy_(codec.encode_master(replica(host_R, r)))
-                with comm.timing("merge"):
-                    comm.broadcast_(buf, 0)
-                if r == rank // g:
-                    params = codec.decode(buf)
-            del host_R, buf
+            with comm.timing("merge"):
+                slab = chunks.assemble(new, [k // g for k in range(W)])
+            del new
+            params = codec.decode(slab)
+            del slab
+        # the FSDP layout of this phase's groups (parallel/fsdp.py):
+        # each rank keeps its shards and the optimizer state built on them
+        sharding = GroupShards(params, g, rank % g, comm) if g > 1 \
+            else None
+        if sharding is not None:
+            params = sharding.shard(params)
         opt_state = opt.init(params)
+        # the state as its tensors' allocations, and what the card holds
+        # before the phase's first step
+        state = tree_bytes(params) + tree_bytes(opt_state)
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" \
+            else 0
+        layout.append({"t_start": t_start, "g": g, "replicas": R,
+                       "fsdp": sharding is not None and sharding.sharded})
         step_fn = make_train_step(
-            cfg, opt, reduce_grads=_group_mean(codec, comm, g)
-            if g > 1 else None)
+            cfg, opt, microbatch=microbatch,
+            reduce_grads=sharding.group_mean if sharding else None,
+            gather=sharding.gather if sharding else None)
+        step_peak = 0
 
         while step < t_end:
             batch = shard_batch(next(stream), rank, W, dev)
+            if dev.type == "cuda":
+                peak_all = max(peak_all, torch.cuda.max_memory_allocated(dev))
+                torch.cuda.reset_peak_memory_stats(dev)
             params, opt_state, loss = step_fn(params, opt_state, batch)
+            if dev.type == "cuda":
+                step_peak = max(step_peak,
+                                torch.cuda.max_memory_allocated(dev))
             tokens_done += spec.batch * spec.seq
             grads_done += R     # one gradient per replica this step
             if step % spec.log_every == 0 or step == t_end - 1:
                 reported = comm.gather_host([rank // g, float(loss)])
-                div_rows = None
+                div = 0.0
                 if R > 1:
                     with comm.timing("divergence"):
-                        div_rows = _gather_rows(
-                            comm, codec.encode_master(params), R, g)
+                        div = chunks.divergence(replica_rows(params, g))
                 if rank == 0:
                     by_rep: Dict[int, List[float]] = {}
                     for rid, value in reported:
@@ -238,8 +357,6 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend):
                     # the replicas that reported a loss must be the R
                     # this phase runs
                     assert len(by_rep) == R, (len(by_rep), R)
-                    div = float(replica_divergence(_replicas(
-                        codec, div_rows))) if R > 1 else 0.0
                     rec = {"step": step, "group_size": g, "replicas": R,
                            "loss": float(per_rep.mean()),
                            "divergence": div,
@@ -250,26 +367,35 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend):
                         print(f"step {step:5d}  g={g:3d} R={R:3d} "
                               f"loss={rec['loss']:.4f} div={div:.3e}",
                               flush=True)
-                del div_rows
             step += 1
 
+        mine += [state, held, step_peak]
+        del opt_state, step_fn
         with comm.timing("merge"):
-            rows = _gather_rows(comm, codec.encode_master(params), R, g)
-        if ckpt_dir and rank == 0:
-            one = replica(merged(rows, 1.0, "checkpoint"), 0)
-            save_checkpoint(os.path.join(ckpt_dir, f"step_{step}"), one,
-                            step, extra={"arch": spec.arch,
-                                         "mode": spec.mode})
+            rows = replica_rows(params, g)
+        params = None
+        if ckpt_dir:
+            write_checkpoint(rows)
 
-    # final merge for the returned model
+    # final merge for the returned model, assembled on rank 0
+    with comm.timing("merge"):
+        slab = chunks.assemble(merged(rows, 1.0, "final"),
+                               [0] + [None] * (W - 1))
     if rank == 0:
-        params_final = replica(merged(rows, 1.0, "final"), 0)
+        params_final = codec.decode(slab)
     stats: Dict[str, Any] = {"num_updates": step,
                              "num_gradients": grads_done}
-    kinds = ("gradient", "divergence", "merge")
+    kinds = ("gradient", "gather", "divergence", "merge")
+    if dev.type == "cuda":
+        peak_all = max(peak_all, torch.cuda.max_memory_allocated(dev))
+    # each rank's flush launches at each merge's K (every rank flushes
+    # its own chunk)
+    ks = sorted({m["K"] for m in merges})
+    flushes = [hybrid_aggregate.LAUNCHES_BY_K.get(("flush", K), 0)
+               - launches_before.get(("flush", K), 0) for K in ks]
     by_rank = comm.gather_host(
-        [torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
-         comm.seconds] + [comm.seconds_by.get(k, 0.0) for k in kinds])
+        [peak_all, comm.seconds] + [comm.seconds_by.get(k, 0.0)
+                                    for k in kinds] + mine + flushes)
     if rank == 0:
         after = hybrid_aggregate.LAUNCHES_BY_K
         by_k: Dict[str, Dict[str, int]] = {}
@@ -277,15 +403,23 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend):
             n -= launches_before.get((name, K), 0)
             if n:
                 by_k.setdefault(name, {})[str(K)] = n
+        n_k = len(kinds) + 2
+        for i, ph in enumerate(layout):
+            for j, key in enumerate(("state_bytes", "held_bytes",
+                                     "step_peak_bytes")):
+                ph[key] = [int(r[n_k + 3 * i + j]) for r in by_rank]
         stats.update(
             backend=backend, world_size=W, device=str(dev),
             remat=cfg.remat,
             device_name=torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else "cpu",
-            merges=merges, launches_by_k=by_k,
+            merges=merges, launches_by_k=by_k, layout=layout,
+            flush_launches_by_rank=[
+                {str(K): int(n) for K, n in zip(ks, r[len(r) - len(ks):])}
+                for r in by_rank],
             peak_memory_bytes=[int(r[0]) for r in by_rank],
             collective_s=[r[1] for r in by_rank],
-            collective_s_by_kind=[dict(zip(kinds, r[2:]))
+            collective_s_by_kind=[dict(zip(kinds, r[2:n_k]))
                                   for r in by_rank])
         if out_json:
             with open(out_json, "w") as f:

@@ -139,22 +139,45 @@ def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig
     return x, positions
 
 
-def _head(params, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _head(params, cfg: ModelConfig, take=None) -> torch.Tensor:
+    take = take or _whole
+    return take(("embed",), params["embed"]).T if cfg.tie_embeddings \
+        else take(("lm_head",), params["lm_head"])
+
+
+def _whole(path, tree):
+    return tree
+
+
+# the input leaves each frontend reads: the text embedding (vision reads
+# both), the frontend's projection
+_INPUTS = {None: ("embed",), "audio": ("frontend_proj",),
+           "vision": ("embed", "frontend_proj")}
 
 
 # --------------------------------------------------------------- forward
 
 def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
-            plain: bool = False):
+            plain: bool = False, gather=None):
     """Full-sequence forward.  Returns (logits, aux_loss).  ``plain``
     takes norms and attention through their plain versions (the
-    differentiable training path) instead of the kernels."""
-    x, positions = embed_inputs(params, batch, cfg)
+    differentiable training path) instead of the kernels.
+
+    ``params`` may be a rank's FSDP shards (``parallel/fsdp.py``); then
+    ``gather(path, subtree)`` returns the whole leaves of the subtree at
+    ``path``, and each part is gathered where it is used: the embedding
+    (and frontend) at the input, each block group's layer inside its
+    group body, one group at a time (a checkpointed group gathers again
+    in its recompute), the final norm and the head at the output."""
+    take = gather or _whole
+    inputs = {k: take((k,), params[k]) for k in _INPUTS[cfg.frontend]}
+    x, positions = embed_inputs(inputs, batch, cfg)
+    del inputs
     ropes = rope_tables(positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def group_body(x, aux, group):
+        group = take(("groups",), group)
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
             x, a = layer_forward(group[j], x, mixer, ffn, cfg, ropes, plain)
             aux = aux + a
@@ -164,17 +187,20 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
     for group in zip(*(_unstack(p, cfg.num_groups)
                        for p in params["groups"])):
         x, aux = remat.run(checkpointed, group_body, x, aux, group)
-    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps, plain)
-    return x @ _head(params, cfg), aux
+    x = apply_norm(cfg.norm, take(("final_norm",), params["final_norm"]),
+                   x, cfg.norm_eps, plain)
+    return x @ _head(params, cfg, take), aux
 
 
-def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig):
+def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
+            gather=None):
     """Cross-entropy LM loss over the plain (differentiable) forward,
     after the reference's ``models/model.py:127-147``: float32 logits,
     logsumexp minus the gold logit, averaged over ``loss_mask`` when the
     batch has one, plus ``router_aux_coef * aux``; a vision model's loss
-    covers the text positions only.  Returns (loss, metrics)."""
-    logits, aux = forward(params, batch, cfg, plain=True)
+    covers the text positions only.  ``gather`` is :func:`forward`'s (a
+    rank's FSDP shards).  Returns (loss, metrics)."""
+    logits, aux = forward(params, batch, cfg, plain=True, gather=gather)
     if cfg.frontend == "vision":
         logits = logits[:, cfg.num_image_tokens:]
     logits = logits.float()

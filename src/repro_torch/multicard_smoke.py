@@ -1,0 +1,456 @@
+"""Four-card checks of the SPMD backend and of the aggregator across
+cards: what one card cannot show (``chip_smoke.py`` runs on one).
+
+    python -m repro_torch.multicard_smoke [--out FILE]
+
+needs four cards on one host.  It prints one line per check, raises on
+the first that fails (the exit code is then non-zero) and catches
+nothing.  The SPMD runs are ``torchrun --standalone`` jobs (a free
+rendezvous port) of ``python -m repro_torch run --backend spmd``, one
+rank per card on NCCL unless a phase says otherwise:
+
+* ``[nccl]``: xlstm-350m at its published width, ``chip_smoke.py``'s
+  ``[spmd]`` spec (hybrid g 1 -> 2 -> 4, 3 steps of 32 x 64, SGD):
+  twice on NCCL, final params bitwise equal, then the same spec as
+  ``[spmd]`` runs it (four gloo ranks sharing one card), final params
+  and losses within rtol 1e-5 / atol 1e-6;
+* ``[fsdp]``: phi4-mini-3.8b at full width, remat "block", sync g 4
+  over the four cards in the FSDP layout, AdamW, S 4096 with 2 rows a
+  card taken as 2 micro-batches of one row (``train_4k``'s micro-batch
+  under ``dryrun --cards 4``); each card's state against the dry-run's
+  ``fsdp_partition_rules`` to the byte, its step peak within 10% or
+  256 MiB, the step's seconds and tokens/s;
+* ``[hybrid]``: h2o-danube-1.8b at full width, hybrid g 1 -> 2 -> 4,
+  two steps a phase: merges at K 4, 2, 1, one ``flush`` launch on every
+  rank each, divergence > 0 exactly while R > 1;
+* ``[staging]``: ``SlabAggregator`` with its chunks on the four cards
+  against one card, ``flush``, ``flush_momentum`` and ``flush_adamw``,
+  f32 and bf16 rows, bitwise; then zoo:xlstm x1.0 in the simulator,
+  25 workers, its staging across the cards.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+XLSTM_BATCH, XLSTM_SEQ, XLSTM_LR = 32, 64, 3e-5
+XLSTM_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
+             "--schedule", "step:1", "--steps", "3", "--batch",
+             str(XLSTM_BATCH), "--seq", str(XLSTM_SEQ), "--lr",
+             str(XLSTM_LR), "--optimizer", "sgd", "--log-every", "1"]
+PHI4 = "phi4-mini-3.8b"
+PHI4_SEQ, PHI4_ROWS, PHI4_MICRO, PHI4_STEPS = 4096, 2, 2, 3
+H2O_RUN = ["--arch", "h2o-danube-1.8b", "--no-smoke", "--mode", "hybrid",
+           "--schedule", "step:2", "--steps", "6", "--batch", "4", "--seq",
+           "1024", "--lr", "1e-5", "--optimizer", "sgd", "--log-every", "1"]
+CARDS = 4
+TOL = (1e-5, 1e-6)             # float32, across backends
+PEAK_RTOL, PEAK_SLACK = 0.10, 256 << 20     # chip_smoke.py's [dryrun] rule
+ZOO_WORKERS, ZOO_HORIZON, ZOO_LR = 25, 0.125, 3e-5
+RUN_TIMEOUT = 900.0
+FSDP_CHILD = "--fsdp-child"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def _env(**extra):
+    src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1", **extra)
+
+
+def _torchrun(args, env, timeout=RUN_TIMEOUT) -> str:
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(CARDS), *args]
+    proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          timeout=timeout)
+    check(proc.returncode == 0, f"torchrun {' '.join(args[:4])} exited "
+          f"{proc.returncode}:\n{proc.stdout[-4000:]}")
+    return proc.stdout
+
+
+def spmd_run(args, out, ckpt_dir=None, **env) -> dict:
+    """``python -m repro_torch run --backend spmd`` on four ranks; the
+    RunResult rank 0 writes."""
+    extra = ["--ckpt-dir", ckpt_dir] if ckpt_dir else []
+    _torchrun(["-m", "repro_torch", "run", "--backend", "spmd", *args,
+               "--device", "cuda", "--quiet", "--out", out, *extra],
+              _env(**env))
+    with open(out) as f:
+        return json.load(f)
+
+
+def _npz(path):
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _kinds(extra) -> str:
+    return "; ".join(
+        f"{k} {[round(r[k], 3) for r in extra['collective_s_by_kind']]}"
+        for k in ("gradient", "gather", "divergence", "merge"))
+
+
+def _walls(history):
+    w = [h["wall_s"] for h in history]
+    return [round(b - a, 2) for a, b in zip([0.0] + w[:-1], w)]
+
+
+# ------------------------------------------------------------------ [nccl]
+
+def phase_nccl(tmp: str) -> dict:
+    import numpy as np
+    runs = {}
+    for label, env in (("nccl-a", {}), ("nccl-b", {}),
+                       ("gloo", {"CUDA_VISIBLE_DEVICES": "0"})):
+        t0 = time.time()
+        runs[label] = spmd_run(XLSTM_RUN, os.path.join(tmp, label + ".json"),
+                               ckpt_dir=os.path.join(tmp, label), **env)
+        runs[label]["outer_s"] = time.time() - t0
+    for label, res in runs.items():
+        ex = res["extra"]
+        want = "gloo" if label == "gloo" else "nccl"
+        check(ex["backend"] == want and ex["world_size"] == CARDS,
+              f"[nccl] {label}: backend {ex['backend']}, world "
+              f"{ex['world_size']}")
+        hist = res["extra"]["history"]
+        check([h["group_size"] for h in hist] == [1, 2, 4],
+              f"[nccl] {label}: group sizes {[h['group_size'] for h in hist]}")
+        check([m["K"] for m in ex["merges"]] == [4, 2, 1],
+              f"[nccl] {label}: merges {ex['merges']}")
+        check(all((h["divergence"] > 0) == (h["replicas"] > 1)
+                  for h in hist), f"[nccl] {label}: divergence "
+              f"{[h['divergence'] for h in hist]}")
+        log(f"[nccl] xlstm-350m full width, {label}: backend "
+            f"{ex['backend']}, world {ex['world_size']}, devices "
+            f"{ex['device_name']}; layout "
+            f"{[(p['g'], p['fsdp']) for p in ex['layout']]}; wall "
+            f"{res['wall_s']:.2f} s in rank 0's trainer "
+            f"({res['num_updates'] / res['wall_s']:.3f} steps/s), "
+            f"{res['outer_s']:.2f} s with torchrun; step walls "
+            f"{_walls(hist)} s; losses "
+            f"{[round(h['loss'], 6) for h in hist]}; divergence "
+            f"{[float('%.6g' % h['divergence']) for h in hist]}; "
+            f"collective s by rank {[round(x, 3) for x in ex['collective_s']]}"
+            f", by kind: {_kinds(ex)}; peak GiB by rank "
+            f"{[round(b / 2**30, 2) for b in ex['peak_memory_bytes']]}")
+    final = {label: _npz(os.path.join(tmp, label, "step_3.npz"))
+             for label in runs}
+    a, b = final["nccl-a"], final["nccl-b"]
+    check(sorted(a) == sorted(b) and all(
+        a[k].tobytes() == b[k].tobytes() for k in a),
+        "[nccl] two NCCL runs' final params differ")
+    ha = runs["nccl-a"]["extra"]["history"]
+    hb = runs["nccl-b"]["extra"]["history"]
+    check([(h["loss"], h["divergence"]) for h in ha] ==
+          [(h["loss"], h["divergence"]) for h in hb],
+          "[nccl] two NCCL runs' histories differ")
+    log("[nccl] two NCCL runs: final params bitwise equal, histories "
+        "equal")
+    rtol, atol = TOL
+    worst = 0.0
+    for k, want in final["gloo"].items():
+        got = a[k]
+        worst = max(worst, float(np.abs(got.astype(np.float64)
+                                        - want.astype(np.float64)).max()))
+        check(np.allclose(got, want, rtol=rtol, atol=atol),
+              f"[nccl] {k}: NCCL vs gloo beyond rtol {rtol} atol {atol}")
+    for x, y in zip(ha, runs["gloo"]["extra"]["history"]):
+        for key in ("loss", "divergence"):
+            check(math.isclose(x[key], y[key], rel_tol=rtol, abs_tol=atol),
+                  f"[nccl] {key} NCCL {x[key]} vs gloo {y[key]}")
+    log(f"[nccl] NCCL against gloo on one card: final params max abs diff "
+        f"{worst:.3e} (rtol {rtol:g}, atol {atol:g}), losses and "
+        f"divergence within it")
+    return {k: {"wall_s": v["wall_s"], "outer_s": v["outer_s"],
+                "collective_s_by_kind": v["extra"]["collective_s_by_kind"],
+                "layout": v["extra"]["layout"]} for k, v in runs.items()}
+
+
+# ------------------------------------------------------------------ [fsdp]
+
+def _phi4_spec():
+    from repro_torch.api.spec import ExperimentSpec
+    return ExperimentSpec(arch=PHI4, backend="spmd", mode="sync",
+                          steps=PHI4_STEPS, batch=PHI4_ROWS * CARDS,
+                          seq=PHI4_SEQ, lr=3e-4, optimizer="adamw",
+                          beta2=0.95, smoke=False, log_every=1)
+
+
+def fsdp_child(out: str) -> int:
+    """A rank of ``[fsdp]`` (started by torchrun): phi4-mini-3.8b's sync
+    run with 2 micro-batches a step."""
+    from repro_torch.launch.train import run_training
+    run_training(_phi4_spec(), out_json=out, verbose=True, device="cuda",
+                 microbatch=PHI4_MICRO)
+    return 0
+
+
+def phase_fsdp(tmp: str) -> dict:
+    from repro_torch.configs.registry import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.optimizers import adamw
+    spec = _phi4_spec()
+    shape = InputShape("fsdp", PHI4_SEQ, PHI4_ROWS * CARDS, "train")
+    t0 = time.time()
+    pred = dryrun.fsdp_layout(get_config(PHI4), shape, CARDS,
+                              microbatch=PHI4_MICRO, hybrid_rep=1,
+                              optimizer=adamw(spec.lr, b2=spec.beta2))
+    log(f"[fsdp] the dry-run's fsdp_partition_rules for {PHI4} on "
+        f"{CARDS} cards, {PHI4_ROWS} rows of {PHI4_SEQ} a card in "
+        f"{PHI4_MICRO} micro-batches (meta device, "
+        f"{time.time() - t0:.1f} s): state {pred['state_bytes']} B, peak "
+        f"{pred['peak_bytes']} B, collectives a step "
+        f"{ {k: int(v) for k, v in pred['collective_bytes_per_device'].items()} } B")
+    out = os.path.join(tmp, "fsdp.json")
+    t0 = time.time()
+    text = _torchrun(["-m", "repro_torch.multicard_smoke", FSDP_CHILD, out],
+                     _env())
+    outer = time.time() - t0
+    with open(out) as f:
+        res = json.load(f)
+    st, hist = res["stats"], res["history"]
+    check(st["backend"] == "nccl" and st["world_size"] == CARDS,
+          f"[fsdp] backend {st['backend']}, world {st['world_size']}")
+    (lay,) = st["layout"]
+    check((lay["g"], lay["fsdp"]) == (CARDS, True), f"[fsdp] layout {lay}")
+    state = pred["state_bytes_total"]
+    check(all(b == state for b in lay["state_bytes"]),
+          f"[fsdp] state bytes by card {lay['state_bytes']}, the dry-run's "
+          f"{state}")
+    peak = pred["peak_bytes"]
+    tol = max(PEAK_RTOL * peak, PEAK_SLACK)
+    check(all(abs(b - peak) <= tol for b in lay["step_peak_bytes"]),
+          f"[fsdp] step peaks by card {lay['step_peak_bytes']}, the "
+          f"dry-run's {peak} within {tol:.0f}")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"[fsdp] losses {losses}")
+    steps = _walls(hist)
+    tokens = spec.batch * spec.seq
+    log(f"[fsdp] {PHI4} full width, remat {st['remat']}, sync g {CARDS} "
+        f"over {CARDS} x {st['device_name']} on {st['backend']}, AdamW, "
+        f"{PHI4_ROWS} x {PHI4_SEQ} a card in {PHI4_MICRO} micro-batches: "
+        f"state {lay['state_bytes'][0]} B a card = the dry-run's to the "
+        f"byte; held before the first step by card {lay['held_bytes']} B; "
+        f"step peak by card {lay['step_peak_bytes']} B against "
+        f"{peak} B (ratios "
+        f"{[round(b / peak, 6) for b in lay['step_peak_bytes']]})")
+    log(f"[fsdp] step walls {steps} s (the first builds the groups); "
+        f"last step {steps[-1]:.3f} s = {tokens / steps[-1]:.1f} tokens/s "
+        f"({tokens} tokens a step); losses {[round(x, 4) for x in losses]};"
+        f" collective s by kind: "
+        f"{_kinds({'collective_s_by_kind': st['collective_s_by_kind']})};"
+        f" {outer:.1f} s with torchrun and start-up")
+    return {"prediction": pred, "layout": lay, "step_walls": steps,
+            "tokens_per_step": tokens,
+            "collective_s_by_kind": st["collective_s_by_kind"],
+            "outer_s": outer, "log_tail": text[-2000:]}
+
+
+# ---------------------------------------------------------------- [hybrid]
+
+def phase_hybrid(tmp: str) -> dict:
+    t0 = time.time()
+    res = spmd_run(H2O_RUN, os.path.join(tmp, "h2o.json"))
+    outer = time.time() - t0
+    ex, hist = res["extra"], res["extra"]["history"]
+    check(ex["backend"] == "nccl", f"[hybrid] backend {ex['backend']}")
+    check([h["group_size"] for h in hist] == [1, 1, 2, 2, 4, 4],
+          f"[hybrid] group sizes {[h['group_size'] for h in hist]}")
+    check([m["K"] for m in ex["merges"]] == [4, 2, 1],
+          f"[hybrid] merges {ex['merges']}")
+    check(all(r == {"1": 1, "2": 1, "4": 1}
+              for r in ex["flush_launches_by_rank"]),
+          f"[hybrid] flush launches by rank {ex['flush_launches_by_rank']}")
+    check(all((h["divergence"] > 0) == (h["replicas"] > 1) for h in hist),
+          f"[hybrid] divergence {[h['divergence'] for h in hist]}")
+    check(all(math.isfinite(h["loss"]) for h in hist),
+          f"[hybrid] losses {[h['loss'] for h in hist]}")
+    log(f"[hybrid] h2o-danube-1.8b full width, remat {ex['remat']}, NCCL "
+        f"world {ex['world_size']}: g {[h['group_size'] for h in hist]}, "
+        f"merges K {[m['K'] for m in ex['merges']]}, flush launches by "
+        f"rank {ex['flush_launches_by_rank']}; divergence "
+        f"{[float('%.6g' % h['divergence']) for h in hist]}; layout "
+        f"{[(p['g'], p['fsdp'], p['state_bytes'][0]) for p in ex['layout']]}"
+        f"; step walls {_walls(hist)} s; collective s by kind: "
+        f"{_kinds(ex)}; peak GiB by rank "
+        f"{[round(b / 2**30, 2) for b in ex['peak_memory_bytes']]}; "
+        f"{outer:.1f} s with torchrun")
+    return {"history": hist, "merges": ex["merges"],
+            "layout": ex["layout"],
+            "collective_s_by_kind": ex["collective_s_by_kind"],
+            "outer_s": outer}
+
+
+# --------------------------------------------------------------- [staging]
+
+def phase_staging(torch) -> dict:
+    import numpy as np
+    from repro_torch.core.slab import SlabAggregator, slab_codec
+    from repro_torch.kernels import hybrid_aggregate as ha
+    from repro_torch.optim import SlabOptimizer
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = {"w": torch.randn(24 * 8192 * 64 - 1000, device="cuda:0",
+                               generator=gen)}
+    kernel = {"sgd": "flush", "momentum": "flush_momentum",
+              "adamw": "flush_adamw"}
+    for dtype in ("f32", "bf16"):
+        codec = slab_codec(params, slab_dtype=dtype)
+        rows = [torch.randn(codec.padded_size, device="cuda:0",
+                            generator=gen).to(codec.slab_dtype)
+                for _ in range(4)]
+        for opt in ("sgd", "momentum", "adamw"):
+            got, launches = [], []
+            for devices in (None, ["cuda:0"]):
+                agg = SlabAggregator(codec, params, 4,
+                                     optimizer=SlabOptimizer(opt),
+                                     devices=devices)
+                before = dict(ha.LAUNCHES_BY_K)
+                for w in ([1.0, 0.5, 0.25, 0.125], [0.3, 0.3, 0.3]):
+                    for slot, r in enumerate(rows[:len(w)]):
+                        agg.stage(r, slot)
+                    agg.flush_apply(np.asarray(w, np.float32), 0.1)
+                for d in agg.chunk_devices:
+                    torch.cuda.synchronize(d)
+                launches.append(sum(
+                    n - before.get(key, 0) for key, n in
+                    ha.LAUNCHES_BY_K.items() if key[0] == kernel[opt]))
+                got.append((agg.params_slab.cpu(), agg.opt_state_host(),
+                            [str(d) for d in agg.chunk_devices]))
+                del agg
+            (p4, s4, d4), (p1, s1, d1) = got
+            check(d4 == [f"cuda:{i}" for i in range(CARDS)] and
+                  d1 == ["cuda:0"], f"[staging] chunk devices {d4}, {d1}")
+            check(launches == [2 * CARDS, 2],
+                  f"[staging] {kernel[opt]} launches {launches}")
+            check(torch.equal(p4, p1), f"[staging] {opt} {dtype}: params "
+                  "on four cards differ from one card")
+            if s1 is not None:
+                check(all(np.array_equal(s4[k], s1[k]) for k in s1),
+                      f"[staging] {opt} {dtype}: optimizer state differs")
+            log(f"[staging] {kernel[opt]} {dtype}: P_pad "
+                f"{codec.padded_size:,} in chunks on {d4}, two flushes "
+                f"(K 4 and 3): params"
+                f"{'' if s1 is None else ', moments, count'} bitwise equal "
+                f"to one card; launches {launches[0]} across the cards, "
+                f"{launches[1]} on one")
+            out[f"{kernel[opt]} {dtype}"] = launches
+    del params, rows
+    torch.cuda.empty_cache()
+    out["zoo"] = zoo_across_cards(torch)
+    return out
+
+
+def zoo_across_cards(torch) -> dict:
+    from repro_torch.api import ExperimentSpec, SimulatorTrainer
+    from repro_torch.core.simulator import WorkerPool
+    from repro_torch.kernels import hybrid_aggregate as ha
+    spec = ExperimentSpec(
+        arch="zoo:xlstm", zoo_scale=1.0, mode="hybrid", schedule="step:10",
+        batch=32, lr=ZOO_LR, horizon=ZOO_HORIZON,
+        sample_every=ZOO_HORIZON / 2, smoke=True,
+        pool=WorkerPool(num_workers=ZOO_WORKERS))
+    for i in range(CARDS):
+        torch.cuda.reset_peak_memory_stats(i)
+    before = sum(n for (name, _), n in ha.LAUNCHES_BY_K.items()
+                 if name == "flush")
+    trainer = SimulatorTrainer(device="cuda")
+    t0 = time.time()
+    res = trainer.run(spec)
+    for i in range(CARDS):
+        torch.cuda.synchronize(i)
+    wall = time.time() - t0
+    (agg,) = trainer.engine(spec)._agg_cache.values()
+    launches = sum(n for (name, _), n in ha.LAUNCHES_BY_K.items()
+                   if name == "flush") - before
+    staging = {}
+    for rows in agg._staging:
+        key = str(rows.device)
+        staging[key] = staging.get(key, 0) + rows.numel() * rows.element_size()
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(CARDS)]
+    losses = res.metrics["train_loss"]
+    check(agg.shards == CARDS and sorted(staging) ==
+          [f"cuda:{i}" for i in range(CARDS)],
+          f"[staging] zoo:xlstm chunks {agg.chunk_devices}")
+    check(launches == CARDS * res.num_updates > 0,
+          f"[staging] zoo:xlstm flush launches {launches}, updates "
+          f"{res.num_updates}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"[staging] zoo:xlstm train loss {losses}")
+    P = agg.codec.padded_size
+    log(f"[staging] zoo:xlstm x1.0 (P_pad {P:,}, f32) in the simulator, "
+        f"{ZOO_WORKERS} workers, hybrid step:10, {ZOO_HORIZON} virtual s: "
+        f"{res.num_gradients} gradients, {res.num_updates} updates, "
+        f"{launches} flush launches ({CARDS} chunks each) in {wall:.2f} s "
+        f"({res.num_gradients / wall:.2f} grads/s); staging bytes by card "
+        f"{staging}; peak bytes by card {peaks}; train loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return {"gradients": res.num_gradients, "updates": res.num_updates,
+            "wall_s": wall, "staging_bytes": staging, "peak_bytes": peaks}
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.multicard_smoke")
+    ap.add_argument("--out", default=None,
+                    help="write every phase's figures here as JSON")
+    ap.add_argument("--phases", default="nccl,fsdp,hybrid,staging")
+    ap.add_argument(FSDP_CHILD, default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.fsdp_child:
+        return fsdp_child(args.fsdp_child)
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
+        print(f"multicard_smoke: needs {CARDS} CUDA cards, found "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+    log(f"[device] {smi()}")
+    log(f"[device] {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}, torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    figures = {}
+    with tempfile.TemporaryDirectory(prefix="multicard-") as tmp:
+        for name in args.phases.split(","):
+            t0 = time.time()
+            if name == "staging":
+                figures[name] = phase_staging(torch)
+            else:
+                figures[name] = {"nccl": phase_nccl, "fsdp": phase_fsdp,
+                                 "hybrid": phase_hybrid}[name](tmp)
+            log(f"[phase] {name} done in {time.time() - t0:.1f} s, at "
+                f"{time.time() - t_start:.1f} s")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(figures, f, indent=2, default=str)
+    log(f"[device] {smi()}")
+    log(f"[multicard] OK: {args.phases} in {time.time() - t_start:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

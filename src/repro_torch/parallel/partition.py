@@ -7,8 +7,8 @@ under ``params["groups"]`` carries a leading group-stack dim, which is
 never sharded.  The rules are the reference's, names and all.  Where the
 reference returns ``NamedSharding``s, these return each leaf's **shard
 shape** (what one device holds), over a mesh given as a dict of axis
-sizes (``parallel/sharding.py``); placing tensors by them is ROADMAP
-A16.  A leaf is anything with ``.shape`` and ``.ndim`` (a tensor, a
+sizes (``parallel/sharding.py``); ``parallel/fsdp.py`` places tensors
+by them over the data axis.  A leaf is anything with ``.shape`` and ``.ndim`` (a tensor, a
 meta tensor, a numpy array).
 """
 from __future__ import annotations
@@ -175,6 +175,12 @@ def shard_shape(shape, spec: Spec, mesh: Mesh) -> Tuple[int, ...]:
 def _param_spec(path, leaf, mesh: Mesh, rules) -> Spec:
     return sanitize(logical_spec(_resolve(_key(path), leaf.ndim), rules),
                     leaf.shape, mesh)
+
+
+def leaf_spec(path: Tuple[str, ...], leaf, mesh: Mesh) -> Spec:
+    """The sanitized mesh-axes spec of the param leaf at ``path`` (a
+    ``map_with_path`` path)."""
+    return _param_spec(path, leaf, mesh, rules_for(mesh))
 
 
 def param_specs(params, mesh: Mesh) -> Any:

@@ -6,8 +6,8 @@ name to mesh axes.  The port has no ``Mesh`` object and no
 ``torch.distributed`` here: a mesh is a dict of axis sizes, e.g.
 ``{"data": 16, "model": 16}`` or ``{"pod": 2, "data": 16, "model": 16}``,
 and these are pure functions of names.  The dry-run
-(``launch/dryrun.py``) reads shard shapes from them; placing tensors by
-them is ROADMAP A16.
+(``launch/dryrun.py``) reads shard shapes from them, and
+``parallel/fsdp.py`` places tensors by them.
 """
 from __future__ import annotations
 

@@ -547,8 +547,8 @@ def test_moments_stay_f32_under_bf16_slab():
     for i in range(4):
         server.ingest(GradientMsg(i % 2, codec.encode(_tree(i, 0.01)),
                                   server.version, i))
-    assert all(m.dtype == torch.float32
-               for m in server.agg._moments.values())
+    assert all(c.dtype == torch.float32
+               for m in server.agg._moments.values() for c in m)
     st = server.agg.opt_state_host()
     for name in opt.moment_names:
         assert st[name].dtype == np.float32 and np.isfinite(st[name]).all()

@@ -282,6 +282,48 @@ def test_cuda_aggregator_matches_cpu(cuda, opt):
 # attention f32 2e-4, as tests/kernels/test_kernels.py, bf16 rtol 1.6e-2
 # / atol 1e-5 (two bf16 ulps; see test_cuda_flash_matches_plain).
 
+@pytest.fixture
+def cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs at least 2 CUDA cards to spread the chunks "
+                    f"over, found {n}")
+    return n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
+def test_cuda_aggregator_chunks_across_cards(cards, opt, dtype):
+    """A multi-million-parameter slab's chunks spread over the host's
+    cards (chunk i on cuda:{i % n}) flush bitwise as on one card."""
+    import numpy as np
+    from repro_torch.core.slab import SlabAggregator, slab_codec
+    from repro_torch.optim import SlabOptimizer
+    params = {"w": torch.randn(600 * TILE_P - 7, device="cuda:0")}
+    codec = slab_codec(params, slab_dtype=dtype)
+    rows = [torch.randn(codec.padded_size, device="cuda:0").to(
+        codec.slab_dtype) for _ in range(3)]
+    outs = []
+    for devices in (None, ["cuda:0"]):
+        agg = SlabAggregator(codec, params, 3, devices=devices,
+                             optimizer=SlabOptimizer(opt))
+        for w in ([1.0, 0.5, 0.25], [0.4, 0.4]):
+            for slot, r in enumerate(rows[:len(w)]):
+                agg.stage(r, slot)
+            agg.flush_apply(np.asarray(w, np.float32), 0.1)
+        outs.append((agg.params_slab.cpu(), agg.opt_state_host(),
+                     agg.chunk_devices))
+    (p_n, s_n, d_n), (p_1, s_1, d_1) = outs
+    assert d_n == tuple(torch.device("cuda", i % cards)
+                        for i in range(len(d_n))) and len(d_n) == cards
+    assert d_1 == (torch.device("cuda", 0),)
+    assert torch.equal(p_n, p_1)
+    if s_1 is not None:
+        for k, v in s_1.items():
+            np.testing.assert_array_equal(s_n[k], v, err_msg=k)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [4, 128, 8192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -190,7 +190,7 @@ def test_published_and_decoded_survive_later_flushes(opt):
     assert torch.equal(pub, pub_copy)
     for k in tree:
         assert torch.equal(tree[k], tree_copy[k]), k
-    assert tagg.params_slab.data_ptr() != tagg._slab.data_ptr()
+    assert tagg.params_slab.data_ptr() != tagg._master[0].data_ptr()
 
 
 @pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])

@@ -321,12 +321,15 @@ def test_train_driver_hybrid_end_to_end(tmp_path):
                   if f.endswith(".npz")) == ["step_4.npz", "step_8.npz"]
     by_kind = run["stats"]["collective_s_by_kind"]
     assert len(by_kind) == 2 and all(
-        set(k) == {"gradient", "divergence", "merge"} and
+        set(k) == {"gradient", "gather", "divergence", "merge"} and
         sum(k.values()) <= s + 1e-9
         for k, s in zip(by_kind, run["stats"]["collective_s"]))
-    # rank 0 gathered the other replica for the divergence of steps 0-3
-    # and averaged the gradient over g = 2 in steps 4-7
+    # rank 0 took part in the divergence of steps 0-3, and in steps 4-7
+    # gathered its FSDP shards and reduce-scattered the gradient (g = 2)
     assert by_kind[0]["divergence"] > 0 and by_kind[0]["gradient"] > 0
+    assert by_kind[0]["gather"] > 0
+    assert [(p["g"], p["fsdp"]) for p in run["stats"]["layout"]] == \
+        [(1, False), (2, True)]
 
 
 def test_sync_run_repeats_bitwise_through_the_cli(tmp_path):
