@@ -80,7 +80,17 @@ main paths:
   split along P, a ``flush`` launch on each rank at K 4, 2 and 1), then
   h2o-danube-1.8b's smoke variant on 2 ranks, the card against the CPU
   and a sync run twice (bitwise equal), and ``flush`` alone at the
-  merge's shape.  Four cards are ``python -m repro_torch.multicard_smoke``'s
+  merge's shape (the full-width run starts once ``[zoo-sim]``'s 1.0 run
+  has released the card, beside its small runs and ``[zoo-wire]``;
+  ``[arch]`` runs before ``[zoo-sim]``);
+- the model axis (``[spmd-tp]``): 4 gloo ranks sharing the card as
+  data 2 x model 2 (``--mesh-model 2``), h2o-danube-1.8b at its
+  published width, hybrid step:1 over 2 steps of 2 x 512, SGD: each
+  rank's state against the partition rules' shards to the byte, one
+  ``flush`` launch a rank at K 2 and at K 1 (each model column merges
+  its own slices), the leaves whole on every model rank bitwise equal
+  across each model group, then ``flush`` alone at a rank's chunk of
+  that merge.  Four cards are ``python -m repro_torch.multicard_smoke``'s
   (NCCL), not this script's.
 
 Output: progress lines, then the card's name and power limit as
@@ -95,9 +105,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2013,8 +2025,8 @@ DEEPSEEK = "deepseek-v2-lite-16b"
 # 2e-5 on the card, so they compute one function; in bf16 each rounds in
 # its own order at every layer, and over seeds 0-3 the kernels read
 # 0.19-0.67 from the plain forward and the prefill 0.43-1.00 from the
-# replay (PERF.md, PR 18)
-MLA_SEEDS = (0, 1, 2, 3)            # bf16
+# replay (PERF.md, PR 18); seeds 0-1 run here
+MLA_SEEDS = (0, 1)                  # bf16
 MLA_KERNEL_ATOL = 1.0
 MLA_PREFILL_DECODE_ATOL = 1.5
 MLA_F32_ATOL = 2e-4                 # seed 0, float32 weights (64.8 GB)
@@ -2356,7 +2368,7 @@ def drive_mla_moe_serve(torch):
 
         # the same function three ways, at a capacity that drops no token
         # in any (a prefill routes B*P tokens per group, a decode B), at
-        # four bf16 seeds, then in float32
+        # two bf16 seeds, then in float32
         hold_mla_paths(torch, mla_paths(torch, params, cfg, prompts),
                        MLA_KERNEL_ATOL, MLA_PREFILL_DECODE_ATOL,
                        "bf16 seed 0")
@@ -2434,10 +2446,11 @@ def xlstm_gradient_leaves(torch, sp) -> dict:
                 max_diff=float(diff.max()), max_spread=float(spread.max()))
 
 
-def drive_zoo_sim(torch):
+def drive_zoo_sim(torch, after_big=None):
     """SimulatorTrainer on zoo:xlstm at zoo_scale 1.0 (xlstm-350m's
     shape, f32 slab), hybrid step:10, then zoo:xlstm and zoo:transformer
-    at 0.25 on the card and on the CPU."""
+    at 0.25 on the card and on the CPU.  ``after_big()`` runs once the
+    1.0 run has released the card."""
     from repro_torch.api import ExperimentSpec, SimulatorTrainer
     from repro_torch.core.simulator import WorkerPool
     from repro_torch.kernels import hybrid_aggregate as ha
@@ -2488,6 +2501,8 @@ def drive_zoo_sim(torch):
         f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del trainer, engine, agg, res
     release(torch)
+    if after_big is not None:
+        after_big()
 
     # the same short run at 0.25 on the card and on the CPU
     from repro_torch.convert import tree_to
@@ -2785,7 +2800,7 @@ SPMD_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
             "--log-every", "1"]
 SPMD_GROUPS = [1, 2, 4]
 SPMD_SMALL = ["--arch", "h2o-danube-1.8b", "--smoke", "--schedule",
-              "step:2", "--steps", "6", "--batch", "4", "--seq", "16",
+              "step:2", "--steps", "4", "--batch", "4", "--seq", "16",
               "--log-every", "1"]
 SPMD_MERGE_P = 440_057_856      # xlstm-350m's params slab, padded
 SPMD_TOL = (1e-5, 1e-6)         # card vs CPU, float32
@@ -2805,6 +2820,19 @@ def spmd_launch(nproc: int, args, device: str, out: str,
                OMP_NUM_THREADS="1")
     return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+
+
+def stop(proc) -> None:
+    """End ``proc`` (a torchrun, which passes SIGTERM on to its ranks)
+    if it is still running."""
+    if proc is None or proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
 
 
 def spmd_result(proc: subprocess.Popen, out: str, label: str,
@@ -2828,26 +2856,45 @@ def spmd_npz(path: str) -> dict:
         return {k: z[k] for k in z.files}
 
 
-def drive_spmd(torch):
+def start_spmd(tmp: str) -> dict:
+    """Start ``[spmd]``'s full-width run (:func:`drive_spmd` reads it):
+    its torchrun, where it writes and when it started."""
+    out = os.path.join(tmp, "full.json")
+    return {"proc": spmd_launch(SPMD_RANKS, SPMD_RUN, "cuda", out),
+            "out": out, "t0": time.time()}
+
+
+def drive_spmd(torch, tmp: str, full: dict):
     """The SPMD backend: xlstm-350m at full width, 4 ranks sharing the
     card over gloo, g annealed 1 -> 2 -> 4 with every merge through the
-    flush kernel; then h2o-danube-1.8b's smoke variant on 2 ranks, the
-    card against the CPU and a sync run twice; then ``flush`` alone at
-    the merge's shape.  Returns the flush launches of the full run (its
-    rank 0's, read through ``RunResult.extra``) and the merge's times."""
-    import tempfile
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-spmd-") as tmp:
-        launches = spmd_runs(torch, tmp)
-    return launches, spmd_merge_flush(torch)
+    flush kernel (``full``, from :func:`start_spmd`, started beside
+    ``[zoo-sim]``'s small runs and ``[zoo-wire]``: nothing times them,
+    and they fit the card together); then h2o-danube-1.8b's smoke variant
+    on 2 ranks, the card against the CPU and a sync run twice, while
+    ``[spmd-tp]`` (:func:`spmd_tp_check`) runs beside them (started once
+    the full run has ended: the two would not fit the card together);
+    then ``flush`` alone at both merges' shapes.  Returns the flush
+    launches of the full run and of ``[spmd-tp]`` (their rank 0's, read
+    through ``RunResult.extra``) and the merges' times."""
+    tp = {}
+    try:
+        launches = spmd_runs(torch, tmp, full, lambda: tp.update(
+            proc=spmd_launch(SPMD_RANKS, TP_RUN, "cuda",
+                             os.path.join(tmp, "tp.json")),
+            t0=time.time()))
+        tp_launches = spmd_tp_check(
+            tp["proc"], os.path.join(tmp, "tp.json"), tp["t0"])
+    finally:
+        stop(tp.get("proc"))
+    times = spmd_merge_flush(torch)
+    times.update(spmd_tp_merge_flush(torch))
+    return launches, tp_launches, times
 
 
-def spmd_runs(torch, tmp: str) -> dict:
+def spmd_runs(torch, tmp: str, full: dict, after_full=None) -> dict:
     import numpy as np
-    out = os.path.join(tmp, "full.json")
-    t0 = time.time()
-    res = spmd_result(spmd_launch(SPMD_RANKS, SPMD_RUN, "cuda", out), out,
-                      "xlstm-350m")
-    wall = time.time() - t0
+    res = spmd_result(full["proc"], full["out"], "xlstm-350m")
+    wall = time.time() - full["t0"]
     hist, extra = res["extra"]["history"], res["extra"]
     groups = [h["group_size"] for h in hist]
     reps = [h["replicas"] for h in hist]
@@ -2907,6 +2954,8 @@ def spmd_runs(torch, tmp: str) -> dict:
         f"{steps / (res['wall_s'] - div0):.3f} steps/s, "
         f"{tokens / (res['wall_s'] - div0):.1f} tokens/s")
 
+    if after_full is not None:
+        after_full()
     spmd_fsdp_check(extra["layout"])
 
     # smoke width: the card against the CPU, and a sync run twice
@@ -2924,7 +2973,7 @@ def spmd_runs(torch, tmp: str) -> dict:
     small = {label: spmd_result(p, os.path.join(tmp, f"{label}.json"),
                                 f"h2o smoke {label}")
              for label, p in procs.items()}
-    final = {label: spmd_npz(os.path.join(tmp, label, "step_6.npz"))
+    final = {label: spmd_npz(os.path.join(tmp, label, "step_4.npz"))
              for label in runs}
     rtol, atol = SPMD_TOL
     worst = 0.0
@@ -2987,9 +3036,16 @@ def spmd_merge_flush(torch) -> dict:
     P-chunk of xlstm-350m's f32 slab (the merges are split along P over
     the 4 ranks)."""
     from repro_torch.core.slab import shard_chunks
+    return merge_flush(torch, SPMD_RANKS,
+                       shard_chunks(SPMD_MERGE_P, SPMD_RANKS)[0],
+                       "the merge's shape")
+
+
+def merge_flush(torch, K: int, P: int, what: str) -> dict:
+    """``flush`` alone at a merge's shape, K rows of a P-chunk, against
+    its plain version and timed with its bound and ``w @ g``."""
     from repro_torch.kernels import hybrid_aggregate as ha
     from repro_torch.kernels import ref
-    K, P = SPMD_RANKS, shard_chunks(SPMD_MERGE_P, SPMD_RANKS)[0]
     gen = torch.Generator(device="cuda").manual_seed(2)
     g = torch.randn(K, P, device="cuda", generator=gen)
     w = torch.ones(K, device="cuda")
@@ -3002,7 +3058,7 @@ def spmd_merge_flush(torch) -> dict:
     row["kernel_only_ms"] = kernel_only_ms(torch, lambda: ha.flush(g, w),
                                            "flush_kernel", reps=10)
     row["max_abs_err"] = err
-    log(f"[time] flush at the merge's shape: kernel alone "
+    log(f"[time] flush at {what} (K {K}, P {P:,}): kernel alone "
         f"{row['kernel_only_ms']:.6f} ms cold (profiler) = "
         f"{100 * row['bound_ms'] / row['kernel_only_ms']:.1f}% of bound "
         f"{row['bound_ms']:.6f} ms; wrapper call {row['ms']:.6f} ms; w @ g "
@@ -3010,6 +3066,110 @@ def spmd_merge_flush(torch) -> dict:
     del g
     release(torch)
     return {case: row}
+
+
+# --------------------------------------------------------- [spmd-tp]
+
+# [spmd-tp]: the model axis (parallel/tensor.py) on the one card: 4 gloo
+# ranks as {data 2, model 2}, h2o-danube-1.8b at its published width,
+# hybrid step:1 (g 1 -> 2, R 2 -> 1), 2 steps of 2 rows of 512, SGD
+TP_MODEL = 2
+TP_BATCH, TP_SEQ, TP_LR = 2, 512, 1e-5
+TP_ARCH = "h2o-danube-1.8b"
+TP_RUN = ["--arch", TP_ARCH, "--no-smoke", "--mode", "hybrid",
+          "--schedule", "step:1", "--steps", "2", "--batch", str(TP_BATCH),
+          "--seq", str(TP_SEQ), "--lr", str(TP_LR), "--optimizer", "sgd",
+          "--log-every", "1", "--mesh-model", str(TP_MODEL)]
+
+
+def spmd_tp_check(proc, out: str, t0: float) -> int:
+    """The model axis: ``torchrun`` of 4 ranks sharing the card over
+    gloo at ``--mesh-model 2`` (``proc``, writing ``out``, started at
+    ``t0``).  Each rank's state against the partition rules' shards over
+    {data g, model 2} to the byte (its step peak against the dry-run's
+    traced tensor-parallel step, read), one ``flush`` a rank at K 2 and
+    at K 1 (each model column merges its own slices), divergence > 0
+    exactly while R > 1, the leaves whole on every model rank bitwise
+    equal across each model group at the end.  Returns the run's flush
+    launches (rank 0's)."""
+    from repro_torch.configs.registry import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.optimizers import sgd
+    data = SPMD_RANKS // TP_MODEL
+    res = spmd_result(proc, out, "h2o model axis")
+    wall = time.time() - t0
+    extra, hist = res["extra"], res["extra"]["history"]
+    check(extra["backend"] == "gloo" and extra["world_size"] == SPMD_RANKS
+          and extra["mesh_model"] == TP_MODEL,
+          f"[spmd-tp] backend {extra['backend']}, world "
+          f"{extra['world_size']}, mesh_model {extra.get('mesh_model')}")
+    check([(h["group_size"], h["replicas"]) for h in hist] ==
+          [(1, 2), (2, 1)], f"[spmd-tp] history {hist}")
+    check([m["K"] for m in extra["merges"]] == [2, 1],
+          f"[spmd-tp] merges {extra['merges']}")
+    check(all(r == {"1": 1, "2": 1} for r in extra["flush_launches_by_rank"]),
+          f"[spmd-tp] flush launches by rank "
+          f"{extra['flush_launches_by_rank']}")
+    check(all((h["divergence"] > 0) == (h["replicas"] > 1)
+              and math.isfinite(h["divergence"])
+              and math.isfinite(h["loss"]) for h in hist),
+          f"[spmd-tp] history {hist}")
+    digests = extra["whole_digest_by_rank"]
+    check(all(digests[r] == digests[r - r % TP_MODEL]
+              for r in range(SPMD_RANKS)),
+          f"[spmd-tp] whole leaves' digests by rank {digests}")
+    cfg = get_config(TP_ARCH)
+    shape = InputShape("spmd-tp", TP_SEQ, TP_BATCH, "train")
+    for p in extra["layout"]:
+        pred = dryrun.fsdp_layout(cfg, shape, SPMD_RANKS,
+                                  hybrid_rep=data // p["g"],
+                                  optimizer=sgd(TP_LR), model=TP_MODEL)
+        state, peak = pred["state_bytes_total"], pred["peak_bytes"]
+        check(p["model"] == TP_MODEL and all(
+            b == state for b in p["state_bytes"]),
+            f"[spmd-tp] g {p['g']}: state bytes by rank {p['state_bytes']},"
+            f" the partition rules' {state} over {pred['mesh']}")
+        log(f"[spmd-tp] g {p['g']} x model {p['model']} (FSDP "
+            f"{p['fsdp']}): state {state} B a rank = the partition rules' "
+            f"shard bytes over {pred['mesh']}; step peak by rank "
+            f"{p['step_peak_bytes']} B against the dry-run's traced "
+            f"{peak} B (ratios "
+            f"{[round(b / peak, 6) for b in p['step_peak_bytes']]}; read, "
+            f"not held); predicted collectives a step "
+            f"{ {k: int(v) for k, v in pred['collective_bytes_per_device'].items()} } B")
+    flush_by_k = extra["launches_by_k"].get("flush", {})
+    by_kind = extra["collective_s_by_kind"]
+    log(f"[spmd-tp] {TP_ARCH} full width, remat {extra['remat']}, "
+        f"{SPMD_RANKS} ranks on {extra['device_name']} as data {data} x "
+        f"model {TP_MODEL}, backend {extra['backend']}: g "
+        f"{[h['group_size'] for h in hist]}, merges K "
+        f"{[m['K'] for m in extra['merges']]}, flush launches by rank "
+        f"{extra['flush_launches_by_rank']}; losses "
+        f"{[round(h['loss'], 6) for h in hist]}; divergence "
+        f"{[float('%.6g' % h['divergence']) for h in hist]}; whole leaves "
+        f"bitwise equal across each model group (digests {digests}); "
+        f"wall {res['wall_s']:.2f} s in rank 0's trainer, {wall:.2f} s "
+        f"with torchrun (beside [spmd]'s small runs); peak GiB by rank "
+        f"{[round(b / 2**30, 2) for b in extra['peak_memory_bytes']]}; "
+        f"collective s by kind: " + "; ".join(
+            f"{k} {[round(r[k], 2) for r in by_kind]}" for k in by_kind[0]))
+    return sum(flush_by_k.values())
+
+
+def spmd_tp_merge_flush(torch) -> dict:
+    """``flush`` alone at ``[spmd-tp]``'s K 2 merge: K 2 rows of one
+    rank's P-chunk of its model column's slab (h2o-danube-1.8b's model
+    slices, f32, split over the column's 2 data positions)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.slab import shard_chunks, slab_codec
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.fsdp import shard_tree
+    from repro_torch.parallel.tensor import model_dims
+    data = SPMD_RANKS // TP_MODEL
+    params = dryrun.meta_params(get_config(TP_ARCH))
+    sliced = shard_tree(params, 0, TP_MODEL, model_dims(params, TP_MODEL))
+    P = shard_chunks(slab_codec(sliced).padded_size, data)[0]
+    return merge_flush(torch, data, P, "the model axis' merge")
 
 
 # ------------------------------------------------------------- dry-run
@@ -3435,16 +3595,26 @@ def main() -> int:
     log(f"[phase] serve-mla-moe done at {time.time() - t_start:.1f} s")
     drive_dryrun(torch, serve_read, mla_read)
     log(f"[phase] dryrun done at {time.time() - t_start:.1f} s")
-    for phase, drive in (("zoo-sim", lambda: drive_zoo_sim(torch)),
-                         ("zoo-wire", lambda: drive_zoo_wire(torch)),
-                         ("arch", lambda: drive_arch(torch))):
-        for name, n in drive().items():
-            launches[name] += n
-        log(f"[phase] {phase} done at {time.time() - t_start:.1f} s")
-    reset_counts()
-    spmd_launches, merge_times = drive_spmd(torch)
-    launches["flush"] += sum(spmd_launches.values())
-    log(f"[phase] spmd done at {time.time() - t_start:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-spmd-")
+    full = {}
+    try:
+        # [spmd]'s full run starts once [zoo-sim]'s big run is over
+        for phase, drive in (
+                ("arch", lambda: drive_arch(torch)),
+                ("zoo-sim", lambda: drive_zoo_sim(
+                    torch, lambda: full.update(start_spmd(tmp)))),
+                ("zoo-wire", lambda: drive_zoo_wire(torch))):
+            for name, n in drive().items():
+                launches[name] += n
+            log(f"[phase] {phase} done at {time.time() - t_start:.1f} s")
+        reset_counts()
+        spmd_launches, tp_launches, merge_times = drive_spmd(torch, tmp,
+                                                             full)
+    finally:
+        stop(full.get("proc"))
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches["flush"] += sum(spmd_launches.values()) + tp_launches
+    log(f"[phase] spmd and spmd-tp done at {time.time() - t_start:.1f} s")
     for name in PORTED:
         check(launches[name] > 0, f"{name} was never launched")
 

@@ -126,7 +126,9 @@ _SPEC_FLAGS = [
     ("--seq", "seq", int, "spmd: sequence length"),
     ("--merge-alpha", "merge_alpha", float, "spmd: partial-merge factor"),
     ("--mesh-model", "mesh_model", int,
-     "spmd: model-parallel axis size (1 in this port)"),
+     "spmd: the model (tensor-parallel) axis M; M divides the world "
+     "size, and M > 1 covers the dense families (attention and MLP "
+     "blocks) only"),
     ("--log-every", "log_every", int, "spmd: metric logging interval"),
     ("--cluster-workers", "cluster_workers", int,
      "cluster: worker count (threads)"),

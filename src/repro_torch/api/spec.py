@@ -13,8 +13,11 @@ package loads in the other:
 
 The port runs all three backends: ``sim``, ``spmd`` (launched under
 ``torchrun`` for more than one rank; ``steps``, ``seq``, ``merge_alpha``,
-``mesh_model`` and ``log_every`` are its fields, and ``mesh_model`` must
-be 1) and ``cluster``.  The cluster backend runs all four transports:
+``mesh_model`` and ``log_every`` are its fields; ``mesh_model`` M must
+divide the world size, and M > 1, the tensor-parallel ``model`` axis,
+covers the dense families only: attention and MLP blocks, such as
+h2o-danube-1.8b, phi4-mini-3.8b, qwen2.5-32b and qwen1.5-110b) and
+``cluster``.  The cluster backend runs all four transports:
 ``inproc``, ``socket``, ``proc`` and ``host`` (``listen``, ``heartbeat_s`` and the
 elastic ceiling ``max_workers`` are the host transport's, and so is
 ``serve_every``, which down-samples the params pushes to read-only
@@ -66,7 +69,7 @@ class ExperimentSpec:
     steps: int = 100
     seq: int = 128
     merge_alpha: float = 1.0       # partial (Lookahead-style) merges
-    mesh_model: int = 1            # model-parallel axis size
+    mesh_model: int = 1            # model axis: divides the world size
     smoke: bool = True             # reduced config / dataset sizes
     log_every: int = 10
     # cluster backend (wall clock, real concurrent workers)

@@ -3,11 +3,12 @@
 The paper's threshold K(t) ("how many gradients aggregate per update")
 maps onto data parallelism as the *reduction-group size* g:
 
-  * the data axis (the ranks of a ``torch.distributed`` job) is split
-    into R = axis/g replica groups of g consecutive ranks; group r holds
-    ranks ``[r*g, (r+1)*g)`` (:func:`repro_torch.launch.mesh.replica_groups`,
-    the order of the reference's mesh reshape) and trains a replica of
-    its own;
+  * the data axis (the data positions of a ``torch.distributed`` job,
+    ``mesh_model`` ranks each) is split into R = axis/g replica groups
+    of g consecutive positions; group r holds ranks ``[r*g*M,
+    (r+1)*g*M)`` (:func:`repro_torch.launch.mesh.replica_groups`, the
+    order of the reference's mesh reshape) and trains a replica of its
+    own;
   * a step averages the gradient only *inside* each group (the analogue
     of "K gradients aggregated per update");
   * groups evolve independently ("async": divergence is staleness) until
@@ -22,8 +23,8 @@ size R, their merge, reshard and divergence, the replica step
 and the phase plan.  :mod:`repro_torch.launch.train` runs them across
 ranks.  The reference's ``factored_mesh`` is the rank-group layout of
 :mod:`repro_torch.launch.mesh`; within a group the replica is sharded
-FSDP-style by :func:`replica_param_shardings` (``parallel/fsdp.py``
-places the tensors).
+FSDP-style and over ``model`` by :func:`replica_param_shardings`
+(``parallel/fsdp.py`` and ``parallel/tensor.py`` place the tensors).
 """
 from __future__ import annotations
 
@@ -235,12 +236,12 @@ def min_group_size(param_bytes: int, opt_bytes: int, model_axis: int,
     return g
 
 
-def replica_param_shardings(params, g: int):
-    """What each rank of a replica group of ``g`` ranks holds of each
-    leaf: its shard shape under the logical partition rules, FSDP over
-    ``data`` within the group (the ``model`` axis is 1 in this port),
-    sanitized for divisibility.  The reference returns the
-    ``NamedSharding``s (``src/repro/core/spmd_hybrid.py:185-207``) with
-    a leading ``rep`` axis; a rank here holds one replica, so the shapes
-    have none."""
-    return param_shardings(params, {"data": g, "model": 1})
+def replica_param_shardings(params, g: int, model: int = 1):
+    """What each rank of a replica group of ``g`` data positions of
+    ``model`` ranks holds of each leaf: its shard shape under the
+    logical partition rules, FSDP over ``data`` and the tensor axes over
+    ``model`` (``parallel/tensor.py``), sanitized for divisibility.  The
+    reference returns the ``NamedSharding``s
+    (``src/repro/core/spmd_hybrid.py:185-207``) with a leading ``rep``
+    axis; a rank here holds one replica, so the shapes have none."""
+    return param_shardings(params, {"data": g, "model": model})

@@ -9,11 +9,14 @@ Usage:
   python -m repro_torch dryrun --all --cards 1
   python -m repro_torch dryrun --arch xlstm-350m --cards 8 \\
       --hybrid-rep 4            # group-annealed hybrid step, R groups
+  python -m repro_torch dryrun --arch phi4-mini-3.8b --shape train_4k \\
+      --cards 4 --model 2       # data 2 x model 2
 
-A layout is ``--cards N`` H100s on the data axis (the ``model`` axis is
-1, as everywhere in the port), with ``--hybrid-rep R`` groups of N/R
-cards for the group-annealed step.  Each record holds two layouts side
-by side:
+A layout is ``--cards N`` H100s: N/M on the data axis and ``--model M``
+on the model axis (default 1; M > 1 covers the dense families,
+``parallel/tensor.py``), with ``--hybrid-rep R`` groups of N/(M R) data
+positions for the group-annealed step.  Each record holds two layouts
+side by side:
 
 * ``spmd_whole_replica``: every card holds its replica whole (params,
   AdamW moments, the decode cache of its batch rows) and a train step
@@ -25,8 +28,12 @@ by side:
   FSDP step itself: each part gathered where it is used (a
   rematerialised group again in its recompute), each gradient
   reduce-scattered in float32, the whole leaves' gradients all-reduced,
-  the update on the shards.  A serving step's FSDP peak is an estimate:
-  the held state replaced by its shards plus one group's layer.
+  the update on the shards; with ``--model M`` > 1 on a card's model
+  slices, its tensor all-reduces and all-gathers counted from its calls
+  (``tensor all-reduce``, ``tensor all-gather``).  A serving step's FSDP
+  state is the rules' shards over ``{"data": N/M, "model": M}`` (params
+  and ``cache_specs``, exact); its peak is an estimate: the held state
+  replaced by its shards plus one group's layer.
 
 Collective bytes are what each card sends on a ring: ``2 (g-1)/g`` of
 the bytes for an all-reduce over g cards, ``(g-1)/g`` for an all-gather
@@ -41,9 +48,9 @@ forward ops are counted, as the reference's HLO count includes them,
 and the peak is what the checkpoints leave live.  Prefill and decode
 are the serving forward through the kernels' meta routes.  A model that
 does not fit is a result (``fits: false`` and the bytes it would need),
-not an error.  ``--mesh pod|multipod`` (a 16-wide ``model`` axis) is
-refused, as are ``--q-block`` (ROADMAP C.10) and any ``--remat`` but
-``none`` and ``block``.
+not an error.  ``--mesh pod|multipod`` (a 16-wide ``model`` axis over
+every family) is refused (ROADMAP A16c), as are ``--q-block`` (ROADMAP
+C.10) and any ``--remat`` but ``none`` and ``block``.
 
 Results are JSON files under ``experiments/dryrun_torch/`` (not the
 reference's ``experiments/dryrun/``), reused unless ``--force``, each
@@ -70,14 +77,15 @@ from repro_torch.configs.registry import (ARCH_NAMES, SHAPES, get_config,
 from repro_torch.convert import tree_leaves
 from repro_torch.launch import cost as C
 from repro_torch.launch.serve import prefill_step
-from repro_torch.launch.steps import (card_memory_bytes, derive_microbatch,
-                                      make_train_step)
+from repro_torch.launch.steps import (card_memory_bytes, chained,
+                                      derive_microbatch, make_train_step)
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.parallel.fsdp import GroupShards
 from repro_torch.parallel.partition import (cache_shardings,
                                             opt_state_shardings,
                                             param_shardings)
+from repro_torch.parallel.tensor import TensorParallel, check_dense
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -119,9 +127,9 @@ def bound_seconds(flops: float, nbytes: float, dtype) -> float:
 def _check_mesh(mesh_kind: Optional[str]) -> None:
     if mesh_kind is not None:
         raise ValueError(
-            f"--mesh {mesh_kind}: a 16-wide model axis (tensor-parallel "
-            "activations and collectives) is ROADMAP A16b; the port's "
-            "layouts are --cards N on the data axis")
+            f"--mesh {mesh_kind}: a 16-wide model axis over every family "
+            "is ROADMAP A16c; the port's layouts are --cards N with "
+            "--model M for the dense families")
 
 
 def _per_card_batch(B: int, g: int) -> int:
@@ -132,17 +140,38 @@ def _per_card_batch(B: int, g: int) -> int:
 
 
 class _CountingComm:
-    """The collectives of a traced FSDP step (``parallel/fsdp.py``):
-    nothing moves, the tensors being meta; each call's bytes a card
-    sends on a ring are counted by kind."""
+    """The collectives of a traced FSDP step (``parallel/fsdp.py``) and
+    of its model axis (``parallel/tensor.py``; ``model`` ranks, this
+    card at model index 0): nothing moves, the tensors being meta; each
+    call's bytes a card sends on a ring are counted by kind.  A tensor
+    all-reduce timed as ``"gradient"`` (once a step) counts with the
+    whole leaves' ``all-reduce``."""
 
-    def __init__(self):
+    def __init__(self, model: int = 1):
+        self.model, self.k = model, 0
+        self.kind = None
+        self.reset()
+
+    def reset(self) -> None:
         self.bytes = {"all-gather": 0.0, "reduce-scatter": 0.0,
-                      "all-reduce": 0.0}
+                      "all-reduce": 0.0, "tensor all-reduce": 0.0,
+                      "tensor all-gather": 0.0}
 
     @contextlib.contextmanager
     def timing(self, kind):
-        yield
+        outer, self.kind = self.kind, kind
+        try:
+            yield
+        finally:
+            self.kind = outer
+
+    def model_all_reduce_(self, t):
+        key = "all-reduce" if self.kind == "gradient" \
+            else "tensor all-reduce"
+        self.bytes[key] += 2 * _nbytes(t) * _ring(self.model)
+
+    def model_all_gather_(self, out, t):
+        self.bytes["tensor all-gather"] += _nbytes(out) * _ring(self.model)
 
     def all_gather_(self, out, t, g):
         self.bytes["all-gather"] += _nbytes(out) * _ring(g)
@@ -160,7 +189,7 @@ def _nbytes(t) -> int:
 
 def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
                accum_dtype: str = "float32", hybrid_rep: int = 1,
-               fsdp: bool = False, optimizer=None):
+               fsdp: bool = False, optimizer=None, model: int = 1):
     """``(fn, args, info)``: the step a card runs, on meta tensors.
     ``arch`` is a registry name or a ``ModelConfig``, ``shape`` a name in
     ``SHAPES`` or an ``InputShape``.  ``info`` has the config, the
@@ -168,30 +197,49 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
     the FSDP layout's (``parallel/fsdp.py``) over the group's cards:
     params and optimizer state are one card's shards, the forward
     gathers each part where it is used and the backward
-    reduce-scatters; ``info["comm"]`` counts its collective bytes.
-    ``optimizer`` is the train step's (default AdamW, lr 3e-4)."""
+    reduce-scatters; with ``model`` M > 1 they are the shards of a
+    card's model slices, and the forward and backward run the tensor
+    collectives (``parallel/tensor.py``); ``info["comm"]`` counts its
+    collective bytes.  The cards are ``cards / model`` data positions,
+    ``hybrid_rep`` groups of them; the batch is split over the
+    positions.  ``optimizer`` is the train step's (default AdamW, lr
+    3e-4)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
-    if cards % hybrid_rep:
-        raise ValueError(f"--hybrid-rep {hybrid_rep} must divide --cards "
-                         f"{cards}")
-    b = _per_card_batch(shape.global_batch, cards)
+    if model < 1 or cards % model:
+        raise ValueError(f"--model {model} must divide --cards {cards}")
+    check_dense(cfg, model)
+    data = cards // model
+    if data % hybrid_rep:
+        raise ValueError(f"--hybrid-rep {hybrid_rep} must divide the "
+                         f"{data} data positions of --cards {cards}")
+    b = _per_card_batch(shape.global_batch, data)
     specs = input_specs(cfg, shape, batch_override=b)
     params = meta_params(cfg)
     info = {"cfg": cfg, "per_card_batch": b, "params": params,
-            "group": cards // hybrid_rep}
+            "group": data // hybrid_rep, "model": model}
     if shape.kind == "train":
         if b % microbatch:
             raise ValueError(f"microbatch {microbatch} does not divide the "
                              f"per-card batch {b}")
         opt = optimizer or adamw(3e-4)
         kw = {}
-        if fsdp and info["group"] > 1:
-            comm = info["comm"] = _CountingComm()
-            sharding = GroupShards(params, info["group"], 0, comm)
-            params = sharding.shard(params)
-            kw = {"reduce_grads": sharding.group_mean,
-                  "gather": sharding.gather}
+        if fsdp and (info["group"] > 1 or model > 1):
+            comm = info["comm"] = _CountingComm(model)
+            reduce = []
+            if model > 1:
+                tp = TensorParallel(cfg, params, comm)
+                params = tp.slice(params)
+                kw["tensor"] = tp
+                if tp.partial:
+                    reduce.append(tp.sum_partial)
+            if info["group"] > 1:
+                sharding = GroupShards(params, info["group"], 0, comm,
+                                       model)
+                params = sharding.shard(params)
+                kw["gather"] = sharding.gather
+                reduce.append(sharding.group_mean)
+            kw["reduce_grads"] = chained(reduce)
         opt_state = opt.init(params)
         info["opt_state"] = opt_state
         step = make_train_step(cfg, opt, microbatch=microbatch,
@@ -202,7 +250,7 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
 
             def step(*args):
                 # an analysis may trace the step twice: count the last
-                info["comm"].__init__()
+                info["comm"].reset()
                 return counted(*args)
         return step, (params, opt_state, specs["batch"]), info
     if shape.kind == "prefill":
@@ -233,7 +281,7 @@ def _layouts(shape, info, report: C.Report, traced=None
     then the traced ones."""
     g = info["group"]
     params = info["params"]
-    mesh = {"data": g, "model": 1}
+    mesh = {"data": g, "model": info["model"]}
     state = {"params": params}
     if "opt_state" in info:
         state["opt_state"] = info["opt_state"]
@@ -266,9 +314,9 @@ def _layouts(shape, info, report: C.Report, traced=None
         counted = f_info["comm"].bytes
         m = f_info["microbatch"]
         fsdp_peak = f_report.peak_bytes
-        fsdp_coll = {"all-gather": counted["all-gather"] * m,
-                     "reduce-scatter": counted["reduce-scatter"] * m,
-                     "all-reduce": counted["all-reduce"]}
+        # a micro-batch's collectives, m times; the gradient's once
+        fsdp_coll = {k: v * (1 if k == "all-reduce" else m)
+                     for k, v in counted.items()}
     else:
         # a serving step (or one card): the held state shrinks to its
         # shards and one group's layer is gathered whole at a time, each
@@ -295,11 +343,13 @@ def _layouts(shape, info, report: C.Report, traced=None
             "peak_bytes": int(peak),
             "collective_bytes_per_device": {"total": sum(coll.values()),
                                             **coll}}
+    out[FSDP]["mesh"] = mesh
     if traced is not None:
         out[FSDP]["peak_traced"] = (
             "the FSDP train step traced on one card's shards: each part "
             "gathered where it is used, the backward's reduce-scatters, "
-            "the update on the shards; collectives counted from its calls")
+            "the tensor collectives of the model axis, the update on the "
+            "shards; collectives counted from its calls")
     else:
         out[FSDP]["peak_is_estimate"] = (
             "the traced peak with the held state replaced by its shards "
@@ -330,29 +380,32 @@ def _num_params(params) -> int:
 
 def analyze_step(arch, shape, cards: int = 1, microbatch: int = 1,
                  accum_dtype: str = "float32", hybrid_rep: int = 1,
-                 fsdp: bool = False, optimizer=None):
+                 fsdp: bool = False, optimizer=None, model: int = 1):
     """``(Report, info)`` of the step :func:`build_step` builds."""
     fn, args, info = build_step(arch, shape, cards, microbatch, accum_dtype,
-                                hybrid_rep, fsdp, optimizer)
+                                hybrid_rep, fsdp, optimizer, model)
     info["microbatch"] = microbatch
     _, report = C.analyze(fn, *args)
     return report, info
 
 
 def fsdp_layout(arch, shape, cards: int, microbatch: int = 1,
-                hybrid_rep: int = 1, optimizer=None) -> Dict[str, Any]:
+                hybrid_rep: int = 1, optimizer=None, model: int = 1
+                ) -> Dict[str, Any]:
     """The ``fsdp_partition_rules`` layout of one train step (per-card
     state bytes, peak, collective bytes), its peak traced through the
-    FSDP step with ``cards // hybrid_rep`` cards a group: what a card of
-    the SPMD driver's phase holds.  ``shape`` may be an ``InputShape``
-    of the caller's (a smoke run's own batch and length)."""
+    FSDP step over ``{"data": cards // model, "model": model}`` with
+    ``hybrid_rep`` groups: what a card of the SPMD trainer's phase holds.
+    ``shape`` may be an ``InputShape`` of the caller's (a smoke run's
+    own batch and length)."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     report, info = analyze_step(arch, shape, cards, microbatch,
-                                hybrid_rep=hybrid_rep, optimizer=optimizer)
+                                hybrid_rep=hybrid_rep, optimizer=optimizer,
+                                model=model)
     traced = analyze_step(arch, shape, cards, microbatch,
                           hybrid_rep=hybrid_rep, fsdp=True,
-                          optimizer=optimizer) \
-        if info["group"] > 1 else None
+                          optimizer=optimizer, model=model) \
+        if info["group"] > 1 or model > 1 else None
     return _layouts(shape, info, report, traced)[FSDP]
 
 
@@ -360,8 +413,11 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             remat: Optional[str] = None, q_block: Optional[int] = None,
             microbatch: Optional[int] = None, accum_dtype: str = "float32",
             tag: str = "", cards: int = 1,
-            hybrid_rep: int = 1) -> Dict[str, Any]:
-    """One record.  ``remat`` overrides the config's (None keeps it)."""
+            hybrid_rep: int = 1, model: int = 1) -> Dict[str, Any]:
+    """One record.  ``remat`` overrides the config's (None keeps it).
+    ``model`` M > 1: the cards are data N/M x model M (the dense
+    families; any other is refused, naming A16c), the micro-batch
+    derived from the traced tensor-parallel step's peak."""
     _check_mesh(mesh_kind)
     _check_flags(remat, q_block)
     cfg = get_config(arch)
@@ -370,8 +426,15 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
     shape = SHAPES[shape_name]
     result: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                               "mesh": "card", "cards": cards,
-                              "hybrid_rep": hybrid_rep, "tag": tag}
+                              "model": model, "hybrid_rep": hybrid_rep,
+                              "tag": tag}
     ok, why = shape_applicable(cfg, shape)
+    if ok and (cards % model or model < 1):
+        raise ValueError(f"--model {model} must divide --cards {cards}")
+    try:
+        check_dense(cfg, model)
+    except ValueError as e:
+        ok, why = False, str(e)
     if not ok:
         return {**result, "status": "skipped", "reason": why}
     card_bytes = card_memory_bytes("meta")
@@ -379,25 +442,36 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
                    "card_memory_bytes": card_bytes})
     t0 = time.time()
     try:
+        traced = None
         if shape.kind == "train" and microbatch is None:
-            b = _per_card_batch(shape.global_batch, cards)
-            reports = {}
+            b = _per_card_batch(shape.global_batch, cards // model)
+            reports, tp_reports = {}, {}
 
             def peak_of(m):
                 reports[m] = analyze_step(cfg, shape_name, cards, m,
-                                          accum_dtype, hybrid_rep)
-                return reports[m][0].peak_bytes
+                                          accum_dtype, hybrid_rep,
+                                          model=model)
+                if model == 1:
+                    return reports[m][0].peak_bytes
+                # the model axis: what a card of it holds
+                tp_reports[m] = analyze_step(cfg, shape_name, cards, m,
+                                             accum_dtype, hybrid_rep,
+                                             fsdp=True, model=model)
+                return tp_reports[m][0].peak_bytes
             microbatch, _ = derive_microbatch(b, peak_of, card_bytes)
             report, info = reports[microbatch]
+            traced = tp_reports.get(microbatch)
             result["microbatch_derived"] = True
         else:
             microbatch = microbatch or 1
             report, info = analyze_step(cfg, shape_name, cards,
-                                        microbatch, accum_dtype, hybrid_rep)
-        traced = None
-        if shape.kind == "train" and info["group"] > 1:
+                                        microbatch, accum_dtype, hybrid_rep,
+                                        model=model)
+        if traced is None and shape.kind == "train" and (
+                info["group"] > 1 or model > 1):
             traced = analyze_step(cfg, shape_name, cards, microbatch,
-                                  accum_dtype, hybrid_rep, fsdp=True)
+                                  accum_dtype, hybrid_rep, fsdp=True,
+                                  model=model)
         layouts = _layouts(shape, info, report, traced)
         dtype = getattr(torch, cfg.dtype)
         spmd = layouts[SPMD]
@@ -435,14 +509,15 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
 
 def run_hybrid_one(arch: str, rep: int, cards: int,
                    microbatch: Optional[int] = None,
-                   tag: str = "", remat: Optional[str] = None
-                   ) -> Dict[str, Any]:
+                   tag: str = "", remat: Optional[str] = None,
+                   model: int = 1) -> Dict[str, Any]:
     """The group-annealed hybrid train step (train_4k) with ``rep``
-    replica groups of ``cards // rep`` cards: gradients reduce only
-    within a group.  R=1 is the fully synchronous endpoint."""
+    replica groups of ``cards // (model * rep)`` data positions:
+    gradients reduce only within a group.  R=1 is the fully synchronous
+    endpoint."""
     return run_one(arch, "train_4k", cards=cards, hybrid_rep=rep,
                    microbatch=microbatch, tag=tag or f"hybrid_R{rep}",
-                   remat=remat)
+                   remat=remat, model=model)
 
 
 REMAT_CHOICES = ("none", "block")
@@ -485,16 +560,26 @@ def _summary(res) -> str:
             f"({res['analysis_s']}s)")
 
 
+def _mesh_kind(args) -> str:
+    return f"card{args.cards}" + (f"_model{args.model}"
+                                  if args.model > 1 else "")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch dryrun")
     ap.add_argument("--arch", choices=ARCH_NAMES)
     ap.add_argument("--shape", choices=tuple(SHAPES))
     ap.add_argument("--mesh", choices=("pod", "multipod", "both"),
                     default=None,
-                    help="pod/multipod/both (a 16-wide model axis) are "
-                         "ROADMAP A16b and refused")
+                    help="pod/multipod/both (a 16-wide model axis over "
+                         "every family) are ROADMAP A16c and refused")
     ap.add_argument("--cards", type=int, default=1,
-                    help="H100s on the data axis (default 1)")
+                    help="H100s (default 1): N/M on the data axis, M on "
+                         "the model axis")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the model axis M (default 1); M > 1 covers the "
+                         "dense families, the others are skipped naming "
+                         "ROADMAP A16c")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--remat", default=None,
@@ -516,6 +601,9 @@ def main(argv=None) -> int:
     try:
         _check_mesh(args.mesh)
         _check_flags(args.remat, args.q_block)
+        if args.model < 1 or args.cards % args.model:
+            raise ValueError(f"--model {args.model} must divide --cards "
+                             f"{args.cards}")
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -526,8 +614,8 @@ def main(argv=None) -> int:
             return 2
         res = run_hybrid_one(args.arch, args.hybrid_rep, args.cards,
                              microbatch=args.microbatch, tag=args.tag,
-                             remat=args.remat)
-        path = result_path(args.arch, "train_4k", f"card{args.cards}",
+                             remat=args.remat, model=args.model)
+        path = result_path(args.arch, "train_4k", _mesh_kind(args),
                            res["tag"], args.out_dir, args.remat)
         with open(path, "w") as f:
             json.dump(res, f, indent=2)
@@ -542,7 +630,7 @@ def main(argv=None) -> int:
     shapes = tuple(SHAPES) if args.all or not args.shape else (args.shape,)
     combos = [(a, s) for a in archs for s in shapes]
     failures = 0
-    mesh_kind = f"card{args.cards}"
+    mesh_kind = _mesh_kind(args)
     for a, s in combos:
         path = result_path(a, s, mesh_kind, args.tag, args.out_dir,
                            args.remat)
@@ -555,7 +643,7 @@ def main(argv=None) -> int:
         print(f"[run] {a} x {s} x {mesh_kind} ...", flush=True)
         res = run_one(a, s, remat=args.remat, microbatch=args.microbatch,
                       accum_dtype=args.accum_dtype, tag=args.tag,
-                      cards=args.cards)
+                      cards=args.cards, model=args.model)
         with open(path, "w") as f:
             json.dump(res, f, indent=2)
         if res["status"] == "ok":

@@ -1,12 +1,18 @@
 """The rank layout of the SPMD backend: the counterpart of the mesh.
 
-The reference factors a TPU mesh's data axis into ``(rep, data)``.  Here
-one rank of a ``torch.distributed`` job is one position on the data
-axis, and the world size W is the axis (times ``mesh_model``, which is 1
-in this port):
+The reference lays a TPU mesh out as ``(rep, data, model)``
+(``src/repro/launch/train.py:54-60 build_hybrid_mesh``), ``model``
+varying fastest.  Here one rank of a ``torch.distributed`` job is one
+device of that mesh: with W ranks, ``mesh_model`` M and R replica
+groups of g data positions each (R g M = W), rank ``r*g*M + d*M + k``
+is position (rep r, data d, model k):
 
-  * replica group r of size g holds ranks ``[r*g, (r+1)*g)``
+  * replica group r holds ranks ``[r*g*M, (r+1)*g*M)``
     (:func:`replica_groups`), the order of the reference's reshape;
+  * the data column of a rank is the g ranks of its replica group with
+    its model index k (:func:`data_column`): the FSDP axis;
+  * the model group of a rank is the M consecutive ranks of its data
+    position (:func:`model_group`): the tensor-parallel axis;
   * a rank computes on ``cuda:{LOCAL_RANK % device_count}``, or on the
     CPU when the caller asks (:func:`rank_device`);
   * the collective backend follows from that layout
@@ -54,12 +60,28 @@ def world() -> Tuple[int, int]:
 
 def replica_groups(world_size: int, R: int) -> List[List[int]]:
     """The ranks of each of R replica groups: group r is
-    ``[r*g, (r+1)*g)`` with g = world_size / R."""
+    ``[r*n, (r+1)*n)`` with n = world_size / R (g data positions times
+    the model width)."""
     if R < 1 or world_size % R:
         raise ValueError(f"{R} replica groups do not split "
                          f"{world_size} ranks")
-    g = world_size // R
-    return [list(range(r * g, (r + 1) * g)) for r in range(R)]
+    n = world_size // R
+    return [list(range(r * n, (r + 1) * n)) for r in range(R)]
+
+
+def data_column(rank: int, g: int, model: int = 1) -> List[int]:
+    """The ranks of ``rank``'s replica group (g data positions of
+    ``model`` ranks) that share its model index: the same (r, k), over
+    d."""
+    base = rank - rank % (g * model)
+    return [base + d * model + rank % model for d in range(g)]
+
+
+def model_group(rank: int, model: int) -> List[int]:
+    """The ``model`` ranks of ``rank``'s data position: the same (r, d),
+    over k."""
+    base = rank - rank % model
+    return list(range(base, base + model))
 
 
 def rank_device(device: Device = None,
@@ -138,7 +160,20 @@ class Collectives:
     leaves the card; only the bytes that cross ranks pass through the
     host.  NCCL
     takes the CUDA tensors as they are.  With one rank every collective
-    is the identity.  ``seconds`` adds up the time spent in them, waits
+    is the identity.
+
+    With ``model`` M > 1 a rank sits on two axes: the FSDP collectives
+    (``all_reduce_sum_``, ``all_gather_``, ``reduce_scatter_``) run over
+    its data column within the replica group, the tensor-parallel ones
+    (``model_all_reduce_``, ``model_all_gather_``) over its model group,
+    and the merges' ``all_to_all_`` over its model column: the W/M ranks
+    with its model index, where ``position`` is its place and
+    ``positions`` their count.  Every rank creates the model groups, then
+    the columns, in the same order, and the data columns of a group size
+    the first time it is asked for.  Under NCCL a model group stays on
+    one host.
+
+    ``seconds`` adds up the time spent in the collectives, waits
     for the other ranks included, and ``seconds_by`` splits it by the
     label of :meth:`timing` around each call.  Under gloo it is the
     host's clock around the call.  NCCL's collectives return before
@@ -150,30 +185,59 @@ class Collectives:
     when ``seconds`` or ``seconds_by`` is, or once
     :data:`EVENTS_HELD` are waiting."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, model: int = 1):
         self.device = device
         self.rank, self.world = world()
         self.backend = dist.get_backend() if self.world > 1 else None
+        self.model = int(model)
+        if self.model < 1 or self.world % self.model:
+            raise ValueError(f"mesh_model={self.model} must divide the "
+                             f"world size ({self.world})")
+        if self.backend == "nccl" and local_world_size() % self.model:
+            raise ValueError(f"mesh_model={self.model}: a model group must "
+                             f"stay on one host ({local_world_size()} "
+                             "ranks here)")
+        self.k = self.rank % self.model
+        self.position = self.rank // self.model
+        self.positions = self.world // self.model
         self._seconds = 0.0
         self._by: Dict[str, float] = {}
         self._events: List[Tuple[str, object, object]] = []
         self._kind = "other"
+        self._handles: Dict[Tuple[int, ...], object] = {}
         self._groups: Dict[int, object] = {}
         self._pinned: Dict[torch.dtype, torch.Tensor] = {}
+        M, W = self.model, self.world
+        self._model = self._create(
+            [model_group(p * M, M) for p in range(W // M)])
+        self._column = self._create(
+            [data_column(k, W // M, M) for k in range(M)])
+
+    def _create(self, groups: Sequence[Sequence[int]]):
+        """Create each group in order (every rank creates every one) and
+        return the handle of the one holding this rank: None for the
+        whole world or for a group of one."""
+        mine = None
+        for ranks in groups:
+            ranks = tuple(ranks)
+            if len(ranks) in (1, self.world):
+                handle = None
+            elif ranks in self._handles:
+                handle = self._handles[ranks]
+            else:
+                handle = self._handles[ranks] = dist.new_group(list(ranks))
+            if self.rank in ranks:
+                mine = handle
+        return mine
 
     def group(self, g: int):
-        """This rank's replica group of size ``g`` (None for the whole
-        world).  Every rank creates every group of a size, in order, the
-        first time the size is asked for."""
-        if g == self.world:
-            return None
+        """This rank's data column within its replica group of ``g``
+        data positions (None for the whole world)."""
         if g not in self._groups:
-            mine = None
-            for ranks in replica_groups(self.world, self.world // g):
-                handle = dist.new_group(ranks)
-                if self.rank in ranks:
-                    mine = handle
-            self._groups[g] = mine
+            M = self.model
+            self._groups[g] = self._create(
+                [data_column(base + k, g, M)
+                 for base in range(0, self.world, g * M) for k in range(M)])
         return self._groups[g]
 
     @contextlib.contextmanager
@@ -265,7 +329,7 @@ class Collectives:
             piece.copy_(host)
 
     def all_reduce_sum_(self, t: torch.Tensor, g: int) -> None:
-        """Sum ``t`` in place over this rank's replica group of size g."""
+        """Sum ``t`` in place over this rank's data column of g."""
         if g == 1:
             return
         grp = self.group(g)
@@ -274,18 +338,16 @@ class Collectives:
     def all_gather_(self, out: torch.Tensor, t: torch.Tensor,
                     g: int) -> None:
         """``out`` (flat, g times ``t``'s size) <- the flat ``t`` of each
-        rank of this rank's replica group of size g, in rank order."""
+        rank of this rank's data column of g, in rank order."""
         if g == 1:
             out.copy_(t)
             return
-        grp = self.group(g)
-        self._staged_pair(out, t, lambda o, i: _quiet(
-            dist.all_gather_into_tensor, o, i, group=grp))
+        self._gather(out, t, self.group(g))
 
     def reduce_scatter_(self, out: torch.Tensor, t: torch.Tensor,
                         g: int) -> None:
         """``out`` <- this rank's 1/g of flat ``t`` summed over its
-        replica group of size g (rank k of the group takes the k-th
+        data column of g (the column's d-th rank takes the d-th
         slice)."""
         if g == 1:
             out.copy_(t)
@@ -294,17 +356,39 @@ class Collectives:
         self._staged_pair(out, t, lambda o, i: _quiet(
             dist.reduce_scatter_tensor, o, i, group=grp))
 
+    def model_all_reduce_(self, t: torch.Tensor) -> None:
+        """Sum flat ``t`` in place over this rank's model group."""
+        if self.model > 1:
+            grp = self._model
+            self._staged(t, lambda x: dist.all_reduce(x, group=grp))
+
+    def model_all_gather_(self, out: torch.Tensor, t: torch.Tensor
+                          ) -> None:
+        """``out`` (flat, M times ``t``'s size) <- the flat ``t`` of each
+        rank of this rank's model group, in rank order."""
+        if self.model == 1:
+            out.copy_(t)
+            return
+        self._gather(out, t, self._model)
+
+    def _gather(self, out, t, grp) -> None:
+        self._staged_pair(out, t, lambda o, i: _quiet(
+            dist.all_gather_into_tensor, o, i, group=grp))
+
     def all_to_all_(self, out: torch.Tensor, t: torch.Tensor,
                     out_splits: Sequence[int],
                     in_splits: Sequence[int]) -> None:
-        """Over the whole world: rank k gets ``in_splits[k]`` elements of
-        flat ``t`` (consecutive slices, in rank order), and ``out`` is
-        what each rank sent this one, ``out_splits[j]`` from rank j."""
-        if self.world == 1:
+        """Over this rank's model column (the whole world when M is 1):
+        position j gets ``in_splits[j]`` elements of flat ``t``
+        (consecutive slices, in position order), and ``out`` is what
+        each position sent this one, ``out_splits[j]`` from position
+        j."""
+        if self.positions == 1:
             out.copy_(t)
             return
+        grp = self._column
         self._staged_pair(out, t, lambda o, i: dist.all_to_all_single(
-            o, i, list(out_splits), list(in_splits)))
+            o, i, list(out_splits), list(in_splits), group=grp))
 
     def sum_world(self, t: torch.Tensor) -> torch.Tensor:
         """A small tensor summed over the world in float64 (one

@@ -64,10 +64,24 @@ def derive_microbatch(per_card_batch: int, peak_of: Callable[[int], int],
     return cands[hi], True
 
 
+def chained(fns) -> Optional[Callable]:
+    """One ``reduce_grads`` applying each of ``fns`` in turn (None when
+    there are none)."""
+    fns = [f for f in fns if f is not None]
+    if not fns:
+        return None
+
+    def run(grads):
+        for f in fns:
+            grads = f(grads)
+        return grads
+    return run
+
+
 def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
                     accum_dtype: torch.dtype = torch.float32,
                     reduce_grads: Optional[Callable] = None,
-                    gather: Optional[Callable] = None):
+                    gather: Optional[Callable] = None, tensor=None):
     """``(params, opt_state, batch) -> (params, opt_state, loss)``.
 
     ``microbatch > 1`` splits the batch into that many slices taken one
@@ -78,9 +92,14 @@ def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
     a replica group there.  ``gather`` is the model's (params and
     optimizer state are a rank's FSDP shards, ``parallel/fsdp.py``):
     each micro-batch's backward then reduce-scatters its gradient, and
-    the update runs on the shards."""
+    the update runs on the shards.  ``tensor`` is the model's
+    tensor-parallel context (``parallel/tensor.py``; params are a rank's
+    model slices): the forward and backward then run their collectives
+    over the model group, and ``reduce_grads`` sums the gradients of
+    whole leaves over the data column only."""
     grad_fn = gradient.grad_and_value(
-        lambda p, b: M.loss_fn(p, b, cfg, gather=gather), has_aux=True)
+        lambda p, b: M.loss_fn(p, b, cfg, gather=gather, tp=tensor),
+        has_aux=True)
 
     def train_step(params, opt_state, batch):
         if microbatch == 1:

@@ -10,16 +10,23 @@ Modes:
 
 Every rank of a ``torch.distributed`` job runs :func:`run_training`
 (launched by ``torchrun``; with no process group it is one rank, and
-R = 1).  Each step a rank takes the gradient of its own rows of the
-batch.  With g > 1 a replica group holds its replica in the reference's
-FSDP layout (``parallel/fsdp.py``): each rank keeps its shards of the
-params and of the optimizer state, the forward gathers each part where
-it is used, the backward reduce-scatters the gradient, summed over the
-group, and the update runs on the shards.
+R = 1).  ``mesh_model`` M splits the W ranks into W/M data positions of
+M ranks (``launch/mesh.py``); each step a data position takes the
+gradient of its own rows of the batch.  With M > 1 (the dense families,
+``parallel/tensor.py``) each rank holds its model slice of every leaf
+and computes on its heads, MLP columns and vocabulary rows, with
+collectives over its model group.  With g > 1 a replica group holds its
+replica in the reference's FSDP layout (``parallel/fsdp.py``): each rank
+keeps its shards of the params and of the optimizer state, the forward
+gathers each part along its data column where it is used, the backward
+reduce-scatters the gradient, summed over the column, and the update
+runs on the shards.
 
-The merges and the divergence are split along P: the slab's P axis is
-cut into one tile-aligned chunk per rank (``core/slab.py::shard_chunks``)
-and rank j receives chunk j of every replica's slab (one all-to-all,
+Each model column (the W/M ranks of one model index) runs the merges
+and the divergence of its model slices on its own, as a world of W/M
+ranks with M = 1 runs them: the slab's P axis is cut into one
+tile-aligned chunk per position (``core/slab.py::shard_chunks``) and
+position j receives chunk j of every replica's slab (one all-to-all,
 after each group gathers its replica).  A merge flushes that ``(R, c)``
 chunk through the flush kernel (one launch at K = R on each rank),
 divides by R, alpha-blends and reshards it; the next phase's replicas
@@ -27,9 +34,12 @@ are assembled from the merged chunks (another all-to-all) and sharded
 by the next phase's layout.  The flush is elementwise along P, so this
 is the unsharded merge bit for bit.  The divergence of a logged step
 sums each leaf's squared distances within each chunk, in the leaf's
-dtype as the reference does, and all-reduces one vector of those sums.
-Checkpoints and the returned params are assembled on rank 0, which
-writes the history, the checkpoints and ``out_json``.
+dtype as the reference does, and all-reduces one vector of those sums
+over the world, a leaf whole on every model rank counted from model
+index 0 only.  Checkpoints and the returned params are assembled on
+rank 0 (each column's position 0 assembles its slices, and the model
+group of ranks 0..M-1 gathers them), which writes the history, the
+checkpoints and ``out_json``.
 
 Example (equivalently ``python -m repro_torch run --backend spmd ...``):
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
@@ -40,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import time
@@ -60,10 +71,12 @@ from repro_torch.kernels import hybrid_aggregate
 from repro_torch.launch.cost import tree_bytes
 from repro_torch.launch.mesh import (Collectives, describe_layout,
                                      distributed, rank_device)
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import chained, make_train_step
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import adamw, momentum, sgd
-from repro_torch.parallel.fsdp import GroupShards
+from repro_torch.parallel.fsdp import GroupShards, all_gather_leaf
+from repro_torch.parallel.partition import map_with_path
+from repro_torch.parallel.tensor import TensorParallel, check_dense
 
 
 def _optimizer(spec):
@@ -92,17 +105,24 @@ def _phases(spec, data_axis: int) -> List[Tuple[int, int]]:
 class _Chunks:
     """The slab's P axis split into one tile-aligned chunk per rank
     (``core/slab.py::shard_chunks``; a rank past the tiles has an
-    empty one): where a merge and the divergence run."""
+    empty one): where a merge and the divergence run.  The ranks are
+    the positions of a model column (``comm.all_to_all_``'s); ``rank``
+    and ``world`` default to ``comm``'s own.  ``skip`` holds the codec
+    indices of leaves whose part of the divergence this rank does not
+    add (another column adds them)."""
 
-    def __init__(self, codec: SlabCodec, comm: Collectives):
-        W = comm.world
+    def __init__(self, codec: SlabCodec, comm: Collectives,
+                 rank: Optional[int] = None, world: Optional[int] = None,
+                 skip: Sequence[int] = ()):
+        W = comm.world if world is None else world
+        rank = comm.rank if rank is None else rank
         sizes = shard_chunks(codec.padded_size, W)
         self.sizes = sizes + (0,) * (W - len(sizes))
         self.offsets = tuple(int(o) for o in
                              np.cumsum((0,) + self.sizes)[:-1])
-        self.comm = comm
-        lo = self.offsets[comm.rank]
-        self.mine = slice(lo, lo + self.sizes[comm.rank])
+        self.comm, self.rank, self.world = comm, rank, W
+        lo = self.offsets[rank]
+        self.mine = slice(lo, lo + self.sizes[rank])
         self.segments = slab_segments(codec, lo, self.mine.stop)
         # (leaf index, a, b, dtype) of each leaf that meets this chunk
         self.dtypes = codec.dtypes
@@ -110,23 +130,23 @@ class _Chunks:
                         min(off + n, self.mine.stop) - lo, dt)
                        for i, (off, n, dt) in enumerate(zip(
                            codec.offsets, codec.sizes, codec.dtypes))
-                       if max(off, lo) < min(off + n, self.mine.stop)]
+                       if max(off, lo) < min(off + n, self.mine.stop)
+                       and i not in skip]
 
     def rows(self, slab: torch.Tensor, g: int) -> torch.Tensor:
         """``(R, c)``: this rank's chunk of every replica's slab, from
         ``slab``, the whole slab of this rank's replica (one
         all-to-all: member k of group r sends chunk j to the ranks j
         with j % g == k)."""
-        comm, W = self.comm, self.comm.world
-        k = comm.rank % g
+        W = self.world
+        k = self.rank % g
         send = [j for j in range(W) if j % g == k]
         inp = torch.cat([slab[self.offsets[j]:self.offsets[j]
                               + self.sizes[j]] for j in send])
-        c = self.sizes[comm.rank]
+        c = self.sizes[self.rank]
         out = slab.new_empty((W // g * c,))
-        comm.all_to_all_(
-            out, inp, [c if s % g == comm.rank % g else 0
-                       for s in range(W)],
+        self.comm.all_to_all_(
+            out, inp, [c if s % g == k else 0 for s in range(W)],
             [self.sizes[j] if j % g == k else 0 for j in range(W)])
         return out.view(W // g, c)
 
@@ -135,13 +155,13 @@ class _Chunks:
         """Rank k gets the whole slab of row ``row_for[k]`` of the
         ``(n, c)`` chunk rows every rank holds (one all-to-all); a rank
         whose entry is None gets None."""
-        comm, W = self.comm, self.comm.world
-        mine = row_for[comm.rank]
+        W = self.world
+        mine = row_for[self.rank]
         inp = torch.cat([rows[row_for[k]] for k in range(W)
                          if row_for[k] is not None])
         out = rows.new_empty((self.offsets[-1] + self.sizes[-1]
                               if mine is not None else 0,))
-        comm.all_to_all_(
+        self.comm.all_to_all_(
             out, inp, [self.sizes[j] if mine is not None else 0
                        for j in range(W)],
             [rows.shape[1] if row_for[k] is not None else 0
@@ -185,6 +205,25 @@ class _Chunks:
         return float(torch.sqrt(total))
 
 
+def _digest(params, tp: TensorParallel, sharding) -> float:
+    """48 bits of the SHA-256 of a rank's leaves whole on every rank of
+    its model group (each gathered along ``data`` when ``sharding``
+    shards it), as a float (exact)."""
+    h = hashlib.sha256()
+
+    def one(path, t):
+        if not tp.whole(path):
+            return
+        d = sharding.dims[path] if sharding is not None else None
+        if d is not None:
+            t = all_gather_leaf(t, d, sharding.g, sharding.comm)
+        h.update(t.detach().cpu().contiguous().view(torch.uint8)
+                 .numpy().tobytes())
+    with torch.no_grad():
+        map_with_path(one, params)
+    return float(int.from_bytes(h.digest()[:6], "big"))
+
+
 def run_training(spec, ckpt_dir: Optional[str] = None,
                  out_json: Optional[str] = None, verbose: bool = True,
                  device: Device = None, params: Any = None,
@@ -200,13 +239,15 @@ def run_training(spec, ckpt_dir: Optional[str] = None,
     and on rank 0 also the layout (``backend``, ``world_size``,
     ``device``), each merge's K (``merges``), the flush launches by K
     (``launches_by_k``; ``flush_launches_by_rank`` has every rank's
-    flush launches at each merge's K), each phase's layout (``layout``: its g and R,
-    whether it is FSDP, and by rank the state bytes, what the card held
-    before the phase's first step and the peak of its steps), and each
-    rank's peak device memory and host seconds in collectives
-    (``collective_s``), split into the gradient (the reduce-scatters and
-    the whole leaves' all-reduce), the FSDP gathers, the divergence of
-    logged steps and the merges (``collective_s_by_kind``).
+    flush launches at each merge's K), ``mesh_model``, each phase's
+    layout (``layout``: its g, R and model width, whether it is FSDP,
+    and by rank the state bytes, what the card held before the phase's
+    first step and the peak of its steps), and each rank's peak device
+    memory and seconds in collectives (``collective_s``), split into the
+    gradient (the reduce-scatters and the whole leaves' all-reduce), the
+    FSDP gathers, with ``mesh_model`` > 1 the tensor collectives of the
+    forward and backward, the divergence of logged steps and the merges
+    (``collective_s_by_kind``).
 
     ``params`` (tests) is an initial params tree of numpy arrays, such
     as the reference's, in place of the port's own initialisation.
@@ -226,14 +267,13 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
     if cfg.frontend is not None:
         raise ValueError(f"{spec.arch}: the train driver uses token "
                          "streams, not a frontend's inputs")
-    if spec.mesh_model != 1:
-        raise ValueError(
-            f"mesh_model={spec.mesh_model}: a model-parallel axis within "
-            "a replica group is not ported; it is the next multi-card "
-            "item of ROADMAP.md (A16b); use mesh_model=1")
-    comm = Collectives(dev)
-    rank, W = comm.rank, comm.world
-    data_axis = W           # / mesh_model, which is 1
+    # the model axis covers the dense families; the rest is A16c
+    check_dense(cfg, spec.mesh_model)
+    comm = Collectives(dev, spec.mesh_model)
+    rank, W, width = comm.rank, comm.world, comm.model
+    # data positions (src/repro/launch/train.py:91-94); the M ranks of a
+    # position take the same rows
+    data_axis, pos = comm.positions, comm.position
     if dev.type == "cuda":
         from repro_torch.cluster.mptransport import (CUDA_DETERMINISTIC,
                                                      set_torch_flags)
@@ -251,10 +291,20 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
     else:
         params = params_from_numpy(params)
     params = tree_to(params, dev)
+    # this rank's model slices (the params themselves when M is 1); each
+    # model column merges the slab of its own slices
+    tp = TensorParallel(cfg, params, comm) if width > 1 else None
+    if tp is not None:
+        params = tp.slice(params)
     codec = slab_codec(params)
     launches_before = dict(hybrid_aggregate.LAUNCHES_BY_K)
 
-    chunks = _Chunks(codec, comm)
+    # a leaf whole on every model rank adds its divergence once, from
+    # model index 0
+    skip = [i for i, p in enumerate(codec.paths)
+            if tp.whole(tuple(str(n) for n in p))] \
+        if tp is not None and comm.k else ()
+    chunks = _Chunks(codec, comm, pos, data_axis, skip)
     history: List[Dict[str, Any]] = []
     merges: List[Dict[str, Any]] = []
     layout: List[Dict[str, Any]] = []
@@ -262,6 +312,7 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
     t0 = time.time()
     tokens_done = grads_done = step = 0
     rows = params_final = None
+    whole_digest = None        # M > 1: this rank's whole leaves at the end
     peak_all = 0
     last: Optional[Tuple[Any, float, Any]] = None   # (rows, alpha, merge)
 
@@ -285,13 +336,27 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
         del whole
         return chunks.rows(slab, g)
 
-    def write_checkpoint(rows):
+    def assembled(rows, kind):
+        # the merged params whole on rank 0 (None elsewhere): each
+        # column's position 0 assembles its slices, and ranks 0..M-1 (the
+        # model group of position 0) gather them
         with comm.timing("merge"):
-            slab = chunks.assemble(merged(rows, 1.0, "checkpoint"),
-                                   [0] + [None] * (W - 1))
+            slab = chunks.assemble(merged(rows, 1.0, kind),
+                                   [0] + [None] * (data_axis - 1))
+        if slab is None:
+            return None
+        tree = codec.decode(slab)
+        del slab
+        if tp is None:
+            return tree
+        with comm.timing("merge"):
+            return tp.gather_tree(tree)
+
+    def write_checkpoint(rows):
+        tree = assembled(rows, "checkpoint")
         if rank == 0:
             save_checkpoint(os.path.join(ckpt_dir, f"step_{step}"),
-                            codec.decode(slab), step,
+                            tree, step,
                             extra={"arch": spec.arch, "mode": spec.mode})
 
     for idx, (t_start, g) in enumerate(phases):
@@ -306,13 +371,15 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
                                  R)
             rows = last = None
             with comm.timing("merge"):
-                slab = chunks.assemble(new, [k // g for k in range(W)])
+                slab = chunks.assemble(new, [j // g
+                                             for j in range(data_axis)])
             del new
             params = codec.decode(slab)
             del slab
-        # the FSDP layout of this phase's groups (parallel/fsdp.py):
-        # each rank keeps its shards and the optimizer state built on them
-        sharding = GroupShards(params, g, rank % g, comm) if g > 1 \
+        # the FSDP layout of this phase's groups (parallel/fsdp.py) over
+        # each data column: each rank keeps its shards and the optimizer
+        # state built on them
+        sharding = GroupShards(params, g, pos % g, comm, width) if g > 1 \
             else None
         if sharding is not None:
             params = sharding.shard(params)
@@ -323,15 +390,20 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
         held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" \
             else 0
         layout.append({"t_start": t_start, "g": g, "replicas": R,
+                       "model": width,
                        "fsdp": sharding is not None and sharding.sharded})
+        # whole kv-head leaves summed over the model group, then the
+        # mean over the data column
         step_fn = make_train_step(
             cfg, opt, microbatch=microbatch,
-            reduce_grads=sharding.group_mean if sharding else None,
-            gather=sharding.gather if sharding else None)
+            reduce_grads=chained([
+                tp.sum_partial if tp is not None and tp.partial else None,
+                sharding.group_mean if sharding else None]),
+            gather=sharding.gather if sharding else None, tensor=tp)
         step_peak = 0
 
         while step < t_end:
-            batch = shard_batch(next(stream), rank, W, dev)
+            batch = shard_batch(next(stream), pos, data_axis, dev)
             if dev.type == "cuda":
                 peak_all = max(peak_all, torch.cuda.max_memory_allocated(dev))
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -342,11 +414,17 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
             tokens_done += spec.batch * spec.seq
             grads_done += R     # one gradient per replica this step
             if step % spec.log_every == 0 or step == t_end - 1:
-                reported = comm.gather_host([rank // g, float(loss)])
+                # one loss a data position (its model ranks' are equal)
+                reported = [(rid, value) for rid, value, k in
+                            comm.gather_host([pos // g, float(loss),
+                                              comm.k]) if k == 0]
                 div = 0.0
                 if R > 1:
                     with comm.timing("divergence"):
-                        div = chunks.divergence(replica_rows(params, g))
+                        rows = replica_rows(params, g)
+                        div = chunks.divergence(rows)
+                    if step < t_end - 1:
+                        rows = None
                 if rank == 0:
                     by_rep: Dict[int, List[float]] = {}
                     for rid, value in reported:
@@ -371,21 +449,24 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
 
         mine += [state, held, step_peak]
         del opt_state, step_fn
-        with comm.timing("merge"):
-            rows = replica_rows(params, g)
+        if tp is not None and idx == len(phases) - 1:
+            whole_digest = _digest(params, tp, sharding)
+        if rows is None:
+            # (the phase's last step, logged, left its rows when R > 1)
+            with comm.timing("merge"):
+                rows = replica_rows(params, g)
         params = None
         if ckpt_dir:
             write_checkpoint(rows)
 
     # final merge for the returned model, assembled on rank 0
-    with comm.timing("merge"):
-        slab = chunks.assemble(merged(rows, 1.0, "final"),
-                               [0] + [None] * (W - 1))
-    if rank == 0:
-        params_final = codec.decode(slab)
+    params_final = assembled(rows, "final")
+    if rank != 0:
+        params_final = None
     stats: Dict[str, Any] = {"num_updates": step,
                              "num_gradients": grads_done}
-    kinds = ("gradient", "gather", "divergence", "merge")
+    kinds = ("gradient", "gather") + ("tensor",) * (width > 1) \
+        + ("divergence", "merge")
     if dev.type == "cuda":
         peak_all = max(peak_all, torch.cuda.max_memory_allocated(dev))
     # each rank's flush launches at each merge's K (every rank flushes
@@ -395,7 +476,8 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
                - launches_before.get(("flush", K), 0) for K in ks]
     by_rank = comm.gather_host(
         [peak_all, comm.seconds] + [comm.seconds_by.get(k, 0.0)
-                                    for k in kinds] + mine + flushes)
+                                    for k in kinds] + mine + flushes
+        + ([whole_digest] if tp is not None else []))
     if rank == 0:
         after = hybrid_aggregate.LAUNCHES_BY_K
         by_k: Dict[str, Dict[str, int]] = {}
@@ -409,18 +491,23 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
                                      "step_peak_bytes")):
                 ph[key] = [int(r[n_k + 3 * i + j]) for r in by_rank]
         stats.update(
-            backend=backend, world_size=W, device=str(dev),
+            backend=backend, world_size=W, mesh_model=width, device=str(dev),
             remat=cfg.remat,
             device_name=torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else "cpu",
             merges=merges, launches_by_k=by_k, layout=layout,
             flush_launches_by_rank=[
-                {str(K): int(n) for K, n in zip(ks, r[len(r) - len(ks):])}
+                {str(K): int(n) for K, n in zip(
+                    ks, r[n_k + len(mine):n_k + len(mine) + len(ks)])}
                 for r in by_rank],
             peak_memory_bytes=[int(r[0]) for r in by_rank],
             collective_s=[r[1] for r in by_rank],
             collective_s_by_kind=[dict(zip(kinds, r[2:n_k]))
                                   for r in by_rank])
+        if tp is not None:
+            # a digest of each rank's leaves whole on every model rank,
+            # after its last step: equal across each model group
+            stats["whole_digest_by_rank"] = [int(r[-1]) for r in by_rank]
         if out_json:
             with open(out_json, "w") as f:
                 json.dump({"arch": spec.arch, "mode": spec.mode,

@@ -19,6 +19,12 @@ reference's narrower key slab for a window or a chunk is not taken
 (ROADMAP C.41).
 Decode attention stays plain PyTorch, as it is jnp outside any Pallas
 kernel in the reference.
+
+With a tensor-parallel context ``tp`` (``parallel/tensor.py``; the
+training forward at ``mesh_model`` M > 1) a rank projects its H/M query
+heads and the kv heads they map to from its slices of ``wq``/``wk``/
+``wv`` (and ``bq``/``bk``/``bv``), attends over them, and ``wo`` is
+row-parallel: its partial output is summed over the model group.
 """
 from __future__ import annotations
 
@@ -63,16 +69,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     return p
 
 
-def _project_qkv(params, x, cfg: ModelConfig, rope: RopeTable):
+def _project_qkv(params, x, cfg: ModelConfig, rope: RopeTable, tp=None):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope applied
-    from ``rope``, the table at x's positions."""
+    from ``rope``, the table at x's positions (a rank's heads under
+    ``tp``)."""
+    kv = (lambda leaf, dim: leaf) if tp is None else tp.kv
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", x, kv(params["wk"], 1))
+    v = torch.einsum("bsd,dhk->bshk", x, kv(params["wv"], 1))
     if cfg.attn_bias:
         q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        k = k + kv(params["bk"], 0)
+        v = v + kv(params["bv"], 0)
     return apply_rope(q, rope), apply_rope(k, rope), v.contiguous()
 
 
@@ -95,17 +103,22 @@ def plain_attention(q, k, v, cfg: ModelConfig, *, causal: bool,
 
 
 def attention_forward(params, x, cfg: ModelConfig, rope: RopeTable,
-                      global_layer: bool = False, plain: bool = False):
+                      global_layer: bool = False, plain: bool = False,
+                      tp=None):
     """Full-sequence attention.  x: (B, S, D) -> (B, S, D).  ``rope`` is
     the table at positions ``arange(S)`` for every row (``model.forward``
-    gives that), which is what the kernel's masks assume."""
-    q, k, v = _project_qkv(params, x, cfg, rope)
+    gives that), which is what the kernel's masks assume.  ``tp``: a
+    rank's heads, ``wo`` row-parallel."""
+    if tp is not None:
+        x = tp.copy(x)
+    q, k, v = _project_qkv(params, x, cfg, rope, tp)
     attend = functools.partial(plain_attention, cfg=cfg) if plain \
         else ops.flash_attention
     out = attend(q, k, v, causal=cfg.causal,
                  window=None if global_layer else cfg.sliding_window,
                  chunk=None if global_layer else cfg.attn_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y if tp is None else tp.reduce(y)
 
 
 # ---------------------------------------------------------------- decode

@@ -5,7 +5,10 @@
 
 ``ropes`` maps a rotary dim to its cos/sin table at the positions of x
 (:func:`rope_tables`): attention rotates ``head_dim``-wide heads, MLA
-its ``rope_head_dim``-wide part.
+its ``rope_head_dim``-wide part.  ``tp`` is the tensor-parallel context
+of the training forward at ``mesh_model`` M > 1 (``parallel/tensor.py``):
+attention and the MLP take it; any other mixer or FFN raises
+``ValueError`` naming ROADMAP A16c.
 """
 from __future__ import annotations
 
@@ -64,28 +67,38 @@ def init_layer(gen: torch.Generator, mixer: str, ffn: str,
     return p
 
 
-def _ffn(p, x, ffn: str, cfg: ModelConfig, plain: bool = False):
+def _no_tensor_form(kind: str) -> ValueError:
+    return ValueError(f"{kind} has no tensor-parallel form in this port "
+                      "yet: ROADMAP A16c")
+
+
+def _ffn(p, x, ffn: str, cfg: ModelConfig, plain: bool = False, tp=None):
     """The FFN half: (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == NONE:
         return x, aux
     h = apply_norm(cfg.norm, p["ffn_norm"], x, cfg.norm_eps, plain)
     if ffn == MLP:
-        h = mlp_forward(p["ffn"], h, cfg.mlp_act)
+        h = mlp_forward(p["ffn"], h, cfg.mlp_act, tp)
+    elif tp is not None:
+        raise _no_tensor_form(ffn)
     else:
         h, aux = moe_forward(p["ffn"], h, cfg)
     return x + h, aux
 
 
 def layer_forward(p, x, mixer: str, ffn: str, cfg: ModelConfig,
-                  ropes: Dict[int, RopeTable], plain: bool = False):
+                  ropes: Dict[int, RopeTable], plain: bool = False,
+                  tp=None):
     """Full-sequence layer; ``plain`` takes norm and attention through
     their plain versions.  Returns (x, aux); aux is 0 without MoE."""
     h = apply_norm(cfg.norm, p["mixer_norm"], x, cfg.norm_eps, plain)
     if mixer in (ATTN, ATTN_GLOBAL):
         h = attn_mod.attention_forward(
             p["mixer"], h, cfg, ropes[cfg.resolved_head_dim],
-            global_layer=(mixer == ATTN_GLOBAL), plain=plain)
+            global_layer=(mixer == ATTN_GLOBAL), plain=plain, tp=tp)
+    elif tp is not None:
+        raise _no_tensor_form(mixer)
     elif mixer == MLA:
         h = mla_mod.mla_forward(p["mixer"], h, cfg,
                                 ropes[cfg.rope_head_dim], plain=plain)
@@ -98,7 +111,7 @@ def layer_forward(p, x, mixer: str, ffn: str, cfg: ModelConfig,
     else:
         h = counting.recurrence(xlstm_mod.slstm_forward, p["mixer"], h, cfg,
                                 unit=1)
-    return _ffn(p, x + h, ffn, cfg, plain)
+    return _ffn(p, x + h, ffn, cfg, plain, tp)
 
 
 def init_layer_cache(mixer: str, cfg: ModelConfig, batch: int, max_seq: int,

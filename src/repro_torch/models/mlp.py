@@ -1,6 +1,9 @@
 """Dense MLP blocks, after the reference's ``models/mlp.py``: SwiGLU
 (llama-style) and GELU.  ``jax.nn.gelu`` defaults to the tanh
-approximation, so the port uses ``approximate="tanh"``."""
+approximation, so the port uses ``approximate="tanh"``.  With a
+tensor-parallel context ``tp`` (``parallel/tensor.py``) ``w_up`` and
+``w_gate`` are column-parallel (a rank's d_ff/M columns) and ``w_down``
+row-parallel: its partial output is summed over the model group."""
 from __future__ import annotations
 
 import torch
@@ -23,10 +26,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str,
     return p
 
 
-def mlp_forward(params, x, act: str):
+def mlp_forward(params, x, act: str, tp=None):
+    if tp is not None:
+        x = tp.copy(x)
     up = x @ params["w_up"]
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    return y if tp is None else tp.reduce(y)

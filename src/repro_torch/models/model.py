@@ -26,6 +26,12 @@ plain PyTorch versions, which autograd differentiates.  The reference
 trains through jnp the same way
 (``src/repro/kernels/flash_attention.py:82-83``); the kernels have no
 backward, and their wrappers refuse inputs that require grad.
+
+The training forward also runs over the ``model`` axis for the dense
+families (``tp``, ``parallel/tensor.py``): the embedding takes its
+vocabulary rows in parallel, each block its heads and MLP columns, the
+head gives a rank's V/M logits, and :func:`loss_fn` takes a
+vocabulary-parallel cross-entropy from them.
 """
 from __future__ import annotations
 
@@ -118,11 +124,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 
 # ------------------------------------------------------------- embedding
 
-def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig
+def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig, tp=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B,S,D), positions (B,S)).  Audio: ``features`` (B, S,
     frontend_dim); vision: ``image_embeds`` (B, N, frontend_dim) before
-    ``tokens`` (B, S - N); else ``tokens`` (B, S)."""
+    ``tokens`` (B, S - N); else ``tokens`` (B, S), looked up in a rank's
+    vocabulary rows under ``tp``."""
     dtype = _dtype(cfg)
     if cfg.frontend is not None:
         w = params["frontend_proj"]
@@ -131,6 +138,8 @@ def embed_inputs(params, batch: Dict[str, Any], cfg: ModelConfig
             @ w["w2"]
         if cfg.frontend == "vision":
             x = torch.cat([x, params["embed"][batch["tokens"]]], dim=1)
+    elif tp is not None:
+        x = tp.embed(params["embed"], batch["tokens"])
     else:
         x = params["embed"][batch["tokens"]]
     B, S = x.shape[:2]
@@ -158,7 +167,7 @@ _INPUTS = {None: ("embed",), "audio": ("frontend_proj",),
 # --------------------------------------------------------------- forward
 
 def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
-            plain: bool = False, gather=None):
+            plain: bool = False, gather=None, tp=None):
     """Full-sequence forward.  Returns (logits, aux_loss).  ``plain``
     takes norms and attention through their plain versions (the
     differentiable training path) instead of the kernels.
@@ -168,10 +177,14 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
     ``path``, and each part is gathered where it is used: the embedding
     (and frontend) at the input, each block group's layer inside its
     group body, one group at a time (a checkpointed group gathers again
-    in its recompute), the final norm and the head at the output."""
+    in its recompute), the final norm and the head at the output.
+
+    ``tp`` (``parallel/tensor.py``): ``params`` are a rank's model slices
+    (under ``gather``, their FSDP shards), and the logits are the rank's
+    V/M vocabulary columns."""
     take = gather or _whole
     inputs = {k: take((k,), params[k]) for k in _INPUTS[cfg.frontend]}
-    x, positions = embed_inputs(inputs, batch, cfg)
+    x, positions = embed_inputs(inputs, batch, cfg, tp)
     del inputs
     ropes = rope_tables(positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -179,7 +192,8 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
     def group_body(x, aux, group):
         group = take(("groups",), group)
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
-            x, a = layer_forward(group[j], x, mixer, ffn, cfg, ropes, plain)
+            x, a = layer_forward(group[j], x, mixer, ffn, cfg, ropes, plain,
+                                 tp)
             aux = aux + a
         return x, aux
 
@@ -189,23 +203,31 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
         x, aux = remat.run(checkpointed, group_body, x, aux, group)
     x = apply_norm(cfg.norm, take(("final_norm",), params["final_norm"]),
                    x, cfg.norm_eps, plain)
+    if tp is not None:
+        x = tp.copy(x)
     return x @ _head(params, cfg, take), aux
 
 
 def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
-            gather=None):
+            gather=None, tp=None):
     """Cross-entropy LM loss over the plain (differentiable) forward,
     after the reference's ``models/model.py:127-147``: float32 logits,
     logsumexp minus the gold logit, averaged over ``loss_mask`` when the
     batch has one, plus ``router_aux_coef * aux``; a vision model's loss
     covers the text positions only.  ``gather`` is :func:`forward`'s (a
-    rank's FSDP shards).  Returns (loss, metrics)."""
-    logits, aux = forward(params, batch, cfg, plain=True, gather=gather)
+    rank's FSDP shards); under ``tp`` the cross-entropy is
+    vocabulary-parallel (``TensorParallel.cross_entropy``), the same loss
+    on every rank of the model group.  Returns (loss, metrics)."""
+    logits, aux = forward(params, batch, cfg, plain=True, gather=gather,
+                          tp=tp)
     if cfg.frontend == "vision":
         logits = logits[:, cfg.num_image_tokens:]
     logits = logits.float()
-    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
-        logits, -1, batch["labels"].long()[..., None])[..., 0]
+    if tp is not None:
+        nll = tp.cross_entropy(logits, batch["labels"])
+    else:
+        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+            logits, -1, batch["labels"].long()[..., None])[..., 0]
     if "loss_mask" in batch:
         mask = batch["loss_mask"].float()
         loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -26,7 +26,20 @@ rank per card on NCCL unless a phase says otherwise:
 * ``[staging]``: ``SlabAggregator`` with its chunks on the four cards
   against one card, ``flush``, ``flush_momentum`` and ``flush_adamw``,
   f32 and bf16 rows, bitwise; then zoo:xlstm x1.0 in the simulator,
-  25 workers, its staging across the cards.
+  25 workers, its staging across the cards;
+* ``[tensor]`` (after ``[fsdp]``, whose first loss it reads): the model
+  axis (``parallel/tensor.py``).  phi4-mini-3.8b as ``[fsdp]`` runs it
+  (full width, remat "block", sync, AdamW, S 4096, 8 rows a step) at
+  ``--mesh-model 2`` (data 2) and 4 (data 1), each in the micro-batches
+  the dry-run derives for its tensor-parallel step at that shape: each
+  card's state against the dry-run to the byte, its step peak within
+  10% or 256 MiB of the traced peak, the first loss within 3e-2 of
+  ``[fsdp]``'s (same seed and rows; the row-parallel sums add in
+  another order), the step seconds, tokens/s and collective seconds by
+  kind; then h2o-danube-1.8b hybrid step:2 at ``--mesh-model 2`` (g 1 ->
+  2, R 2 -> 1, SGD, 1 x 1024 a data position) twice: merges at K 2 and
+  K 1 with one ``flush`` launch on every rank each, divergence > 0
+  exactly while R > 1, final params bitwise equal.
 """
 from __future__ import annotations
 
@@ -55,6 +68,13 @@ PEAK_RTOL, PEAK_SLACK = 0.10, 256 << 20     # chip_smoke.py's [dryrun] rule
 ZOO_WORKERS, ZOO_HORIZON, ZOO_LR = 25, 0.125, 3e-5
 RUN_TIMEOUT = 900.0
 FSDP_CHILD = "--fsdp-child"
+TENSOR_CHILD = "--tensor-child"
+TENSOR_MODELS = (2, 4)
+TENSOR_LOSS_ATOL = 3e-2
+H2O_TP_RUN = ["--arch", "h2o-danube-1.8b", "--no-smoke", "--mode", "hybrid",
+              "--schedule", "step:2", "--steps", "4", "--batch", "2",
+              "--seq", "1024", "--lr", "1e-5", "--optimizer", "sgd",
+              "--log-every", "1", "--mesh-model", "2"]
 
 
 def log(msg: str) -> None:
@@ -100,9 +120,9 @@ def _npz(path):
 
 
 def _kinds(extra) -> str:
-    return "; ".join(
-        f"{k} {[round(r[k], 3) for r in extra['collective_s_by_kind']]}"
-        for k in ("gradient", "gather", "divergence", "merge"))
+    by_kind = extra["collective_s_by_kind"]
+    return "; ".join(f"{k} {[round(r[k], 3) for r in by_kind]}"
+                     for k in by_kind[0])
 
 
 def _walls(history):
@@ -183,12 +203,13 @@ def phase_nccl(tmp: str) -> dict:
 
 # ------------------------------------------------------------------ [fsdp]
 
-def _phi4_spec():
+def _phi4_spec(mesh_model: int = 1):
     from repro_torch.api.spec import ExperimentSpec
     return ExperimentSpec(arch=PHI4, backend="spmd", mode="sync",
                           steps=PHI4_STEPS, batch=PHI4_ROWS * CARDS,
                           seq=PHI4_SEQ, lr=3e-4, optimizer="adamw",
-                          beta2=0.95, smoke=False, log_every=1)
+                          beta2=0.95, smoke=False, log_every=1,
+                          mesh_model=mesh_model)
 
 
 def fsdp_child(out: str) -> int:
@@ -256,9 +277,155 @@ def phase_fsdp(tmp: str) -> dict:
         f"{_kinds({'collective_s_by_kind': st['collective_s_by_kind']})};"
         f" {outer:.1f} s with torchrun and start-up")
     return {"prediction": pred, "layout": lay, "step_walls": steps,
-            "tokens_per_step": tokens,
+            "tokens_per_step": tokens, "losses": losses,
             "collective_s_by_kind": st["collective_s_by_kind"],
             "outer_s": outer, "log_tail": text[-2000:]}
+
+
+# ---------------------------------------------------------------- [tensor]
+
+def tensor_child(out: str, mesh_model: int, microbatch: int) -> int:
+    """A rank of ``[tensor]``'s phi4-mini-3.8b run (started by
+    torchrun)."""
+    from repro_torch.launch.train import run_training
+    run_training(_phi4_spec(mesh_model), out_json=out, verbose=True,
+                 device="cuda", microbatch=microbatch)
+    return 0
+
+
+def _tensor_prediction(spec, mesh_model: int):
+    """The micro-batch the dry-run derives for the tensor-parallel step
+    at ``spec``'s shape on four cards (the smallest power of two whose
+    traced peak fits a card), and its ``fsdp_partition_rules`` layout."""
+    from repro_torch.configs.registry import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import card_memory_bytes, derive_microbatch
+    from repro_torch.optim.optimizers import adamw
+    cfg = get_config(PHI4)
+    shape = InputShape("tensor", spec.seq, spec.batch, "train")
+    opt = adamw(spec.lr, b2=spec.beta2)
+    rows = spec.batch // (CARDS // mesh_model)
+    micro, fits = derive_microbatch(
+        rows, lambda m: dryrun.analyze_step(
+            cfg, shape, CARDS, m, fsdp=True, optimizer=opt,
+            model=mesh_model)[0].peak_bytes, card_memory_bytes("meta"))
+    check(fits, f"[tensor] M {mesh_model}: no micro-batch of {rows} rows "
+          "fits a card")
+    return micro, dryrun.fsdp_layout(cfg, shape, CARDS, microbatch=micro,
+                                     optimizer=opt, model=mesh_model)
+
+
+def phase_tensor(tmp: str, fsdp: dict) -> dict:
+    out = {}
+    first = fsdp["losses"][0]
+    for mm in TENSOR_MODELS:
+        spec = _phi4_spec(mm)
+        t0 = time.time()
+        micro, pred = _tensor_prediction(spec, mm)
+        log(f"[tensor] the dry-run for {PHI4} on {CARDS} cards as data "
+            f"{CARDS // mm} x model {mm}, {spec.batch} rows of {spec.seq} "
+            f"a step: micro-batches {micro} (derived), state "
+            f"{pred['state_bytes']} B, traced peak {pred['peak_bytes']} B, "
+            f"collectives a step "
+            f"{ {k: int(v) for k, v in pred['collective_bytes_per_device'].items()} }"
+            f" B (meta device, {time.time() - t0:.1f} s)")
+        path = os.path.join(tmp, f"tensor{mm}.json")
+        t0 = time.time()
+        _torchrun(["-m", "repro_torch.multicard_smoke", TENSOR_CHILD, path,
+                   str(mm), str(micro)], _env())
+        outer = time.time() - t0
+        with open(path) as f:
+            res = json.load(f)
+        st, hist = res["stats"], res["history"]
+        check(st["backend"] == "nccl" and st["world_size"] == CARDS
+              and st["mesh_model"] == mm,
+              f"[tensor] M {mm}: backend {st['backend']}, world "
+              f"{st['world_size']}, mesh_model {st['mesh_model']}")
+        (lay,) = st["layout"]
+        check((lay["g"], lay["model"]) == (CARDS // mm, mm),
+              f"[tensor] M {mm}: layout {lay}")
+        state = pred["state_bytes_total"]
+        check(all(b == state for b in lay["state_bytes"]),
+              f"[tensor] M {mm}: state bytes by card {lay['state_bytes']}, "
+              f"the dry-run's {state}")
+        peak = pred["peak_bytes"]
+        tol = max(PEAK_RTOL * peak, PEAK_SLACK)
+        check(all(abs(b - peak) <= tol for b in lay["step_peak_bytes"]),
+              f"[tensor] M {mm}: step peaks by card "
+              f"{lay['step_peak_bytes']}, the dry-run's {peak} within "
+              f"{tol:.0f}")
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(x) for x in losses)
+              and abs(losses[0] - first) <= TENSOR_LOSS_ATOL,
+              f"[tensor] M {mm}: losses {losses}, [fsdp]'s first {first}")
+        steps = _walls(hist)
+        tokens = spec.batch * spec.seq
+        by_kind = st["collective_s_by_kind"]
+        log(f"[tensor] {PHI4} full width, remat {st['remat']}, sync over "
+            f"{CARDS} x {st['device_name']} on {st['backend']} as data "
+            f"{lay['g']} x model {mm}, AdamW, {spec.batch} x {spec.seq} a "
+            f"step in {micro} micro-batches a data position: state "
+            f"{lay['state_bytes'][0]} B a card = the dry-run's to the byte; "
+            f"step peak by card {lay['step_peak_bytes']} B against {peak} B "
+            f"(ratios {[round(b / peak, 6) for b in lay['step_peak_bytes']]}"
+            f"); first loss {losses[0]:.6f} against [fsdp]'s {first:.6f} "
+            f"(diff {losses[0] - first:.3e})")
+        log(f"[tensor] M {mm}: step walls {steps} s; last step "
+            f"{steps[-1]:.3f} s = {tokens / steps[-1]:.1f} tokens/s "
+            f"({tokens} tokens a step); losses {[round(x, 4) for x in losses]}"
+            f"; collective s by kind and card: " + "; ".join(
+                f"{k} {[round(r[k], 3) for r in by_kind]}"
+                for k in by_kind[0]) + f"; {outer:.1f} s with torchrun")
+        out[f"phi4 M{mm}"] = {"microbatch": micro, "prediction": pred,
+                              "layout": lay, "losses": losses,
+                              "step_walls": steps, "tokens_per_step": tokens,
+                              "collective_s_by_kind": by_kind,
+                              "outer_s": outer}
+    runs = []
+    for label in ("a", "b"):
+        t0 = time.time()
+        res = spmd_run(H2O_TP_RUN, os.path.join(tmp, f"h2o-tp-{label}.json"),
+                       ckpt_dir=os.path.join(tmp, f"h2o-tp-{label}"))
+        ex, hist = res["extra"], res["extra"]["history"]
+        check(ex["backend"] == "nccl" and ex["mesh_model"] == 2,
+              f"[tensor] h2o: backend {ex['backend']}, mesh_model "
+              f"{ex.get('mesh_model')}")
+        check([(h["group_size"], h["replicas"]) for h in hist] ==
+              [(1, 2), (1, 2), (2, 1), (2, 1)], f"[tensor] h2o: {hist}")
+        check([m["K"] for m in ex["merges"]] == [2, 1],
+              f"[tensor] h2o: merges {ex['merges']}")
+        check(all(r == {"1": 1, "2": 1}
+                  for r in ex["flush_launches_by_rank"]),
+              f"[tensor] h2o: flush launches by rank "
+              f"{ex['flush_launches_by_rank']}")
+        check(all((h["divergence"] > 0) == (h["replicas"] > 1)
+                  and math.isfinite(h["loss"]) for h in hist),
+              f"[tensor] h2o: history {hist}")
+        log(f"[tensor] h2o-danube-1.8b full width, remat {ex['remat']}, "
+            f"NCCL data 2 x model 2, run {label}: g "
+            f"{[h['group_size'] for h in hist]}, merges K "
+            f"{[m['K'] for m in ex['merges']]}, flush launches by rank "
+            f"{ex['flush_launches_by_rank']}; divergence "
+            f"{[float('%.6g' % h['divergence']) for h in hist]}; losses "
+            f"{[round(h['loss'], 6) for h in hist]}; layout "
+            f"{[(p['g'], p['model'], p['fsdp'], p['state_bytes'][0]) for p in ex['layout']]}"
+            f"; step walls {_walls(hist)} s; collective s by kind: "
+            + "; ".join(f"{k} {[round(r[k], 3) for r in ex['collective_s_by_kind']]}"
+                        for k in ex["collective_s_by_kind"][0])
+            + f"; {time.time() - t0:.1f} s with torchrun")
+        runs.append(res)
+    a, b = (_npz(os.path.join(tmp, f"h2o-tp-{x}", "step_4.npz"))
+            for x in ("a", "b"))
+    check(sorted(a) == sorted(b) and all(
+        a[k].tobytes() == b[k].tobytes() for k in a),
+        "[tensor] h2o: two runs' final params differ")
+    log("[tensor] h2o: two runs' final params bitwise equal")
+    out["h2o"] = [{"history": r["extra"]["history"],
+                   "merges": r["extra"]["merges"],
+                   "layout": r["extra"]["layout"],
+                   "collective_s_by_kind": r["extra"]["collective_s_by_kind"]}
+                  for r in runs]
+    return out
 
 
 # ---------------------------------------------------------------- [hybrid]
@@ -415,11 +582,24 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.multicard_smoke")
     ap.add_argument("--out", default=None,
                     help="write every phase's figures here as JSON")
-    ap.add_argument("--phases", default="nccl,fsdp,hybrid,staging")
+    ap.add_argument("--phases", default="nccl,fsdp,hybrid,staging,tensor",
+                    help="a comma-separated subset, in order; tensor "
+                         "needs fsdp before it")
     ap.add_argument(FSDP_CHILD, default=None, help=argparse.SUPPRESS)
+    ap.add_argument(TENSOR_CHILD, nargs=3, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.fsdp_child:
         return fsdp_child(args.fsdp_child)
+    if args.tensor_child:
+        out, mm, micro = args.tensor_child
+        return tensor_child(out, int(mm), int(micro))
+    phases = args.phases.split(",")
+    if "tensor" in phases and ("fsdp" not in phases
+                               or phases.index("fsdp")
+                               > phases.index("tensor")):
+        ap.error("--phases: tensor reads [fsdp]'s first loss; put fsdp "
+                 "before it")
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
         print(f"multicard_smoke: needs {CARDS} CUDA cards, found "
@@ -435,10 +615,12 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}")
     figures = {}
     with tempfile.TemporaryDirectory(prefix="multicard-") as tmp:
-        for name in args.phases.split(","):
+        for name in phases:
             t0 = time.time()
             if name == "staging":
                 figures[name] = phase_staging(torch)
+            elif name == "tensor":
+                figures[name] = phase_tensor(tmp, figures["fsdp"])
             else:
                 figures[name] = {"nccl": phase_nccl, "fsdp": phase_fsdp,
                                  "hybrid": phase_hybrid}[name](tmp)

@@ -1,14 +1,18 @@
 """The reference's FSDP layout within a replica group: the counterpart of
 ``src/repro/core/spmd_hybrid.py:185-207 replica_param_shardings``.
 
-A replica group of g ranks holds its replica sharded.  Each leaf's spec
-is ``parallel/partition.py``'s over the mesh ``{"data": g, "model": 1}``,
-sanitized as the reference's ``sanitize_sharding`` does: a leaf whose
-spec names the ``data`` axis on a dim that g divides (the FSDP axis
-"embed", a weight's d_model dim) is cut along that dim into g equal
-contiguous slices, and rank k of the group holds the k-th, as a
+A replica group of g data positions holds its replica sharded.  Each
+leaf's spec is ``parallel/partition.py``'s over the mesh ``{"data": g,
+"model": M}``, sanitized as the reference's ``sanitize_sharding`` does:
+a leaf whose spec names the ``data`` axis on a dim that g divides (the
+FSDP axis "embed", a weight's d_model dim) is cut along that dim into g
+equal contiguous slices, and the d-th rank of a data column
+(``launch/mesh.py::data_column``) holds the d-th, as a
 ``NamedSharding`` lays a dim out over its mesh axis; every other leaf
-stays whole on every rank of the group.  Optimizer state shards exactly
+stays whole along ``data``.  With M > 1 a rank's leaves are its model
+slices (``parallel/tensor.py``), which keep their d_model dims whole, so
+the FSDP layout runs over each data column as it runs over a whole
+replica group with M = 1.  Optimizer state shards exactly
 as its params do (``opt_state_shardings``): the moments are built from
 the shards, and the count stays whole.
 
@@ -31,20 +35,28 @@ from repro_torch.parallel.partition import leaf_spec, map_with_path
 Path = Tuple[str, ...]
 
 
-def leaf_dims(params, g: int) -> Dict[Path, Optional[int]]:
-    """Each leaf's sharded dim in a group of ``g`` ranks (None: whole),
-    by its path (``map_with_path``'s, sequence indices as strings)."""
-    mesh = {"data": g, "model": 1}
+def axis_dims(params, mesh, axis: str) -> Dict[Path, Optional[int]]:
+    """Each leaf's dim that mesh axis ``axis`` shards (None: whole along
+    it), by its path (``map_with_path``'s, sequence indices as
+    strings): the leaf's partition-rules spec over ``mesh``,
+    sanitized."""
     dims: Dict[Path, Optional[int]] = {}
 
     def visit(path, leaf):
         spec = leaf_spec(path, leaf, mesh)
         dims[path] = next(
-            (d for d, axes in enumerate(spec) if axes == "data" or (
-                isinstance(axes, tuple) and "data" in axes)), None) \
-            if g > 1 else None
+            (d for d, axes in enumerate(spec) if axes == axis or (
+                isinstance(axes, tuple) and axis in axes)), None) \
+            if mesh[axis] > 1 else None
     map_with_path(visit, params)
     return dims
+
+
+def leaf_dims(params, g: int, model: int = 1
+              ) -> Dict[Path, Optional[int]]:
+    """Each leaf's sharded dim in a data column of ``g`` ranks (None:
+    whole)."""
+    return axis_dims(params, {"data": g, "model": model}, "data")
 
 
 def _take(leaf: torch.Tensor, dim: int, k: int, g: int) -> torch.Tensor:
@@ -65,15 +77,22 @@ def shard_tree(tree, rank_in_group: int, g: int,
 
 def all_gather_leaf(shard: torch.Tensor, dim: int, g: int, comm
                     ) -> torch.Tensor:
-    """The whole tensor of which each rank of the group holds ``shard``
-    (no autograd): one all-gather, then the slices laid side by side
-    along ``dim``."""
+    """The whole tensor of which each rank of the data column holds
+    ``shard`` (no autograd): one all-gather, then the slices laid side
+    by side along ``dim``."""
     shard = shard.contiguous()
     flat = shard.new_empty((g * shard.numel(),))
     comm.all_gather_(flat, shard.view(-1), g)
-    parts = flat.view((g,) + tuple(shard.shape))
+    return side_by_side(flat, shard, g, dim)
+
+
+def side_by_side(flat: torch.Tensor, shard: torch.Tensor, n: int,
+                 dim: int) -> torch.Tensor:
+    """``flat``, n tensors shaped like ``shard`` one after another, as
+    one tensor with the n laid side by side along ``dim``."""
+    parts = flat.view((n,) + tuple(shard.shape))
     full = list(shard.shape)
-    full[dim] *= g
+    full[dim] *= n
     return parts.view(full) if dim == 0 else \
         parts.movedim(0, dim).reshape(full)
 
@@ -112,18 +131,21 @@ class Gather(torch.autograd.Function):
 
 
 class GroupShards:
-    """One rank's FSDP layout of a replica group of size ``g`` (ranks of
-    the group ``comm`` talks to), built from a whole params tree.
+    """One rank's FSDP layout of a replica group of ``g`` data positions
+    (its data column is the ranks ``comm`` gathers over), built from a
+    params tree whole along ``data`` (a rank's model slices when
+    ``model`` > 1).
 
     ``dims`` maps each leaf's path to its sharded dim.  :meth:`gather`
     is what the model's forward takes as ``gather``; :meth:`group_mean`
     is the train step's ``reduce_grads``."""
 
-    def __init__(self, params, g: int, rank_in_group: int, comm):
+    def __init__(self, params, g: int, rank_in_group: int, comm,
+                 model: int = 1):
         self.g = int(g)
         self.rank = int(rank_in_group)
         self.comm = comm
-        self.dims = leaf_dims(params, self.g)
+        self.dims = leaf_dims(params, self.g, model)
 
     @property
     def sharded(self) -> bool:
@@ -154,11 +176,11 @@ class GroupShards:
                 shards)
 
     def group_mean(self, grads):
-        """The gradient averaged over the group: a sharded leaf's
-        gradient arrives summed over the group (the gather's backward)
-        and is divided by g; the whole leaves' gradients are summed in
-        one float32 all-reduce and divided by g, as the whole-replica
-        layout does with its slab."""
+        """The gradient averaged over the data column: a sharded leaf's
+        gradient arrives summed over it (the gather's backward) and is
+        divided by g; the whole leaves' gradients are summed in one
+        float32 all-reduce over the column and divided by g, as the
+        whole-replica layout does with its slab."""
         whole = []
         map_with_path(lambda p, t: whole.append(t)
                       if self.dims[p] is None else None, grads)

@@ -717,3 +717,50 @@ def test_cuda_remat_gradient_equals_no_remat(cuda, family):
             spread = max(float((a - c).abs().max()) for a in runs
                          for c in runs)
             assert float((runs[0] - got).abs().max()) <= spread, i
+
+
+@pytest.mark.cuda
+def test_cuda_model_axis_across_cards(cards, tmp_path):
+    """h2o-danube-1.8b's smoke variant (bf16), sync, at ``--mesh-model
+    2`` on two cards over NCCL (one model group: each card its heads,
+    MLP columns and vocabulary rows) against the same run as one rank:
+    the losses and the final params within a bf16 tolerance (the
+    row-parallel sums add in another order)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    run = ["-m", "repro_torch", "run", "--backend", "spmd", "--arch",
+           "h2o-danube-1.8b", "--smoke", "--mode", "sync", "--steps", "3",
+           "--batch", "4", "--seq", "16", "--quiet"]
+    outs = {}
+    for label, pre, extra in (
+            ("tp", [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc-per-node", "2"],
+             ["--mesh-model", "2"]),
+            ("one", [sys.executable], [])):
+        out = tmp_path / f"{label}.json"
+        proc = subprocess.run(
+            pre + run + extra + ["--out", str(out), "--ckpt-dir",
+                                 str(tmp_path / label)],
+            env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        outs[label] = json.loads(out.read_text())
+    assert outs["tp"]["extra"]["mesh_model"] == 2
+    assert outs["tp"]["extra"]["backend"] == "nccl"
+    tol = dict(rtol=1.6e-2, atol=1e-5)
+    np.testing.assert_allclose(
+        [h["loss"] for h in outs["tp"]["extra"]["history"]],
+        [h["loss"] for h in outs["one"]["extra"]["history"]], **tol)
+    with np.load(tmp_path / "tp" / "step_3.npz") as a, \
+            np.load(tmp_path / "one" / "step_3.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_allclose(a[k].astype(np.float32),
+                                       b[k].astype(np.float32), err_msg=k,
+                                       **tol)
