@@ -83,15 +83,20 @@ main paths:
   merge's shape (the full-width run starts once ``[zoo-sim]``'s 1.0 run
   has released the card, beside its small runs and ``[zoo-wire]``;
   ``[arch]`` runs before ``[zoo-sim]``);
-- the model axis (``[spmd-tp]``): 4 gloo ranks sharing the card as
-  data 2 x model 2 (``--mesh-model 2``), h2o-danube-1.8b at its
-  published width, hybrid step:1 over 2 steps of 2 x 512, SGD: each
-  rank's state against the partition rules' shards to the byte, one
-  ``flush`` launch a rank at K 2 and at K 1 (each model column merges
-  its own slices), the leaves whole on every model rank bitwise equal
-  across each model group, then ``flush`` alone at a rank's chunk of
-  that merge.  Four cards are ``python -m repro_torch.multicard_smoke``'s
-  (NCCL), not this script's.
+- the model axis (``[spmd-tp]``): two runs side by side, each 4 gloo
+  ranks sharing the card as data 2 x model 2, hybrid step:1 over 2
+  steps of 2 x 512, SGD, at published widths and reduced depth:
+  h2o-danube-1.8b (attention + MLP, 2 of its 24 block groups) and
+  deepseek-v2-lite-16b (MLA + MoE, 1 of its 27); each rank's state
+  against the partition rules' shards to the byte, one ``flush`` launch
+  a rank at K 2 and at K 1 (each model column merges its own slices),
+  the leaves whole on every model rank and every MoE layer's routing
+  equal across each model group, the final params assembled in rank 0's
+  host memory (the cut config's shapes, finite, the whole leaves the
+  ranks' bit for bit), then ``flush`` alone at a rank's chunk
+  of each run's merge, bitwise against its plain version.  Four cards
+  are ``python -m repro_torch.multicard_smoke``'s (NCCL), not this
+  script's.
 
 Output: progress lines, then the card's name and power limit as
 ``nvidia-smi`` gives them, one ``{"kernels": [...]}`` JSON line, and as
@@ -2871,21 +2876,20 @@ def drive_spmd(torch, tmp: str, full: dict):
     ``[zoo-sim]``'s small runs and ``[zoo-wire]``: nothing times them,
     and they fit the card together); then h2o-danube-1.8b's smoke variant
     on 2 ranks, the card against the CPU and a sync run twice, while
-    ``[spmd-tp]`` (:func:`spmd_tp_check`) runs beside them (started once
-    the full run has ended: the two would not fit the card together);
-    then ``flush`` alone at both merges' shapes.  Returns the flush
+    ``[spmd-tp]``'s two runs (:func:`spmd_tp_check`) run beside them
+    (started once the full run has ended: started beside it, deepseek's
+    ran out of the card's memory); then ``flush`` alone at every
+    merge's shape.  Returns the flush
     launches of the full run and of ``[spmd-tp]`` (their rank 0's, read
     through ``RunResult.extra``) and the merges' times."""
     tp = {}
     try:
         launches = spmd_runs(torch, tmp, full, lambda: tp.update(
-            proc=spmd_launch(SPMD_RANKS, TP_RUN, "cuda",
-                             os.path.join(tmp, "tp.json")),
-            t0=time.time()))
-        tp_launches = spmd_tp_check(
-            tp["proc"], os.path.join(tmp, "tp.json"), tp["t0"])
+            (label, spmd_tp_launch(label, tmp)) for label in TP_RUNS))
+        tp_launches = sum(spmd_tp_check(run) for run in tp.values())
     finally:
-        stop(tp.get("proc"))
+        for run in tp.values():
+            stop(run["proc"])
     times = spmd_merge_flush(torch)
     times.update(spmd_tp_merge_flush(torch))
     return launches, tp_launches, times
@@ -3041,16 +3045,22 @@ def spmd_merge_flush(torch) -> dict:
                        "the merge's shape")
 
 
-def merge_flush(torch, K: int, P: int, what: str) -> dict:
+def merge_flush(torch, K: int, P: int, what: str,
+                bitwise: bool = False) -> dict:
     """``flush`` alone at a merge's shape, K rows of a P-chunk, against
-    its plain version and timed with its bound and ``w @ g``."""
+    its plain version (``bitwise``: equal to it bit for bit) and timed
+    with its bound and ``w @ g``."""
     from repro_torch.kernels import hybrid_aggregate as ha
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(2)
     g = torch.randn(K, P, device="cuda", generator=gen)
     w = torch.ones(K, device="cuda")
-    err = hold(torch, "flush", same_twice(torch, lambda: ha.flush(g, w))[0],
-               ref.flush_ref(g, w), 1e-6, 1e-6, f"merge K={K} P={P}")
+    got, want = same_twice(torch, lambda: ha.flush(g, w))[0], \
+        ref.flush_ref(g, w)
+    err = hold(torch, "flush", got, want, 1e-6, 1e-6, f"merge K={K} P={P}")
+    check(not bitwise or torch.equal(got, want),
+          f"flush at {what}: not bitwise equal to its plain version")
+    del got, want
     case = f"flush merge chunk K={K} P={P} f32"
     row = time_cases(torch, Timer(torch, reps=10), {
         case: (lambda: ha.flush(g, w), lambda: ref.flush_ref(g, w),
@@ -3071,105 +3081,179 @@ def merge_flush(torch, K: int, P: int, what: str) -> dict:
 # --------------------------------------------------------- [spmd-tp]
 
 # [spmd-tp]: the model axis (parallel/tensor.py) on the one card: 4 gloo
-# ranks as {data 2, model 2}, h2o-danube-1.8b at its published width,
-# hybrid step:1 (g 1 -> 2, R 2 -> 1), 2 steps of 2 rows of 512, SGD
+# ranks as {data 2, model 2}, hybrid step:1 (g 1 -> 2, R 2 -> 1), 2 steps
+# of 2 rows of 512, SGD, at published widths and reduced depth (a
+# torchrun of this script's TP_CHILD, run_training on the registry's
+# config cut in that process), the final params assembled in rank 0's
+# host memory: h2o-danube-1.8b (attention + MLP) and
+# deepseek-v2-lite-16b (MLA + MoE), side by side
 TP_MODEL = 2
 TP_BATCH, TP_SEQ, TP_LR = 2, 512, 1e-5
-TP_ARCH = "h2o-danube-1.8b"
-TP_RUN = ["--arch", TP_ARCH, "--no-smoke", "--mode", "hybrid",
-          "--schedule", "step:1", "--steps", "2", "--batch", str(TP_BATCH),
-          "--seq", str(TP_SEQ), "--lr", str(TP_LR), "--optimizer", "sgd",
-          "--log-every", "1", "--mesh-model", str(TP_MODEL)]
+TP_RUNS = {"h2o": ("h2o-danube-1.8b", 2),        # 2 of its 24 groups
+           "deepseek": ("deepseek-v2-lite-16b", 1)}   # 1 of its 27
+TP_CHILD = "--spmd-tp-child"
 
 
-def spmd_tp_check(proc, out: str, t0: float) -> int:
-    """The model axis: ``torchrun`` of 4 ranks sharing the card over
-    gloo at ``--mesh-model 2`` (``proc``, writing ``out``, started at
-    ``t0``).  Each rank's state against the partition rules' shards over
-    {data g, model 2} to the byte (its step peak against the dry-run's
-    traced tensor-parallel step, read), one ``flush`` a rank at K 2 and
-    at K 1 (each model column merges its own slices), divergence > 0
-    exactly while R > 1, the leaves whole on every model rank bitwise
-    equal across each model group at the end.  Returns the run's flush
-    launches (rank 0's)."""
-    from repro_torch.configs.registry import InputShape, get_config
+def tp_config(arch: str, groups: int):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), num_groups=groups)
+
+
+def spmd_tp_child(out: str, arch: str, groups: int) -> int:
+    """A rank of a ``[spmd-tp]`` run (started by torchrun); rank 0 writes
+    what it assembled of the final params beside ``out``."""
+    from repro_torch.api.spec import ExperimentSpec
+    from repro_torch.launch.train import run_training
+    from repro_torch.multicard_smoke import at_depth, final_summary
+    spec = ExperimentSpec(
+        arch=arch, backend="spmd", mode="hybrid", schedule="step:1",
+        steps=2, batch=TP_BATCH, seq=TP_SEQ, lr=TP_LR, optimizer="sgd",
+        smoke=False, log_every=1, mesh_model=TP_MODEL)
+    at_depth(arch, groups)
+    t0 = time.time()
+    final, _, _ = run_training(spec, out_json=out, verbose=False,
+                               device="cuda")
+    if final is not None:
+        with open(out + ".final.json", "w") as f:
+            json.dump(final_summary(final, TP_MODEL, time.time() - t0), f)
+    return 0
+
+
+def spmd_tp_launch(label: str, tmp: str) -> dict:
+    """Start ``[spmd-tp]``'s ``label`` run: 4 ranks of this script's
+    ``TP_CHILD`` under ``torchrun --standalone``."""
+    arch, groups = TP_RUNS[label]
+    out = os.path.join(tmp, f"tp-{label}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(SPMD_RANKS), os.path.abspath(__file__),
+           TP_CHILD, out, arch, str(groups)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    return {"proc": subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+            "out": out, "t0": time.time(), "label": label}
+
+
+def spmd_tp_check(run: dict) -> int:
+    """The model axis: a torchrun of 4 ranks sharing the card over gloo
+    at model 2 (``run``, from :func:`spmd_tp_launch`).  Each rank's state
+    against the partition rules' shards over {data g, model 2} to the
+    byte (its step peak against the dry-run's traced tensor-parallel
+    step, read), one ``flush`` a rank at K 2 and at K 1 (each model
+    column merges its own slices), divergence > 0 exactly while R > 1,
+    the leaves whole on every model rank (and, with an MoE, every MoE
+    layer's routing) equal across each model group at the end, and the
+    final params rank 0 assembled in its host memory of the cut
+    config's shapes, finite, their whole leaves the ranks' bit for bit.
+    Returns the run's flush launches (rank 0's)."""
+    from repro_torch.configs.registry import InputShape
     from repro_torch.launch import dryrun
+    from repro_torch.multicard_smoke import check_final
     from repro_torch.optim.optimizers import sgd
+    label = run["label"]
+    arch, groups = TP_RUNS[label]
+    tag = f"[spmd-tp] {label}"
     data = SPMD_RANKS // TP_MODEL
-    res = spmd_result(proc, out, "h2o model axis")
-    wall = time.time() - t0
-    extra, hist = res["extra"], res["extra"]["history"]
-    check(extra["backend"] == "gloo" and extra["world_size"] == SPMD_RANKS
-          and extra["mesh_model"] == TP_MODEL,
-          f"[spmd-tp] backend {extra['backend']}, world "
-          f"{extra['world_size']}, mesh_model {extra.get('mesh_model')}")
+    res = spmd_result(run["proc"], run["out"], f"{arch} model axis")
+    wall = time.time() - run["t0"]
+    st, hist = res["stats"], res["history"]
+    check(st["backend"] == "gloo" and st["world_size"] == SPMD_RANKS
+          and st["mesh_model"] == TP_MODEL,
+          f"{tag}: backend {st['backend']}, world {st['world_size']}, "
+          f"mesh_model {st.get('mesh_model')}")
     check([(h["group_size"], h["replicas"]) for h in hist] ==
-          [(1, 2), (2, 1)], f"[spmd-tp] history {hist}")
-    check([m["K"] for m in extra["merges"]] == [2, 1],
-          f"[spmd-tp] merges {extra['merges']}")
-    check(all(r == {"1": 1, "2": 1} for r in extra["flush_launches_by_rank"]),
-          f"[spmd-tp] flush launches by rank "
-          f"{extra['flush_launches_by_rank']}")
+          [(1, 2), (2, 1)], f"{tag}: history {hist}")
+    check([m["K"] for m in st["merges"]] == [2, 1],
+          f"{tag}: merges {st['merges']}")
+    check(all(r == {"1": 1, "2": 1} for r in st["flush_launches_by_rank"]),
+          f"{tag}: flush launches by rank {st['flush_launches_by_rank']}")
     check(all((h["divergence"] > 0) == (h["replicas"] > 1)
               and math.isfinite(h["divergence"])
               and math.isfinite(h["loss"]) for h in hist),
-          f"[spmd-tp] history {hist}")
-    digests = extra["whole_digest_by_rank"]
-    check(all(digests[r] == digests[r - r % TP_MODEL]
-              for r in range(SPMD_RANKS)),
-          f"[spmd-tp] whole leaves' digests by rank {digests}")
-    cfg = get_config(TP_ARCH)
+          f"{tag}: history {hist}")
+    keys = ["whole_digest_by_rank"] + (
+        ["routing_digest_by_rank"] if "routing_digest_by_rank" in st else [])
+    check(label != "deepseek" or len(keys) == 2, f"{tag}: no routing digest")
+    for key in keys:
+        d = st[key]
+        check(all(d[r] == d[r - r % TP_MODEL] for r in range(SPMD_RANKS)),
+              f"{tag}: {key} {d}")
+    cfg = tp_config(arch, groups)
+    with open(run["out"] + ".final.json") as f:
+        res["final"] = json.load(f)
+    check_final(tag, res, cfg, TP_MODEL)
     shape = InputShape("spmd-tp", TP_SEQ, TP_BATCH, "train")
-    for p in extra["layout"]:
+    for p in st["layout"]:
         pred = dryrun.fsdp_layout(cfg, shape, SPMD_RANKS,
                                   hybrid_rep=data // p["g"],
                                   optimizer=sgd(TP_LR), model=TP_MODEL)
         state, peak = pred["state_bytes_total"], pred["peak_bytes"]
         check(p["model"] == TP_MODEL and all(
             b == state for b in p["state_bytes"]),
-            f"[spmd-tp] g {p['g']}: state bytes by rank {p['state_bytes']},"
-            f" the partition rules' {state} over {pred['mesh']}")
-        log(f"[spmd-tp] g {p['g']} x model {p['model']} (FSDP "
-            f"{p['fsdp']}): state {state} B a rank = the partition rules' "
-            f"shard bytes over {pred['mesh']}; step peak by rank "
-            f"{p['step_peak_bytes']} B against the dry-run's traced "
-            f"{peak} B (ratios "
+            f"{tag} g {p['g']}: state bytes by rank {p['state_bytes']}, "
+            f"the partition rules' {state} over {pred['mesh']}")
+        log(f"{tag} g {p['g']} x model {p['model']} (FSDP {p['fsdp']}): "
+            f"state {state} B a rank = the partition rules' shard bytes "
+            f"over {pred['mesh']}; step peak by rank {p['step_peak_bytes']} "
+            f"B against the dry-run's traced {peak} B (ratios "
             f"{[round(b / peak, 6) for b in p['step_peak_bytes']]}; read, "
             f"not held); predicted collectives a step "
             f"{ {k: int(v) for k, v in pred['collective_bytes_per_device'].items()} } B")
-    flush_by_k = extra["launches_by_k"].get("flush", {})
-    by_kind = extra["collective_s_by_kind"]
-    log(f"[spmd-tp] {TP_ARCH} full width, remat {extra['remat']}, "
-        f"{SPMD_RANKS} ranks on {extra['device_name']} as data {data} x "
-        f"model {TP_MODEL}, backend {extra['backend']}: g "
+    flush_by_k = st["launches_by_k"].get("flush", {})
+    by_kind = st["collective_s_by_kind"]
+    log(f"{tag}: {arch} full width, {groups} of "
+        f"{published_groups(arch)} groups, "
+        f"remat {st['remat']}, {SPMD_RANKS} ranks on {st['device_name']} "
+        f"as data {data} x model {TP_MODEL}, backend {st['backend']}: g "
         f"{[h['group_size'] for h in hist]}, merges K "
-        f"{[m['K'] for m in extra['merges']]}, flush launches by rank "
-        f"{extra['flush_launches_by_rank']}; losses "
-        f"{[round(h['loss'], 6) for h in hist]}; divergence "
-        f"{[float('%.6g' % h['divergence']) for h in hist]}; whole leaves "
-        f"bitwise equal across each model group (digests {digests}); "
-        f"wall {res['wall_s']:.2f} s in rank 0's trainer, {wall:.2f} s "
-        f"with torchrun (beside [spmd]'s small runs); peak GiB by rank "
-        f"{[round(b / 2**30, 2) for b in extra['peak_memory_bytes']]}; "
+        f"{[m['K'] for m in st['merges']]}, flush launches by rank "
+        f"{st['flush_launches_by_rank']}; losses "
+        f"{[round(h['loss'], 6) for h in hist]}"
+        + (f"; aux {[round(h['aux'], 6) for h in hist]}"
+           if "aux" in hist[0] else "")
+        + f"; divergence {[float('%.6g' % h['divergence']) for h in hist]};"
+        f" digests equal across each model group ("
+        + ", ".join(f"{k} {st[k]}" for k in keys) + "); last logged step "
+        f"at {hist[-1]['wall_s']:.2f} s in rank 0's trainer; final params "
+        f"assembled in rank 0's host memory ({len(res['final']['leaves'])} "
+        f"leaves of the config's shapes, finite, whole leaves' digest "
+        f"{res['final']['whole_digest']} = the ranks') by "
+        f"{res['final']['seconds']:.2f} s into rank 0's run; its torchrun "
+        f"read {wall:.2f} s after its start (beside other runs); peak GiB "
+        f"by rank "
+        f"{[round(b / 2**30, 2) for b in st['peak_memory_bytes']]}; "
         f"collective s by kind: " + "; ".join(
             f"{k} {[round(r[k], 2) for r in by_kind]}" for k in by_kind[0]))
     return sum(flush_by_k.values())
 
 
-def spmd_tp_merge_flush(torch) -> dict:
-    """``flush`` alone at ``[spmd-tp]``'s K 2 merge: K 2 rows of one
-    rank's P-chunk of its model column's slab (h2o-danube-1.8b's model
-    slices, f32, split over the column's 2 data positions)."""
+def published_groups(arch: str) -> int:
     from repro_torch.configs.registry import get_config
+    return get_config(arch).num_groups
+
+
+def spmd_tp_merge_flush(torch) -> dict:
+    """``flush`` alone at each ``[spmd-tp]`` run's K 2 merge: K 2 rows of
+    one rank's P-chunk of its model column's slab (the model slices of
+    the run's config, split over the column's 2 data positions), bitwise
+    against its plain version."""
     from repro_torch.core.slab import shard_chunks, slab_codec
     from repro_torch.launch import dryrun
     from repro_torch.parallel.fsdp import shard_tree
     from repro_torch.parallel.tensor import model_dims
     data = SPMD_RANKS // TP_MODEL
-    params = dryrun.meta_params(get_config(TP_ARCH))
-    sliced = shard_tree(params, 0, TP_MODEL, model_dims(params, TP_MODEL))
-    P = shard_chunks(slab_codec(sliced).padded_size, data)[0]
-    return merge_flush(torch, data, P, "the model axis' merge")
+    out = {}
+    for label, (arch, groups) in TP_RUNS.items():
+        params = dryrun.meta_params(tp_config(arch, groups))
+        sliced = shard_tree(params, 0, TP_MODEL,
+                            model_dims(params, TP_MODEL))
+        P = shard_chunks(slab_codec(sliced).padded_size, data)[0]
+        out.update(merge_flush(torch, data, P,
+                               f"the model axis' merge ({label})",
+                               bitwise=True))
+    return out
 
 
 # ------------------------------------------------------------- dry-run
@@ -3294,7 +3378,7 @@ def dryrun_train_step(torch) -> dict:
         b = batch(S)
         measured = step_bytes(torch)
         t0 = time.time()
-        new_params, _, loss = train_step(params, opt_state, b)
+        new_params, _, loss, _ = train_step(params, opt_state, b)
         torch.cuda.synchronize()
         seconds = time.time() - t0
         step = measured()
@@ -3517,6 +3601,10 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(dryrun_train_step(torch)), flush=True)
         return 0
+    if sys.argv[1:2] == [TP_CHILD]:           # a [spmd-tp] rank
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out, arch, groups = sys.argv[2:]
+        return spmd_tp_child(out, arch, int(groups))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA "
               "GPU", file=sys.stderr)

@@ -164,6 +164,14 @@ class SlabCodec:
         params form, whatever ``slab_dtype`` is."""
         return self._encode_as(tree, torch.float32)
 
+    def items(self, tree) -> List[Tuple[Path, Any]]:
+        """``(path, leaf)`` pairs of ``tree`` in the slab's order."""
+        return _flatten(tree)
+
+    def tree(self, leaves: Sequence[Any]) -> Any:
+        """The tree of ``leaves`` given in the slab's order."""
+        return _unflatten(self.paths, list(leaves))
+
     def decode(self, slab: torch.Tensor) -> Any:
         """(P_pad,) slab -> tree of fresh tensors with the template's
         shapes and original per-leaf dtypes."""

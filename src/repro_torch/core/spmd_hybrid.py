@@ -70,13 +70,19 @@ def merge_replicas(params_R, alpha: float = 1.0):
     return tree_map(m, params_R)
 
 
+# the longest segment an elementwise step takes at once: its temporaries
+# stay near a GB however large a model's leaves are
+SEGMENT_PIECE = 1 << 26
+
+
 def slab_segments(codec, lo: int = 0, hi: Optional[int] = None,
                   join: bool = True) -> List[Tuple[int, int, torch.dtype]]:
     """The live parts of ``codec``'s slab within ``[lo, hi)`` as
     ``(a, b, dtype)`` relative to ``lo``, in the codec's leaf order (the
     padding left out).  ``join`` joins neighbouring leaves of one dtype
-    (for steps that are elementwise); without it there is one entry per
-    leaf that meets the range."""
+    and cuts the result into pieces of at most ``SEGMENT_PIECE``
+    elements (for steps that are elementwise); without it there is one
+    entry per leaf that meets the range."""
     hi = codec.padded_size if hi is None else hi
     out: List[Tuple[int, int, torch.dtype]] = []
     for off, n, dt in zip(codec.offsets, codec.sizes, codec.dtypes):
@@ -87,7 +93,10 @@ def slab_segments(codec, lo: int = 0, hi: Optional[int] = None,
             out[-1] = (out[-1][0], b, dt)
         else:
             out.append((a, b, dt))
-    return out
+    if not join:
+        return out
+    return [(p, min(b, p + SEGMENT_PIECE), dt) for a, b, dt in out
+            for p in range(a, b, SEGMENT_PIECE)]
 
 
 def merge_rows(rows: torch.Tensor, segments, alpha: float = 1.0
@@ -106,7 +115,8 @@ def merge_rows(rows: torch.Tensor, segments, alpha: float = 1.0
     if c == 0:
         return out
     mean = flush(rows, torch.ones((R,), dtype=torch.float32,
-                                  device=rows.device)) / R
+                                  device=rows.device))
+    mean /= R
     for a, b, dt in segments:
         reps = rows[:, a:b].to(dt)
         out[:, a:b] = (alpha * mean[a:b].to(dt).unsqueeze(0).expand(

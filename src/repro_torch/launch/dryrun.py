@@ -11,12 +11,14 @@ Usage:
       --hybrid-rep 4            # group-annealed hybrid step, R groups
   python -m repro_torch dryrun --arch phi4-mini-3.8b --shape train_4k \\
       --cards 4 --model 2       # data 2 x model 2
+  python -m repro_torch dryrun --arch deepseek-v2-lite-16b \\
+      --shape train_4k --cards 4 --model 4     # MLA + MoE, model 4
 
 A layout is ``--cards N`` H100s: N/M on the data axis and ``--model M``
-on the model axis (default 1; M > 1 covers the dense families,
-``parallel/tensor.py``), with ``--hybrid-rep R`` groups of N/(M R) data
-positions for the group-annealed step.  Each record holds two layouts
-side by side:
+on the model axis (default 1; M > 1 covers attention, MLA, MLP and
+MoE blocks, ``parallel/tensor.py``), with ``--hybrid-rep R`` groups of
+N/(M R) data positions for the group-annealed step.  Each record holds
+two layouts side by side:
 
 * ``spmd_whole_replica``: every card holds its replica whole (params,
   AdamW moments, the decode cache of its batch rows) and a train step
@@ -30,10 +32,12 @@ side by side:
   reduce-scattered in float32, the whole leaves' gradients all-reduced,
   the update on the shards; with ``--model M`` > 1 on a card's model
   slices, its tensor all-reduces and all-gathers counted from its calls
-  (``tensor all-reduce``, ``tensor all-gather``).  A serving step's FSDP
-  state is the rules' shards over ``{"data": N/M, "model": M}`` (params
-  and ``cache_specs``, exact); its peak is an estimate: the held state
-  replaced by its shards plus one group's layer.
+  (``tensor all-reduce``, ``tensor all-gather``) and an MoE layer's
+  one-hot dispatch and combine traced over the card's E/M experts.  A
+  serving step's FSDP state is the rules' shards over ``{"data": N/M,
+  "model": M}`` (params and ``cache_specs``, exact); its peak is an
+  estimate: the held state replaced by its shards plus one group's
+  layer.
 
 Collective bytes are what each card sends on a ring: ``2 (g-1)/g`` of
 the bytes for an all-reduce over g cards, ``(g-1)/g`` for an all-gather
@@ -80,12 +84,13 @@ from repro_torch.launch.serve import prefill_step
 from repro_torch.launch.steps import (card_memory_bytes, chained,
                                       derive_microbatch, make_train_step)
 from repro_torch.models import model as M
+from repro_torch.models.config import MOE
 from repro_torch.optim import adamw
 from repro_torch.parallel.fsdp import GroupShards
 from repro_torch.parallel.partition import (cache_shardings,
                                             opt_state_shardings,
                                             param_shardings)
-from repro_torch.parallel.tensor import TensorParallel, check_dense
+from repro_torch.parallel.tensor import TensorParallel, check_model_axis
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -128,8 +133,8 @@ def _check_mesh(mesh_kind: Optional[str]) -> None:
     if mesh_kind is not None:
         raise ValueError(
             f"--mesh {mesh_kind}: a 16-wide model axis over every family "
-            "is ROADMAP A16c; the port's layouts are --cards N with "
-            "--model M for the dense families")
+            "is ROADMAP A16c.6; the port's layouts are --cards N with "
+            "--model M for attention, MLA, MLP and MoE blocks")
 
 
 def _per_card_batch(B: int, g: int) -> int:
@@ -208,7 +213,7 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     if model < 1 or cards % model:
         raise ValueError(f"--model {model} must divide --cards {cards}")
-    check_dense(cfg, model)
+    check_model_axis(cfg, model)
     data = cards // model
     if data % hybrid_rep:
         raise ValueError(f"--hybrid-rep {hybrid_rep} must divide the "
@@ -238,6 +243,8 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
                                        model)
                 params = sharding.shard(params)
                 kw["gather"] = sharding.gather
+                if any(f == MOE for _, f in cfg.block_pattern):
+                    kw["column"] = sharding.column_mean
                 reduce.append(sharding.group_mean)
             kw["reduce_grads"] = chained(reduce)
         opt_state = opt.init(params)
@@ -415,8 +422,9 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             tag: str = "", cards: int = 1,
             hybrid_rep: int = 1, model: int = 1) -> Dict[str, Any]:
     """One record.  ``remat`` overrides the config's (None keeps it).
-    ``model`` M > 1: the cards are data N/M x model M (the dense
-    families; any other is refused, naming A16c), the micro-batch
+    ``model`` M > 1: the cards are data N/M x model M (attention, MLA,
+    MLP and MoE blocks; any other is skipped, naming A16c), the
+    micro-batch
     derived from the traced tensor-parallel step's peak."""
     _check_mesh(mesh_kind)
     _check_flags(remat, q_block)
@@ -432,7 +440,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
     if ok and (cards % model or model < 1):
         raise ValueError(f"--model {model} must divide --cards {cards}")
     try:
-        check_dense(cfg, model)
+        check_model_axis(cfg, model)
     except ValueError as e:
         ok, why = False, str(e)
     if not ok:
@@ -572,14 +580,14 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", choices=("pod", "multipod", "both"),
                     default=None,
                     help="pod/multipod/both (a 16-wide model axis over "
-                         "every family) are ROADMAP A16c and refused")
+                         "every family) are ROADMAP A16c.6 and refused")
     ap.add_argument("--cards", type=int, default=1,
                     help="H100s (default 1): N/M on the data axis, M on "
                          "the model axis")
     ap.add_argument("--model", type=int, default=1,
-                    help="the model axis M (default 1); M > 1 covers the "
-                         "dense families, the others are skipped naming "
-                         "ROADMAP A16c")
+                    help="the model axis M (default 1); M > 1 covers "
+                         "attention, MLA, MLP and MoE blocks, the others "
+                         "are skipped naming ROADMAP A16c")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--remat", default=None,

@@ -81,8 +81,11 @@ def chained(fns) -> Optional[Callable]:
 def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
                     accum_dtype: torch.dtype = torch.float32,
                     reduce_grads: Optional[Callable] = None,
-                    gather: Optional[Callable] = None, tensor=None):
-    """``(params, opt_state, batch) -> (params, opt_state, loss)``.
+                    gather: Optional[Callable] = None, tensor=None,
+                    column: Optional[Callable] = None):
+    """``(params, opt_state, batch) -> (params, opt_state, loss,
+    metrics)``: ``metrics`` is ``loss_fn``'s (``ce`` and the MoE's
+    ``aux``), averaged over the micro-batches as the loss is.
 
     ``microbatch > 1`` splits the batch into that many slices taken one
     after another, their gradients summed in ``accum_dtype`` and divided
@@ -96,34 +99,40 @@ def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
     tensor-parallel context (``parallel/tensor.py``; params are a rank's
     model slices): the forward and backward then run their collectives
     over the model group, and ``reduce_grads`` sums the gradients of
-    whole leaves over the data column only."""
+    whole leaves over the data column only.  ``column``
+    (``GroupShards.column_mean``) takes the MoE's aux loss over the
+    replica group's batch."""
     grad_fn = gradient.grad_and_value(
-        lambda p, b: M.loss_fn(p, b, cfg, gather=gather, tp=tensor),
+        lambda p, b: M.loss_fn(p, b, cfg, gather=gather, tp=tensor,
+                               column=column),
         has_aux=True)
 
     def train_step(params, opt_state, batch):
         if microbatch == 1:
-            grads, (loss, _) = grad_fn(params, batch)
+            grads, (loss, metrics) = grad_fn(params, batch)
         else:
             slices = {k: v.reshape((microbatch, v.shape[0] // microbatch)
                                    + tuple(v.shape[1:]))
                       for k, v in batch.items()}
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=accum_dtype, device=p.device), params)
-            loss = 0.0
+            loss, metrics = 0.0, {}
             for i in counting.trips(microbatch):
-                g, (l_i, _) = grad_fn(params,
-                                      {k: v[i] for k, v in slices.items()})
+                g, (l_i, m_i) = grad_fn(params,
+                                        {k: v[i] for k, v in slices.items()})
                 grads = tree_map(lambda a, gg: a + gg.to(accum_dtype),
                                  grads, g)
                 loss = loss + l_i
+                metrics = {k: metrics.get(k, 0.0) + v
+                           for k, v in m_i.items()}
             grads = tree_map(lambda g: g / microbatch, grads)
             loss = loss / microbatch
+            metrics = {k: v / microbatch for k, v in metrics.items()}
         counting.phase("update")
         if reduce_grads is not None:
             grads = reduce_grads(grads)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = tree_map(lambda p, u: p + u, params, updates)
-        return params, opt_state, loss
+        return params, opt_state, loss, metrics
 
     return train_step

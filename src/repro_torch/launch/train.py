@@ -12,22 +12,25 @@ Every rank of a ``torch.distributed`` job runs :func:`run_training`
 (launched by ``torchrun``; with no process group it is one rank, and
 R = 1).  ``mesh_model`` M splits the W ranks into W/M data positions of
 M ranks (``launch/mesh.py``); each step a data position takes the
-gradient of its own rows of the batch.  With M > 1 (the dense families,
-``parallel/tensor.py``) each rank holds its model slice of every leaf
-and computes on its heads, MLP columns and vocabulary rows, with
-collectives over its model group.  With g > 1 a replica group holds its
-replica in the reference's FSDP layout (``parallel/fsdp.py``): each rank
-keeps its shards of the params and of the optimizer state, the forward
-gathers each part along its data column where it is used, the backward
-reduce-scatters the gradient, summed over the column, and the update
-runs on the shards.
+gradient of its own rows of the batch.  With M > 1 (attention, MLA,
+MLP and MoE blocks, ``parallel/tensor.py``) each rank holds its model
+slice of every leaf and computes on its heads, MLP columns, experts and
+vocabulary rows, with collectives over its model group; a model with
+an MoE also reports its aux loss on logged steps and a digest of each
+rank's routing, which must be equal across each model group.  With
+g > 1 a replica group holds its replica in the reference's FSDP layout
+(``parallel/fsdp.py``): each rank keeps its shards of the params and of
+the optimizer state, the forward gathers each part along its data
+column where it is used, the backward reduce-scatters the gradient,
+summed over the column, and the update runs on the shards.
 
 Each model column (the W/M ranks of one model index) runs the merges
 and the divergence of its model slices on its own, as a world of W/M
 ranks with M = 1 runs them: the slab's P axis is cut into one
 tile-aligned chunk per position (``core/slab.py::shard_chunks``) and
-position j receives chunk j of every replica's slab (one all-to-all,
-after each group gathers its replica).  A merge flushes that ``(R, c)``
+position j receives chunk j of every replica's slab (one all-to-all;
+each group gathers its replica one leaf at a time, and a rank encodes
+only the chunks it sends).  A merge flushes that ``(R, c)``
 chunk through the flush kernel (one launch at K = R on each rank),
 divides by R, alpha-blends and reshards it; the next phase's replicas
 are assembled from the merged chunks (another all-to-all) and sharded
@@ -36,10 +39,13 @@ is the unsharded merge bit for bit.  The divergence of a logged step
 sums each leaf's squared distances within each chunk, in the leaf's
 dtype as the reference does, and all-reduces one vector of those sums
 over the world, a leaf whole on every model rank counted from model
-index 0 only.  Checkpoints and the returned params are assembled on
-rank 0 (each column's position 0 assembles its slices, and the model
-group of ranks 0..M-1 gathers them), which writes the history, the
-checkpoints and ``out_json``.
+index 0 only.  Checkpoints and the returned params are assembled in
+rank 0's host memory, piece by piece (each column's position 0 takes
+its slices, and the model group of ranks 0..M-1 gathers them leaf by
+leaf), so no card holds more than a piece of them; rank 0 writes the
+history, the checkpoints and ``out_json``.  Elementwise merge steps, the
+divergence and the assembly take a large leaf in pieces
+(``core/spmd_hybrid.py::SEGMENT_PIECE``).
 
 Example (equivalently ``python -m repro_torch run --backend spmd ...``):
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
@@ -63,8 +69,9 @@ from repro_torch.checkpoint.ckpt import save_checkpoint
 from repro_torch.configs.registry import ARCH_NAMES, get_config, smoke_variant
 from repro_torch.convert import Device, params_from_numpy, tree_to
 from repro_torch.core.slab import SlabCodec, shard_chunks, slab_codec
-from repro_torch.core.spmd_hybrid import (build_phases, merge_rows,
-                                         reshard_replicas, slab_segments)
+from repro_torch.core.spmd_hybrid import (SEGMENT_PIECE, build_phases,
+                                         merge_rows, reshard_replicas,
+                                         slab_segments)
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.data.synthetic import token_stream
 from repro_torch.kernels import hybrid_aggregate
@@ -73,10 +80,11 @@ from repro_torch.launch.mesh import (Collectives, describe_layout,
                                      distributed, rank_device)
 from repro_torch.launch.steps import chained, make_train_step
 from repro_torch.models import model as M
+from repro_torch.models.config import MOE
 from repro_torch.optim.optimizers import adamw, momentum, sgd
 from repro_torch.parallel.fsdp import GroupShards, all_gather_leaf
 from repro_torch.parallel.partition import map_with_path
-from repro_torch.parallel.tensor import TensorParallel, check_dense
+from repro_torch.parallel.tensor import TensorParallel, check_model_axis
 
 
 def _optimizer(spec):
@@ -121,6 +129,7 @@ class _Chunks:
         self.offsets = tuple(int(o) for o in
                              np.cumsum((0,) + self.sizes)[:-1])
         self.comm, self.rank, self.world = comm, rank, W
+        self.codec = codec
         lo = self.offsets[rank]
         self.mine = slice(lo, lo + self.sizes[rank])
         self.segments = slab_segments(codec, lo, self.mine.stop)
@@ -133,18 +142,33 @@ class _Chunks:
                        if max(off, lo) < min(off + n, self.mine.stop)
                        and i not in skip]
 
-    def rows(self, slab: torch.Tensor, g: int) -> torch.Tensor:
-        """``(R, c)``: this rank's chunk of every replica's slab, from
-        ``slab``, the whole slab of this rank's replica (one
+    def rows(self, leaves, g: int) -> torch.Tensor:
+        """``(R, c)``: this rank's chunk of every replica's slab (one
         all-to-all: member k of group r sends chunk j to the ranks j
-        with j % g == k)."""
+        with j % g == k).  ``leaves`` yields the leaves of this rank's
+        replica whole, in the slab's order, one at a time: the chunks
+        it sends are encoded from each as it comes (float32, the
+        padding zero), so the whole slab is never built."""
         W = self.world
         k = self.rank % g
-        send = [j for j in range(W) if j % g == k]
-        inp = torch.cat([slab[self.offsets[j]:self.offsets[j]
-                              + self.sizes[j]] for j in send])
+        send = [(self.offsets[j], self.offsets[j] + self.sizes[j])
+                for j in range(W) if j % g == k]
+        inp = None
+        for off, n, leaf in zip(self.codec.offsets, self.codec.sizes,
+                                leaves):
+            if inp is None:
+                inp = torch.zeros((sum(b - a for a, b in send),),
+                                  dtype=torch.float32, device=leaf.device)
+            flat, at = leaf.reshape(-1), 0
+            for a, b in send:
+                lo, hi = max(a, off), min(b, off + n)
+                if lo < hi:
+                    inp[at + lo - a:at + hi - a].copy_(
+                        flat[lo - off:hi - off])
+                at += b - a
+            del flat, leaf
         c = self.sizes[self.rank]
-        out = slab.new_empty((W // g * c,))
+        out = inp.new_empty((W // g * c,))
         self.comm.all_to_all_(
             out, inp, [c if s % g == k else 0 for s in range(W)],
             [self.sizes[j] if j % g == k else 0 for j in range(W)])
@@ -167,6 +191,38 @@ class _Chunks:
             [rows.shape[1] if row_for[k] is not None else 0
              for k in range(W)])
         return out if mine is not None else None
+
+    def host_tree(self, row: torch.Tensor) -> Any:
+        """On position 0, the params tree of the slab whose chunks the
+        ranks hold as ``row`` (``(c,)`` float32 each), in host memory in
+        each leaf's dtype (None elsewhere).  The slab crosses in pieces
+        of ``SEGMENT_PIECE`` elements, one all-to-all each, and position
+        0 copies each piece to the host as it comes, so no card holds
+        more than a piece of it."""
+        codec, W = self.codec, self.world
+        out = [torch.empty(shape, dtype=dt) if self.rank == 0 else None
+               for shape, dt in zip(codec.shapes, codec.dtypes)]
+        ends = [o + n for o, n in zip(self.offsets, self.sizes)]
+        lo, hi = self.mine.start, self.mine.stop
+        for p in range(0, ends[-1], SEGMENT_PIECE):
+            q = min(ends[-1], p + SEGMENT_PIECE)
+            # each rank's part of [p, q), sent to position 0
+            parts = [max(0, min(q, e) - max(p, o))
+                     for o, e in zip(self.offsets, ends)]
+            mine = row[max(p, lo) - lo:max(p, lo) - lo
+                       + parts[self.rank]]
+            got = row.new_empty((q - p,) if self.rank == 0 else (0,))
+            self.comm.all_to_all_(
+                got, mine, parts if self.rank == 0 else [0] * W,
+                [parts[self.rank]] + [0] * (W - 1))
+            if self.rank != 0:
+                continue
+            got = got.cpu()
+            for i, (off, n) in enumerate(zip(codec.offsets, codec.sizes)):
+                a, b = max(p, off), min(q, off + n)
+                if a < b:
+                    out[i].view(-1)[a - off:b - off].copy_(got[a - p:b - p])
+        return codec.tree(out) if self.rank == 0 else None
 
     def merge(self, rows: torch.Tensor, alpha: float) -> torch.Tensor:
         """:func:`merge_rows` on this chunk (one flush launch at K = R),
@@ -194,10 +250,13 @@ class _Chunks:
                             device=rows.device)
         R = rows.shape[0]
         for i, a, b, dt in self.leaves:
-            reps = rows[:, a:b].to(dt)
-            mean = (torch.sum(rows[:, a:b], dim=0) / R).to(dt)
-            parts[i] = torch.sum(torch.square(reps - mean),
-                                 dtype=torch.float64)
+            # a large leaf in pieces, each part summed in float64
+            for p in range(a, b, SEGMENT_PIECE):
+                q = min(b, p + SEGMENT_PIECE)
+                reps = rows[:, p:q].to(dt)
+                mean = (torch.sum(rows[:, p:q], dim=0) / R).to(dt)
+                parts[i] += torch.sum(torch.square(reps - mean),
+                                      dtype=torch.float64)
         parts = self.comm.sum_world(parts)
         total = 0
         for part, dt in zip(parts, self.dtypes):
@@ -232,8 +291,9 @@ def run_training(spec, ckpt_dir: Optional[str] = None,
     :class:`repro_torch.api.ExperimentSpec`.
 
     Returns ``(params_final, history, stats)``.  On rank 0
-    ``params_final`` is the final merge of the replicas and ``history``
-    the logged per-step metrics; other ranks return ``None`` and ``[]``.
+    ``params_final`` is the final merge of the replicas, in host memory,
+    and ``history`` the logged per-step metrics; other ranks return
+    ``None`` and ``[]``.
     ``stats`` has the exact counters (``num_updates``, and
     ``num_gradients``: one gradient per replica per step) on every rank,
     and on rank 0 also the layout (``backend``, ``world_size``,
@@ -264,11 +324,13 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
     cfg = get_config(spec.arch)
     if spec.smoke:
         cfg = dataclasses.replace(smoke_variant(cfg), name=cfg.name)
+    # the model axis covers attention, MLA, MLP and MoE blocks; mamba,
+    # the xLSTM cells and the frontends are A16c
+    check_model_axis(cfg, spec.mesh_model)
     if cfg.frontend is not None:
         raise ValueError(f"{spec.arch}: the train driver uses token "
                          "streams, not a frontend's inputs")
-    # the model axis covers the dense families; the rest is A16c
-    check_dense(cfg, spec.mesh_model)
+    moe = any(ffn == MOE for _, ffn in cfg.block_pattern)
     comm = Collectives(dev, spec.mesh_model)
     rank, W, width = comm.rank, comm.world, comm.model
     # data positions (src/repro/launch/train.py:91-94); the M ranks of a
@@ -330,27 +392,27 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
 
     def replica_rows(shards, g):
         # this rank's P-chunk of every replica: each group gathers its
-        # replica whole, and the chunks cross ranks in one all-to-all
-        whole = shards if sharding is None else sharding.gather_tree(shards)
-        slab = codec.encode_master(whole)
-        del whole
-        return chunks.rows(slab, g)
+        # replica leaf by leaf (a leaf whole at a time), and the chunks
+        # cross ranks in one all-to-all
+        def leaves():
+            for path, t in codec.items(shards):
+                d = None if sharding is None else \
+                    sharding.dims[tuple(str(n) for n in path)]
+                yield t if d is None else all_gather_leaf(t, d, sharding.g,
+                                                          comm)
+        return chunks.rows(leaves(), g)
 
     def assembled(rows, kind):
-        # the merged params whole on rank 0 (None elsewhere): each
-        # column's position 0 assembles its slices, and ranks 0..M-1 (the
-        # model group of position 0) gather them
+        # the merged params whole on rank 0, in its host memory (None
+        # elsewhere): each column's position 0 takes its slices piece by
+        # piece, and ranks 0..M-1 (the model group of position 0) gather
+        # them leaf by leaf
+        row = merged(rows, 1.0, kind)[0]
         with comm.timing("merge"):
-            slab = chunks.assemble(merged(rows, 1.0, kind),
-                                   [0] + [None] * (data_axis - 1))
-        if slab is None:
-            return None
-        tree = codec.decode(slab)
-        del slab
-        if tp is None:
-            return tree
-        with comm.timing("merge"):
-            return tp.gather_tree(tree)
+            tree = chunks.host_tree(row)
+            if tp is not None and tree is not None:
+                tree = tp.gather_host(tree, dev, SEGMENT_PIECE)
+        return tree
 
     def write_checkpoint(rows):
         tree = assembled(rows, "checkpoint")
@@ -399,7 +461,8 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
             reduce_grads=chained([
                 tp.sum_partial if tp is not None and tp.partial else None,
                 sharding.group_mean if sharding else None]),
-            gather=sharding.gather if sharding else None, tensor=tp)
+            gather=sharding.gather if sharding else None, tensor=tp,
+            column=sharding.column_mean if sharding and moe else None)
         step_peak = 0
 
         while step < t_end:
@@ -407,7 +470,8 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
             if dev.type == "cuda":
                 peak_all = max(peak_all, torch.cuda.max_memory_allocated(dev))
                 torch.cuda.reset_peak_memory_stats(dev)
-            params, opt_state, loss = step_fn(params, opt_state, batch)
+            params, opt_state, loss, metrics = step_fn(params, opt_state,
+                                                       batch)
             if dev.type == "cuda":
                 step_peak = max(step_peak,
                                 torch.cuda.max_memory_allocated(dev))
@@ -415,9 +479,10 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
             grads_done += R     # one gradient per replica this step
             if step % spec.log_every == 0 or step == t_end - 1:
                 # one loss a data position (its model ranks' are equal)
-                reported = [(rid, value) for rid, value, k in
+                reported = [(rid, value, a) for rid, value, k, a in
                             comm.gather_host([pos // g, float(loss),
-                                              comm.k]) if k == 0]
+                                              comm.k, float(metrics["aux"])])
+                            if k == 0]
                 div = 0.0
                 if R > 1:
                     with comm.timing("divergence"):
@@ -426,20 +491,22 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
                     if step < t_end - 1:
                         rows = None
                 if rank == 0:
-                    by_rep: Dict[int, List[float]] = {}
-                    for rid, value in reported:
-                        by_rep.setdefault(int(rid), []).append(value)
+                    by_rep: Dict[int, List[Tuple[float, float]]] = {}
+                    for rid, value, a in reported:
+                        by_rep.setdefault(int(rid), []).append((value, a))
                     per_rep = torch.stack(
-                        [torch.tensor(v, dtype=torch.float32).mean()
+                        [torch.tensor(v, dtype=torch.float32).mean(0)
                          for _, v in sorted(by_rep.items())])
                     # the replicas that reported a loss must be the R
                     # this phase runs
                     assert len(by_rep) == R, (len(by_rep), R)
                     rec = {"step": step, "group_size": g, "replicas": R,
-                           "loss": float(per_rep.mean()),
+                           "loss": float(per_rep[:, 0].mean()),
                            "divergence": div,
                            "wall_s": round(time.time() - t0, 2),
                            "tokens": tokens_done}
+                    if moe:
+                        rec["aux"] = float(per_rep[:, 1].mean())
                     history.append(rec)
                     if verbose:
                         print(f"step {step:5d}  g={g:3d} R={R:3d} "
@@ -461,8 +528,6 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
 
     # final merge for the returned model, assembled on rank 0
     params_final = assembled(rows, "final")
-    if rank != 0:
-        params_final = None
     stats: Dict[str, Any] = {"num_updates": step,
                              "num_gradients": grads_done}
     kinds = ("gradient", "gather") + ("tensor",) * (width > 1) \
@@ -477,7 +542,10 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
     by_rank = comm.gather_host(
         [peak_all, comm.seconds] + [comm.seconds_by.get(k, 0.0)
                                     for k in kinds] + mine + flushes
-        + ([whole_digest] if tp is not None else []))
+        + ([whole_digest] if tp is not None else [])
+        # 48 bits of the routing digest, as a float (exact)
+        + ([float(int(tp.routing) % (1 << 48))]
+           if tp is not None and moe else []))
     if rank == 0:
         after = hybrid_aggregate.LAUNCHES_BY_K
         by_k: Dict[str, Dict[str, int]] = {}
@@ -506,8 +574,13 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
                                   for r in by_rank])
         if tp is not None:
             # a digest of each rank's leaves whole on every model rank,
-            # after its last step: equal across each model group
-            stats["whole_digest_by_rank"] = [int(r[-1]) for r in by_rank]
+            # after its last step, and of every MoE layer's routing in
+            # every step: equal across each model group
+            n = len(kinds) + 2 + len(mine) + len(ks)
+            stats["whole_digest_by_rank"] = [int(r[n]) for r in by_rank]
+            if moe:
+                stats["routing_digest_by_rank"] = [int(r[n + 1])
+                                                   for r in by_rank]
         if out_json:
             with open(out_json, "w") as f:
                 json.dump({"arch": spec.arch, "mode": spec.mode,

@@ -7,8 +7,8 @@
 (:func:`rope_tables`): attention rotates ``head_dim``-wide heads, MLA
 its ``rope_head_dim``-wide part.  ``tp`` is the tensor-parallel context
 of the training forward at ``mesh_model`` M > 1 (``parallel/tensor.py``):
-attention and the MLP take it; any other mixer or FFN raises
-``ValueError`` naming ROADMAP A16c.
+attention, MLA, the MLP and the MoE take it; mamba, mLSTM and sLSTM
+raise ``ValueError`` naming ROADMAP A16c.
 """
 from __future__ import annotations
 
@@ -72,36 +72,38 @@ def _no_tensor_form(kind: str) -> ValueError:
                       "yet: ROADMAP A16c")
 
 
-def _ffn(p, x, ffn: str, cfg: ModelConfig, plain: bool = False, tp=None):
-    """The FFN half: (x, aux)."""
+def _ffn(p, x, ffn: str, cfg: ModelConfig, plain: bool = False, tp=None,
+         column=None):
+    """The FFN half: (x, aux).  ``column``: ``moe_forward``'s."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == NONE:
         return x, aux
     h = apply_norm(cfg.norm, p["ffn_norm"], x, cfg.norm_eps, plain)
     if ffn == MLP:
         h = mlp_forward(p["ffn"], h, cfg.mlp_act, tp)
-    elif tp is not None:
-        raise _no_tensor_form(ffn)
     else:
-        h, aux = moe_forward(p["ffn"], h, cfg)
+        # the aux loss is computed alike on every model rank
+        h, aux = moe_forward(p["ffn"], h, cfg, tp, column)
     return x + h, aux
 
 
 def layer_forward(p, x, mixer: str, ffn: str, cfg: ModelConfig,
                   ropes: Dict[int, RopeTable], plain: bool = False,
-                  tp=None):
+                  tp=None, column=None):
     """Full-sequence layer; ``plain`` takes norm and attention through
-    their plain versions.  Returns (x, aux); aux is 0 without MoE."""
+    their plain versions.  Returns (x, aux); aux is 0 without MoE.
+    ``column``: ``moe_forward``'s."""
     h = apply_norm(cfg.norm, p["mixer_norm"], x, cfg.norm_eps, plain)
     if mixer in (ATTN, ATTN_GLOBAL):
         h = attn_mod.attention_forward(
             p["mixer"], h, cfg, ropes[cfg.resolved_head_dim],
             global_layer=(mixer == ATTN_GLOBAL), plain=plain, tp=tp)
-    elif tp is not None:
-        raise _no_tensor_form(mixer)
     elif mixer == MLA:
         h = mla_mod.mla_forward(p["mixer"], h, cfg,
-                                ropes[cfg.rope_head_dim], plain=plain)
+                                ropes[cfg.rope_head_dim], plain=plain,
+                                tp=tp)
+    elif tp is not None:
+        raise _no_tensor_form(mixer)
     elif mixer == MAMBA:
         h = counting.recurrence(mamba_mod.mamba_forward, p["mixer"], h, cfg,
                                 unit=min(cfg.ssm_chunk, h.shape[1]))
@@ -111,7 +113,7 @@ def layer_forward(p, x, mixer: str, ffn: str, cfg: ModelConfig,
     else:
         h = counting.recurrence(xlstm_mod.slstm_forward, p["mixer"], h, cfg,
                                 unit=1)
-    return _ffn(p, x + h, ffn, cfg, plain, tp)
+    return _ffn(p, x + h, ffn, cfg, plain, tp, column)
 
 
 def init_layer_cache(mixer: str, cfg: ModelConfig, batch: int, max_seq: int,

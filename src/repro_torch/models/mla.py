@@ -12,6 +12,18 @@ plain version in query blocks, checkpointed under remat
 (``attention.py::plain_attention``).  The decode cache holds only
 ``(c_kv, k_rope)`` and decode is the absorbed form, plain PyTorch in
 float32 as the reference's jnp.
+
+With a tensor-parallel context ``tp`` (``parallel/tensor.py``; the
+training forward at ``mesh_model`` M > 1) a rank holds its H/M heads of
+``wq``, ``w_uk``, ``w_uv`` and ``wo`` and the latent projections
+``w_dkv``/``w_kr`` whole, as the reference's partition rules place them
+(``src/repro/parallel/partition.py:44-57``).  Every rank computes the
+latent and the rope key alike; its heads read them through
+``tp.copy``, so their gradients, partial on each rank, are summed there
+and ``w_dkv``/``w_kr`` get the same full gradient on every rank.  The
+queries' input goes through ``tp.copy`` too; ``wo`` is row-parallel and
+its output is summed over the model group.  The decode path has no
+``tp``.
 """
 from __future__ import annotations
 
@@ -59,13 +71,15 @@ def _queries(params, x, cfg: ModelConfig, rope: RopeTable):
 
 
 def mla_forward(params, x, cfg: ModelConfig, rope: RopeTable,
-                plain: bool = False):
+                plain: bool = False, tp=None):
     """x (B, S, D) -> (B, S, D); ``rope`` is the table at x's positions
-    and ``rope_head_dim``."""
+    and ``rope_head_dim``.  ``tp``: a rank's heads (see above)."""
     B, S, _ = x.shape
-    H = cfg.num_heads
-    q = _queries(params, x, cfg, rope)                # (B,S,H,hd+rh)
     c_kv, k_rope = _latent(params, x, rope)
+    if tp is not None:
+        x, c_kv, k_rope = tp.copy(x), tp.copy(c_kv), tp.copy(k_rope)
+    q = _queries(params, x, cfg, rope)                # (B,S,H,hd+rh)
+    H = q.shape[2]                                    # H/M under tp
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uk"])
     v = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uv"]).contiguous()
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
@@ -73,7 +87,8 @@ def mla_forward(params, x, cfg: ModelConfig, rope: RopeTable,
     attend = functools.partial(plain_attention, cfg=cfg) if plain \
         else ops.flash_attention
     out = attend(q.contiguous(), k, v, causal=cfg.causal)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y if tp is None else tp.reduce(y)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,

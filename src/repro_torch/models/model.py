@@ -27,11 +27,13 @@ trains through jnp the same way
 (``src/repro/kernels/flash_attention.py:82-83``); the kernels have no
 backward, and their wrappers refuse inputs that require grad.
 
-The training forward also runs over the ``model`` axis for the dense
-families (``tp``, ``parallel/tensor.py``): the embedding takes its
-vocabulary rows in parallel, each block its heads and MLP columns, the
-head gives a rank's V/M logits, and :func:`loss_fn` takes a
-vocabulary-parallel cross-entropy from them.
+The training forward also runs over the ``model`` axis for the
+attention, MLA, MLP and MoE families (``tp``, ``parallel/tensor.py``):
+the embedding takes its vocabulary rows in parallel, each block its
+heads, MLP columns or experts, the head gives a rank's V/M logits, and
+:func:`loss_fn` takes a vocabulary-parallel cross-entropy from them.
+The MoE's aux loss is the same on every rank of a model group and is
+added once, as the cross-entropy is.
 """
 from __future__ import annotations
 
@@ -167,7 +169,7 @@ _INPUTS = {None: ("embed",), "audio": ("frontend_proj",),
 # --------------------------------------------------------------- forward
 
 def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
-            plain: bool = False, gather=None, tp=None):
+            plain: bool = False, gather=None, tp=None, column=None):
     """Full-sequence forward.  Returns (logits, aux_loss).  ``plain``
     takes norms and attention through their plain versions (the
     differentiable training path) instead of the kernels.
@@ -181,7 +183,8 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
 
     ``tp`` (``parallel/tensor.py``): ``params`` are a rank's model slices
     (under ``gather``, their FSDP shards), and the logits are the rank's
-    V/M vocabulary columns."""
+    V/M vocabulary columns.  ``column`` (``GroupShards.column_mean``):
+    the MoE's aux loss is taken over the replica group's batch."""
     take = gather or _whole
     inputs = {k: take((k,), params[k]) for k in _INPUTS[cfg.frontend]}
     x, positions = embed_inputs(inputs, batch, cfg, tp)
@@ -193,7 +196,7 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
         group = take(("groups",), group)
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
             x, a = layer_forward(group[j], x, mixer, ffn, cfg, ropes, plain,
-                                 tp)
+                                 tp, column)
             aux = aux + a
         return x, aux
 
@@ -209,7 +212,7 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
 
 
 def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
-            gather=None, tp=None):
+            gather=None, tp=None, column=None):
     """Cross-entropy LM loss over the plain (differentiable) forward,
     after the reference's ``models/model.py:127-147``: float32 logits,
     logsumexp minus the gold logit, averaged over ``loss_mask`` when the
@@ -217,9 +220,10 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
     covers the text positions only.  ``gather`` is :func:`forward`'s (a
     rank's FSDP shards); under ``tp`` the cross-entropy is
     vocabulary-parallel (``TensorParallel.cross_entropy``), the same loss
-    on every rank of the model group.  Returns (loss, metrics)."""
+    on every rank of the model group; ``column`` is :func:`forward`'s.
+    Returns (loss, metrics)."""
     logits, aux = forward(params, batch, cfg, plain=True, gather=gather,
-                          tp=tp)
+                          tp=tp, column=column)
     if cfg.frontend == "vision":
         logits = logits[:, cfg.num_image_tokens:]
     logits = logits.float()

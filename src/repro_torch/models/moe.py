@@ -12,6 +12,22 @@ index, and a token's queue position in an expert depends on that order
 (the ``cumsum`` below), so the port takes its top k from a stable
 descending sort, which keeps that order (ROADMAP C.26).  Plain PyTorch,
 as the reference's dispatch is jnp outside any Pallas kernel.
+
+With a tensor-parallel context ``tp`` (``parallel/tensor.py``; the
+training forward at ``mesh_model`` M > 1) a rank holds E/M experts
+(contiguous, the k-th of M) and its columns of the shared expert, the
+``router`` whole.  The tokens are already whole and equal on every rank
+of the model group, so no all-to-all is needed: every rank routes alike
+(router, softmax, top-k, capacity, the aux loss) and takes its own
+experts' columns of the dispatch and combine, so those one-hot einsums
+shrink by M.  Its experts' outputs and its part of the shared expert
+are summed over the model group in one float32 all-reduce.  The experts' input
+and the gate values read through ``tp.copy``: a rank's gradient of the
+gate values covers its own experts' slots only, and the sum makes the
+router's gradient, and the input's through the router, whole and equal
+on every rank.  The aux loss' gradient is equal on every rank already
+and is not summed.  Each call folds a digest of its routing into
+``tp.routing``.
 """
 from __future__ import annotations
 
@@ -67,8 +83,11 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_forward(params, x, cfg: ModelConfig):
-    """x (B, S, D) -> (y, aux)."""
+def moe_forward(params, x, cfg: ModelConfig, tp=None, column=None):
+    """x (B, S, D) -> (y, aux).  ``tp``: a rank's experts (see above).
+    ``column`` (``GroupShards.column_mean``; x is a rank's rows of a
+    replica group's batch): the aux loss' means are taken over the
+    group's batch, as the reference takes them over a replica's."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
@@ -85,6 +104,8 @@ def moe_forward(params, x, cfg: ModelConfig):
     me = torch.mean(probs, dim=(0, 1))
     onehot = F.one_hot(gate_idx, E).float()                     # (G,sg,k,E)
     ce = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
+    if column is not None:
+        me, ce = column(torch.cat([me, ce])).split(E)
     aux = E * torch.sum(me * ce)
 
     # capacity-limited positions within each group's expert queue
@@ -94,6 +115,14 @@ def moe_forward(params, x, cfg: ModelConfig):
     pos_in_e = torch.sum(pos * flat, dim=-1).reshape(G, sg, k)
     keep = pos_in_e < C
     gate_vals = gate_vals * keep.float()
+    if tp is not None:
+        tp.route(gate_idx, keep)
+        # a rank's experts: their columns of the one-hots, their input
+        # and gate values through the model group's backward sum
+        gate_vals = tp.copy(gate_vals)
+        onehot = onehot[..., tp.e0:tp.e0 + tp.experts]
+        x = tp.copy(x)
+        xg = x.reshape(G, sg, D)
     slot = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, C))
     pos_oh = F.one_hot(slot.long(), C + 1).float()[..., :C]    # (G,sg,k,C)
     dispatch = torch.einsum("gske,gskc->gsec", onehot * keep[..., None],
@@ -105,8 +134,16 @@ def moe_forward(params, x, cfg: ModelConfig):
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, ep["w_gate"])) \
         * torch.einsum("gecd,edf->gecf", xe, ep["w_up"])
     ye = torch.einsum("gecf,efd->gecd", h, ep["w_down"])
-    y = torch.einsum("gsec,gecd->gsd", combine, ye.float())
-    y = y.to(x.dtype).reshape(B, S, D)
+    y = torch.einsum("gsec,gecd->gsd", combine, ye.float()).reshape(B, S, D)
+    if tp is None:
+        y = y.to(x.dtype)
+        if "shared" in params:
+            y = y + mlp_forward(params["shared"], x, "swiglu")
+        return y, aux
+    # a rank's experts and its columns of the shared expert, partial
+    # sums, summed over the model group in one float32 all-reduce (the
+    # reference's combine over experts sharded on ``model`` sums in
+    # float32) and rounded once
     if "shared" in params:
-        y = y + mlp_forward(params["shared"], x, "swiglu")
-    return y, aux
+        y = y + mlp_forward(params["shared"], x, "swiglu").float()
+    return tp.reduce(y).to(x.dtype), aux

@@ -39,7 +39,28 @@ rank per card on NCCL unless a phase says otherwise:
   kind; then h2o-danube-1.8b hybrid step:2 at ``--mesh-model 2`` (g 1 ->
   2, R 2 -> 1, SGD, 1 x 1024 a data position) twice: merges at K 2 and
   K 1 with one ``flush`` launch on every rank each, divergence > 0
-  exactly while R > 1, final params bitwise equal.
+  exactly while R > 1, final params bitwise equal;
+* ``[tensor-moe]``: the model axis for MLA and the MoE.
+  deepseek-v2-lite-16b at its published width and depth (27 MLA + MoE
+  groups, bf16 weights), sync, SGD, one row of 4096 a card a step, in
+  three layouts of the same model and rows side by side: data 4 (FSDP),
+  data 2 x model 2 and data 1 x model 4, each in the micro-batches the
+  dry-run derives: each card's state against the dry-run to the byte,
+  its step peak within 10% or 256 MiB of the traced peak, the first
+  loss at M 2 and 4 within 3e-2 of data 4's, the whole leaves' and
+  every MoE layer's routing digests equal across each model group,
+  steps/s, tokens/s and collective seconds by kind, and the final
+  params assembled in rank 0's host memory (the config's shapes,
+  finite, the whole leaves the ranks' bit for bit).  AdamW does not fit
+  at full depth (the dry-run's traced peak is 123.5 GB a card at every
+  M), so the step is SGD's;
+* ``[tensor-moe-hybrid]``: deepseek-v2-lite-16b hybrid step:1 at
+  ``--mesh-model 2`` (g 1 -> 2, R 2 -> 1, 1 x 1024 a data position) at
+  the most groups whose phase switch (by its count) and g 1 step (by
+  the dry-run's trace) fit a card with 10% to spare: merges at K 2 and
+  K 1 per model column with one ``flush`` launch a rank each,
+  divergence > 0 exactly while R > 1, the digests equal, the final
+  params assembled as ``[tensor-moe]``'s.
 """
 from __future__ import annotations
 
@@ -71,6 +92,17 @@ FSDP_CHILD = "--fsdp-child"
 TENSOR_CHILD = "--tensor-child"
 TENSOR_MODELS = (2, 4)
 TENSOR_LOSS_ATOL = 3e-2
+DS = "deepseek-v2-lite-16b"
+DS_SEQ, DS_ROWS, DS_STEPS, DS_LR = 4096, 1, 3, 1e-5
+MOE_MODELS = (1, 2, 4)
+MOE_CHILD = "--moe-child"
+DS_HYBRID_SEQ, DS_HYBRID_MODEL = 1024, 2
+# what a rank holds at the hybrid run's phase switch besides its params
+# (launch/train.py): 8 bytes a padded slab element (the float32
+# all-to-all's send and receive copies, or the (R, c) rows with their
+# merge, or the reshard with the replica it assembles), and one
+# SEGMENT_PIECE of temporaries at 16 bytes an element
+MERGE_SLAB_BYTES, MERGE_PIECE_BYTES = 8, 16
 H2O_TP_RUN = ["--arch", "h2o-danube-1.8b", "--no-smoke", "--mode", "hybrid",
               "--schedule", "step:2", "--steps", "4", "--batch", "2",
               "--seq", "1024", "--lr", "1e-5", "--optimizer", "sgd",
@@ -293,23 +325,25 @@ def tensor_child(out: str, mesh_model: int, microbatch: int) -> int:
     return 0
 
 
-def _tensor_prediction(spec, mesh_model: int):
+def _tensor_prediction(spec, mesh_model: int, cfg=None, opt=None,
+                       label: str = "[tensor]"):
     """The micro-batch the dry-run derives for the tensor-parallel step
     at ``spec``'s shape on four cards (the smallest power of two whose
-    traced peak fits a card), and its ``fsdp_partition_rules`` layout."""
+    traced peak fits a card), and its ``fsdp_partition_rules`` layout;
+    ``cfg`` and ``opt`` default to phi4-mini-3.8b's and AdamW."""
     from repro_torch.configs.registry import InputShape, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.steps import card_memory_bytes, derive_microbatch
     from repro_torch.optim.optimizers import adamw
-    cfg = get_config(PHI4)
+    cfg = cfg or get_config(PHI4)
     shape = InputShape("tensor", spec.seq, spec.batch, "train")
-    opt = adamw(spec.lr, b2=spec.beta2)
+    opt = opt or adamw(spec.lr, b2=spec.beta2)
     rows = spec.batch // (CARDS // mesh_model)
     micro, fits = derive_microbatch(
         rows, lambda m: dryrun.analyze_step(
             cfg, shape, CARDS, m, fsdp=True, optimizer=opt,
             model=mesh_model)[0].peak_bytes, card_memory_bytes("meta"))
-    check(fits, f"[tensor] M {mesh_model}: no micro-batch of {rows} rows "
+    check(fits, f"{label} M {mesh_model}: no micro-batch of {rows} rows "
           "fits a card")
     return micro, dryrun.fsdp_layout(cfg, shape, CARDS, microbatch=micro,
                                      optimizer=opt, model=mesh_model)
@@ -426,6 +460,318 @@ def phase_tensor(tmp: str, fsdp: dict) -> dict:
                    "collective_s_by_kind": r["extra"]["collective_s_by_kind"]}
                   for r in runs]
     return out
+
+
+# ------------------------------------------------------------ [tensor-moe]
+
+def _ds_spec(mesh_model: int, hybrid: bool = False):
+    from repro_torch.api.spec import ExperimentSpec
+    if hybrid:
+        return ExperimentSpec(
+            arch=DS, backend="spmd", mode="hybrid", schedule="step:1",
+            steps=2, batch=CARDS // mesh_model, seq=DS_HYBRID_SEQ,
+            lr=DS_LR, optimizer="sgd", smoke=False, log_every=1,
+            mesh_model=mesh_model)
+    return ExperimentSpec(arch=DS, backend="spmd", mode="sync",
+                          steps=DS_STEPS, batch=DS_ROWS * CARDS, seq=DS_SEQ,
+                          lr=DS_LR, optimizer="sgd", smoke=False,
+                          log_every=1, mesh_model=mesh_model)
+
+
+def _ds_config(groups: int):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(DS), num_groups=groups)
+
+
+def at_depth(arch: str, groups: int) -> None:
+    """In this process, ``arch``'s registry config cut to ``groups`` of
+    its block groups, its widths unchanged: a smoke run's own config,
+    which ``run_training`` reads through ``get_config``."""
+    import dataclasses
+    import importlib
+    from repro_torch.configs import registry
+    mod = importlib.import_module(
+        f"repro_torch.configs.{registry._MODULES[arch]}")
+    mod.CONFIG = dataclasses.replace(mod.CONFIG, num_groups=groups)
+
+
+def moe_child(out: str, spec_path: str, micro: int, groups: int) -> int:
+    """A rank of a ``[tensor-moe]`` run (started by torchrun): the spec
+    at ``spec_path`` on deepseek-v2-lite-16b with ``groups`` of its 27
+    block groups.  Rank 0 writes what it assembled of the final params
+    (in its host memory) beside ``out``."""
+    from repro_torch.api.spec import ExperimentSpec
+    from repro_torch.launch.train import run_training
+    with open(spec_path) as f:
+        spec = ExperimentSpec.from_json(f.read())
+    at_depth(DS, groups)
+    t0 = time.time()
+    final, _, _ = run_training(spec, out_json=out, verbose=True,
+                               device="cuda", microbatch=micro)
+    if final is not None:
+        with open(out + ".final.json", "w") as f:
+            json.dump(final_summary(final, spec.mesh_model,
+                                    time.time() - t0), f)
+    return 0
+
+
+def final_summary(final, model: int, seconds: float) -> dict:
+    """What rank 0 holds of a run's final params: their leaves' devices,
+    shapes and dtypes, whether every value is finite, and 48 bits of the
+    SHA-256 of the leaves whole on every model rank at ``model`` > 1
+    (``launch/train.py`` digests the same leaves after the last step,
+    and a merge of one replica changes no bit of them)."""
+    import hashlib
+    import torch
+    from repro_torch.parallel.partition import map_with_path
+    from repro_torch.parallel.tensor import model_dims
+    dims = model_dims(final, model)
+    h = hashlib.sha256()
+    leaves = []
+
+    def one(path, t):
+        leaves.append(["/".join(path), list(t.shape), str(t.dtype),
+                       str(t.device), bool(torch.isfinite(t).all())])
+        if model > 1 and dims[path] is None:
+            h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    map_with_path(one, final)
+    return {"leaves": leaves, "seconds": seconds,
+            "whole_digest": int.from_bytes(h.digest()[:6], "big")}
+
+
+def check_final(label: str, res: dict, cfg, model: int) -> None:
+    """The final params rank 0 assembled: the whole shapes and dtypes of
+    ``cfg``'s params, in host memory, finite, and their whole leaves the
+    trained ranks' bit for bit."""
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.partition import map_with_path
+    want = {}
+    map_with_path(lambda p, t: want.__setitem__(
+        "/".join(p), [list(t.shape), str(t.dtype)]),
+        dryrun.meta_params(cfg))
+    fin = res["final"]
+    got = {leaf[0]: leaf[1:3] for leaf in fin["leaves"]}
+    diff = sorted(k for k in set(got) | set(want)
+                  if got.get(k) != want.get(k))
+    check(not diff, f"{label}: assembled leaves unlike the config's: "
+          + "; ".join(f"{k} {got.get(k)} against {want.get(k)}"
+                      for k in diff[:4]))
+    check(all(leaf[3] == "cpu" and leaf[4] for leaf in fin["leaves"]),
+          f"{label}: assembled leaves not finite or not in host memory")
+    whole = res["stats"].get("whole_digest_by_rank", [fin["whole_digest"]])
+    check(model == 1 or fin["whole_digest"] == whole[0],
+          f"{label}: the assembled whole leaves' digest "
+          f"{fin['whole_digest']}, the ranks' {whole}")
+
+
+def _moe_run(tmp: str, label: str, spec, micro: int, groups: int):
+    spec_path = os.path.join(tmp, label + ".spec.json")
+    with open(spec_path, "w") as f:
+        f.write(spec.to_json())
+    out = os.path.join(tmp, label + ".json")
+    t0 = time.time()
+    _torchrun(["-m", "repro_torch.multicard_smoke", MOE_CHILD, out,
+               spec_path, str(micro), str(groups)], _env())
+    with open(out) as f:
+        res = json.load(f)
+    with open(out + ".final.json") as f:
+        res["final"] = json.load(f)
+    res["outer_s"] = time.time() - t0
+    return res
+
+
+def _groups_equal(values, mm: int) -> bool:
+    return all(values[r] == values[r - r % mm] for r in range(len(values)))
+
+
+def _hybrid_groups(opt):
+    """The most of deepseek-v2-lite-16b's 27 block groups whose hybrid
+    run at model 2 fits a card: what a rank holds at the phase switch
+    (its model slices' bytes, ``MERGE_SLAB_BYTES`` a padded element of
+    its model column's slab and ``MERGE_PIECE_BYTES`` a
+    ``SEGMENT_PIECE`` element) and the dry-run's traced peak of the g 1
+    step, each within the card with the peak check's own margin
+    (``PEAK_RTOL``).  Returns the groups, the switch's bytes and each
+    phase's dry-run layout."""
+    from repro_torch.configs.registry import InputShape, get_config
+    from repro_torch.core.slab import slab_codec
+    from repro_torch.core.spmd_hybrid import SEGMENT_PIECE
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import tree_bytes
+    from repro_torch.launch.steps import card_memory_bytes
+    from repro_torch.parallel.fsdp import shard_tree
+    from repro_torch.parallel.tensor import model_dims
+    card = card_memory_bytes("meta")
+    mm = DS_HYBRID_MODEL
+    spec = _ds_spec(mm, hybrid=True)
+    shape = InputShape("moe-hybrid", spec.seq, spec.batch, "train")
+    data = CARDS // mm
+    for groups in range(get_config(DS).num_groups, 0, -1):
+        cfg = _ds_config(groups)
+        params = dryrun.meta_params(cfg)
+        sliced = shard_tree(params, 0, mm, model_dims(params, mm))
+        merge = tree_bytes(sliced) \
+            + MERGE_SLAB_BYTES * slab_codec(sliced).padded_size \
+            + MERGE_PIECE_BYTES * SEGMENT_PIECE
+        if merge * (1 + PEAK_RTOL) > card:
+            continue
+        preds = [dryrun.fsdp_layout(cfg, shape, CARDS, hybrid_rep=data // g,
+                                    optimizer=opt, model=mm)
+                 for g in (1, data)]
+        if preds[0]["peak_bytes"] * (1 + PEAK_RTOL) <= card:
+            return groups, merge, preds
+    raise AssertionError("[tensor-moe] no depth of the hybrid run fits")
+
+
+def phase_tensor_moe(tmp: str) -> dict:
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.optimizers import sgd
+    cfg = get_config(DS)
+    opt = sgd(DS_LR)
+    out = {}
+    first = None
+    for mm in MOE_MODELS:
+        spec = _ds_spec(mm)
+        t0 = time.time()
+        micro, pred = _tensor_prediction(spec, mm, cfg, opt, "[tensor-moe]")
+        log(f"[tensor-moe] the dry-run for {DS} on {CARDS} cards as data "
+            f"{CARDS // mm} x model {mm}, {spec.batch} rows of {spec.seq} "
+            f"a step, SGD: micro-batches {micro} (derived), state "
+            f"{pred['state_bytes']} B, traced peak {pred['peak_bytes']} B, "
+            f"collectives a step "
+            f"{ {k: int(v) for k, v in pred['collective_bytes_per_device'].items()} }"
+            f" B (meta device, {time.time() - t0:.1f} s)")
+        res = _moe_run(tmp, f"moe{mm}", spec, micro, cfg.num_groups)
+        st, hist = res["stats"], res["history"]
+        check(st["backend"] == "nccl" and st["world_size"] == CARDS
+              and st["mesh_model"] == mm,
+              f"[tensor-moe] M {mm}: backend {st['backend']}, world "
+              f"{st['world_size']}, mesh_model {st['mesh_model']}")
+        (lay,) = st["layout"]
+        check((lay["g"], lay["model"]) == (CARDS // mm, mm),
+              f"[tensor-moe] M {mm}: layout {lay}")
+        state = pred["state_bytes_total"]
+        check(all(b == state for b in lay["state_bytes"]),
+              f"[tensor-moe] M {mm}: state bytes by card "
+              f"{lay['state_bytes']}, the dry-run's {state}")
+        peak = pred["peak_bytes"]
+        tol = max(PEAK_RTOL * peak, PEAK_SLACK)
+        check(all(abs(b - peak) <= tol for b in lay["step_peak_bytes"]),
+              f"[tensor-moe] M {mm}: step peaks by card "
+              f"{lay['step_peak_bytes']}, the dry-run's {peak} within "
+              f"{tol:.0f}")
+        losses = [h["loss"] for h in hist]
+        auxes = [h["aux"] for h in hist]
+        check(all(math.isfinite(x) for x in losses + auxes),
+              f"[tensor-moe] M {mm}: losses {losses}, aux {auxes}")
+        if first is None:
+            first = losses[0]
+        check(abs(losses[0] - first) <= TENSOR_LOSS_ATOL,
+              f"[tensor-moe] M {mm}: first loss {losses[0]}, data 4's "
+              f"{first}")
+        if mm > 1:
+            for key in ("whole_digest_by_rank", "routing_digest_by_rank"):
+                check(_groups_equal(st[key], mm),
+                      f"[tensor-moe] M {mm}: {key} {st[key]}")
+        check_final(f"[tensor-moe] M {mm}", res, cfg, mm)
+        steps = _walls(hist)
+        tokens = spec.batch * spec.seq
+        by_kind = st["collective_s_by_kind"]
+        log(f"[tensor-moe] {DS} full width and depth, remat {st['remat']}, "
+            f"sync over {CARDS} x {st['device_name']} on {st['backend']} as "
+            f"data {lay['g']} x model {mm}, SGD, {spec.batch} x {spec.seq} "
+            f"a step in {micro} micro-batches a data position: state "
+            f"{lay['state_bytes'][0]} B a card = the dry-run's to the byte; "
+            f"step peak by card {lay['step_peak_bytes']} B against {peak} B "
+            f"(ratios {[round(b / peak, 6) for b in lay['step_peak_bytes']]}"
+            f"); first loss {losses[0]:.6f} against data 4's {first:.6f} "
+            f"(diff {losses[0] - first:.3e}); aux "
+            f"{[round(a, 6) for a in auxes]}"
+            + ("; whole-leaf and routing digests equal across each model "
+               f"group ({st['routing_digest_by_rank']})" if mm > 1 else ""))
+        log(f"[tensor-moe] M {mm}: step walls {steps} s; last step "
+            f"{steps[-1]:.3f} s = {1 / steps[-1]:.4f} steps/s = "
+            f"{tokens / steps[-1]:.1f} tokens/s ({tokens} tokens a step); "
+            f"losses {[round(x, 4) for x in losses]}; collective s by kind "
+            "and card: " + "; ".join(
+                f"{k} {[round(r[k], 3) for r in by_kind]}"
+                for k in by_kind[0]) + f"; {res['outer_s']:.1f} s with "
+            f"torchrun; final params assembled in rank 0's host memory "
+            f"({len(res['final']['leaves'])} leaves, finite) by "
+            f"{res['final']['seconds']:.1f} s into rank 0's run")
+        out[f"M{mm}"] = {"microbatch": micro, "prediction": pred,
+                         "layout": lay, "losses": losses, "aux": auxes,
+                         "step_walls": steps, "tokens_per_step": tokens,
+                         "collective_s_by_kind": by_kind,
+                         "routing_digest_by_rank":
+                             st.get("routing_digest_by_rank"),
+                         "final": res["final"], "outer_s": res["outer_s"]}
+    return out
+
+
+def phase_tensor_moe_hybrid(tmp: str) -> dict:
+    from repro_torch.optim.optimizers import sgd
+    mm = DS_HYBRID_MODEL
+    t0 = time.time()
+    groups, merge, preds = _hybrid_groups(sgd(DS_LR))
+    log(f"[tensor-moe-hybrid] model {mm}: {groups} of {DS}'s 27 block "
+        f"groups (the phase switch holds {merge} B a card by the count; "
+        f"the dry-run's g 1 step peak {preds[0]['peak_bytes']} B; each "
+        f"with {PEAK_RTOL:.0%} to spare within the card; meta device, "
+        f"{time.time() - t0:.1f} s)")
+    res = _moe_run(tmp, "moe-hybrid", _ds_spec(mm, hybrid=True), 1, groups)
+    st, hist = res["stats"], res["history"]
+    check(st["backend"] == "nccl" and st["mesh_model"] == mm,
+          f"[tensor-moe-hybrid]: backend {st['backend']}, mesh_model "
+          f"{st['mesh_model']}")
+    check([(h["group_size"], h["replicas"]) for h in hist] ==
+          [(1, 2), (2, 1)], f"[tensor-moe-hybrid]: {hist}")
+    check([m["K"] for m in st["merges"]] == [2, 1],
+          f"[tensor-moe-hybrid]: merges {st['merges']}")
+    check(all(r == {"1": 1, "2": 1} for r in st["flush_launches_by_rank"]),
+          f"[tensor-moe-hybrid]: flush launches by rank "
+          f"{st['flush_launches_by_rank']}")
+    check(all((h["divergence"] > 0) == (h["replicas"] > 1)
+              and math.isfinite(h["loss"]) for h in hist),
+          f"[tensor-moe-hybrid]: history {hist}")
+    for key in ("whole_digest_by_rank", "routing_digest_by_rank"):
+        check(_groups_equal(st[key], mm),
+              f"[tensor-moe-hybrid]: {key} {st[key]}")
+    for p, pred in zip(st["layout"], preds):
+        check(all(b == pred["state_bytes_total"] for b in p["state_bytes"]),
+              f"[tensor-moe-hybrid] g {p['g']}: state bytes by card "
+              f"{p['state_bytes']}, the dry-run's {pred['state_bytes_total']}")
+    log(f"[tensor-moe-hybrid] {DS} full width, {groups} groups, NCCL data "
+        f"{CARDS // mm} x model {mm}, hybrid step:1: g "
+        f"{[h['group_size'] for h in hist]}, merges K "
+        f"{[m['K'] for m in st['merges']]}, flush launches by rank "
+        f"{st['flush_launches_by_rank']}; divergence "
+        f"{[float('%.6g' % h['divergence']) for h in hist]}; losses "
+        f"{[round(h['loss'], 6) for h in hist]}; state by phase "
+        f"{[(p['g'], p['state_bytes'][0]) for p in st['layout']]} B a card "
+        f"= the dry-run's; step peaks by phase "
+        f"{[(p['g'], max(p['step_peak_bytes'])) for p in st['layout']]} B "
+        f"against the dry-run's {[q['peak_bytes'] for q in preds]}; peak "
+        f"by card {st['peak_memory_bytes']} B ("
+        f"{[round(b / 2**30, 2) for b in st['peak_memory_bytes']]} GiB) "
+        f"against the switch's count {merge} B; digests "
+        f"equal across each model group; step walls {_walls(hist)} s; "
+        f"collective s by kind: " + "; ".join(
+            f"{k} {[round(r[k], 3) for r in st['collective_s_by_kind']]}"
+            for k in st["collective_s_by_kind"][0])
+        + f"; {res['outer_s']:.1f} s with torchrun")
+    check_final("[tensor-moe-hybrid]", res, _ds_config(groups), mm)
+    log(f"[tensor-moe-hybrid] final params assembled in rank 0's host "
+        f"memory: {len(res['final']['leaves'])} leaves of the config's "
+        f"shapes, finite, the whole leaves the ranks' bit for bit; the run "
+        f"took {res['final']['seconds']:.1f} s in rank 0")
+    return {"groups": groups, "merge_bytes": merge,
+            "history": hist, "merges": st["merges"],
+            "layout": st["layout"],
+            "peak_memory_bytes": st["peak_memory_bytes"],
+            "collective_s_by_kind": st["collective_s_by_kind"],
+            "outer_s": res["outer_s"]}
 
 
 # ---------------------------------------------------------------- [hybrid]
@@ -582,11 +928,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.multicard_smoke")
     ap.add_argument("--out", default=None,
                     help="write every phase's figures here as JSON")
-    ap.add_argument("--phases", default="nccl,fsdp,hybrid,staging,tensor",
+    ap.add_argument("--phases",
+                    default="nccl,fsdp,hybrid,staging,tensor,tensor-moe,"
+                            "tensor-moe-hybrid",
                     help="a comma-separated subset, in order; tensor "
                          "needs fsdp before it")
     ap.add_argument(FSDP_CHILD, default=None, help=argparse.SUPPRESS)
     ap.add_argument(TENSOR_CHILD, nargs=3, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument(MOE_CHILD, nargs=4, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.fsdp_child:
@@ -594,6 +944,9 @@ def main(argv=None) -> int:
     if args.tensor_child:
         out, mm, micro = args.tensor_child
         return tensor_child(out, int(mm), int(micro))
+    if args.moe_child:
+        out, spec_path, micro, groups = args.moe_child
+        return moe_child(out, spec_path, int(micro), int(groups))
     phases = args.phases.split(",")
     if "tensor" in phases and ("fsdp" not in phases
                                or phases.index("fsdp")
@@ -621,6 +974,10 @@ def main(argv=None) -> int:
                 figures[name] = phase_staging(torch)
             elif name == "tensor":
                 figures[name] = phase_tensor(tmp, figures["fsdp"])
+            elif name == "tensor-moe":
+                figures[name] = phase_tensor_moe(tmp)
+            elif name == "tensor-moe-hybrid":
+                figures[name] = phase_tensor_moe_hybrid(tmp)
             else:
                 figures[name] = {"nccl": phase_nccl, "fsdp": phase_fsdp,
                                  "hybrid": phase_hybrid}[name](tmp)

@@ -23,6 +23,12 @@ over the group (in float32, cast back to the leaf's dtype).  The model
 (``models/model.py::forward``) gathers each block group's layer inside
 the group's body, so a rematerialised group gathers again in its
 recompute and no gathered layer outlives its use.
+
+The MoE's load-balance loss is a product of two means over the
+replica's batch (``src/repro/models/moe.py:83-87``, "global means"):
+:meth:`GroupShards.column_mean` averages the per-rank means over the
+data column (:class:`ColumnMean`), so every rank of the group computes
+the reference's aux loss from its own rows.
 """
 from __future__ import annotations
 
@@ -130,6 +136,29 @@ class Gather(torch.autograd.Function):
                     None, None, None)
 
 
+class ColumnMean(torch.autograd.Function):
+    """``ColumnMean.apply(x, g, comm)``: the mean of ``x`` over the data
+    column of g ranks (float32) forward; backward, the gradient summed
+    over the column and divided by g, as each rank's ``x`` reaches every
+    rank's output (timed as ``"gradient"``)."""
+
+    @staticmethod
+    def forward(ctx, x, g: int, comm):
+        ctx.g, ctx.comm = g, comm
+        return _column_mean(x, g, comm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _column_mean(grad, ctx.g, ctx.comm), None, None
+
+
+def _column_mean(x: torch.Tensor, g: int, comm) -> torch.Tensor:
+    out = x.to(torch.float32, copy=True).contiguous()
+    with comm.timing("gradient"):
+        comm.all_reduce_sum_(out.view(-1), g)
+    return out / g
+
+
 class GroupShards:
     """One rank's FSDP layout of a replica group of ``g`` data positions
     (its data column is the ranks ``comm`` gathers over), built from a
@@ -167,13 +196,10 @@ class GroupShards:
                                 self.comm)
         return map_with_path(one, tree, path)
 
-    def gather_tree(self, shards):
-        """The whole tree of a shard tree (no autograd)."""
-        with torch.no_grad():
-            return map_with_path(
-                lambda p, t: t if self.dims[p] is None
-                else all_gather_leaf(t, self.dims[p], self.g, self.comm),
-                shards)
+    def column_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, a per-rank mean over its rows, as the mean over the
+        data column's rows (autograd runs through :class:`ColumnMean`)."""
+        return ColumnMean.apply(x, self.g, self.comm)
 
     def group_mean(self, grads):
         """The gradient averaged over the data column: a sharded leaf's

@@ -764,3 +764,56 @@ def test_cuda_model_axis_across_cards(cards, tmp_path):
             np.testing.assert_allclose(a[k].astype(np.float32),
                                        b[k].astype(np.float32), err_msg=k,
                                        **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_model_axis_across_cards(cards, tmp_path):
+    """deepseek-v2-lite-16b's smoke variant (MLA + MoE with a shared
+    expert, float32), sync, at ``--mesh-model 2`` on two cards over NCCL
+    (one model group: each card its heads, its 2 of 4 experts and its
+    columns of the shared expert, the router and the latent projections
+    whole) against the same run as one rank: the losses, the aux values
+    and the final params within the bf16 tolerance of
+    ``test_cuda_model_axis_across_cards``; the routing digests equal on
+    both cards."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    run = ["-m", "repro_torch", "run", "--backend", "spmd", "--arch",
+           "deepseek-v2-lite-16b", "--smoke", "--mode", "sync", "--steps",
+           "3", "--batch", "4", "--seq", "16", "--quiet"]
+    outs = {}
+    for label, pre, extra in (
+            ("tp", [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc-per-node", "2"],
+             ["--mesh-model", "2"]),
+            ("one", [sys.executable], [])):
+        out = tmp_path / f"{label}.json"
+        proc = subprocess.run(
+            pre + run + extra + ["--out", str(out), "--ckpt-dir",
+                                 str(tmp_path / label)],
+            env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        outs[label] = json.loads(out.read_text())
+    tp = outs["tp"]["extra"]
+    assert tp["mesh_model"] == 2 and tp["backend"] == "nccl"
+    assert len(set(tp["routing_digest_by_rank"])) == 1
+    tol = dict(rtol=1.6e-2, atol=1e-5)
+    for key in ("loss", "aux"):
+        np.testing.assert_allclose(
+            [h[key] for h in tp["history"]],
+            [h[key] for h in outs["one"]["extra"]["history"]], err_msg=key,
+            **tol)
+    with np.load(tmp_path / "tp" / "step_3.npz") as a, \
+            np.load(tmp_path / "one" / "step_3.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_allclose(a[k].astype(np.float32),
+                                       b[k].astype(np.float32), err_msg=k,
+                                       **tol)

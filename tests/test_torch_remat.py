@@ -240,7 +240,7 @@ def test_train_step_with_remat_equals_without(microbatch, deterministic):
         step = make_train_step(dataclasses.replace(cfg, remat=remat), opt,
                                microbatch=microbatch)
         outs[remat] = step(params, opt.init(params), b)
-    (p0, s0, l0), (p1, s1, l1) = outs["none"], outs["block"]
+    (p0, s0, l0, _), (p1, s1, l1, _) = outs["none"], outs["block"]
     assert torch.equal(l0, l1)
     for a, c in zip(tree_leaves((p0, s0)), tree_leaves((p1, s1))):
         assert torch.equal(a, c)

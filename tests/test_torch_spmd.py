@@ -158,7 +158,7 @@ def test_make_train_step_microbatch_matches_reference():
     p_ref, _, l_ref = ref_step(params, opt.init(params), batch)
     ours = make_train_step(cfg, sgd(0.1), microbatch=2)
     p0 = params_from_numpy(jax.tree.map(np.asarray, params))
-    p1, _, loss = ours(p0, sgd(0.1).init(p0),
+    p1, _, loss, _ = ours(p0, sgd(0.1).init(p0),
                        {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(loss), float(l_ref), rtol=RTOL)
     for (path, got), (_, want) in zip(

@@ -33,7 +33,7 @@ from repro_torch.launch.train import run_training
 from repro_torch.models import model as M
 from repro_torch.parallel.fsdp import leaf_dims, shard_tree
 from repro_torch.parallel.partition import map_with_path, param_shardings
-from repro_torch.parallel.tensor import model_dims
+from repro_torch.parallel.tensor import check_model_axis, model_dims
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,7 +139,10 @@ _LAYOUT_SCRIPT = """
 
 LAYOUT_CASES = [("h2o-danube-1.8b", 2, 2, 0), ("h2o-danube-1.8b", 1, 4, 0),
                 ("phi4-mini-3.8b", 2, 2, 0), ("phi4-mini-3.8b", 1, 4, 0),
-                ("h2o-danube-1.8b", 1, 4, 2)]
+                ("h2o-danube-1.8b", 1, 4, 2),
+                ("deepseek-v2-lite-16b", 2, 2, 0),
+                ("deepseek-v2-lite-16b", 1, 4, 0),
+                ("llama4-scout-17b-a16e", 1, 4, 0)]
 
 
 @pytest.fixture(scope="module")
@@ -163,7 +166,10 @@ def test_two_axis_layout_matches_reference(reference_layout, case):
     them, are the slices the reference's ``replica_param_shardings``
     places on device (0, d, k), bit for bit, for every leaf; each has
     the partition rules' shard shape over ``{"data": g, "model": M}``
-    (the kv heads whole where M does not divide them)."""
+    (the kv heads whole where M does not divide them; MLA's heads on
+    dim 1 or 0 and its latent projections whole; the experts' 3-D
+    leaves with the experts over ``model`` and d_model over ``data``,
+    the router whole)."""
     arch, g, M_, kv = case
     cfg = smoke_variant(get_config(arch))
     if kv:
@@ -229,6 +235,14 @@ _GRAD_SCRIPT = """
     tp = TensorParallel(cfg, params, comm)
     got_g, (got_l, _) = grad(tp.slice(params), tp)
     got_g = tp.sum_partial(got_g)
+    # every MoE layer routed alike on every rank of the model group
+    moe = any(f == "moe" for _, f in cfg.block_pattern)
+    assert (tp.routing is not None) == moe, tp.routing
+    routes = (tp.routing if moe else torch.zeros((), dtype=torch.int64)
+              ).reshape(1)
+    parts = [torch.empty_like(routes) for _ in range(W)]
+    dist.all_gather(parts, routes)
+    assert all(torch.equal(parts[0], q) for q in parts), parts
     torch.testing.assert_close(got_l, want_l, rtol=1e-5, atol=1e-6)
     rows = []
     map_with_path(lambda p, t: rows.append((p, t)), tp.slice(want_g))
@@ -253,7 +267,9 @@ _GRAD_SCRIPT = """
 
 @pytest.mark.parametrize("arch,kv,remat,seq", [
     ("h2o-danube-1.8b", 2, "none", 16),
-    ("phi4-mini-3.8b", 0, "block", 1040)])
+    ("phi4-mini-3.8b", 0, "block", 1040),
+    ("deepseek-v2-lite-16b", 0, "block", 16),
+    ("llama4-scout-17b-a16e", 0, "none", 16)])
 def test_tensor_parallel_gradient_on_four_ranks(tmp_path, arch, kv, remat,
                                                 seq):
     """Four gloo ranks, one model group of M 4, each on the same rows:
@@ -264,8 +280,12 @@ def test_tensor_parallel_gradient_on_four_ranks(tmp_path, arch, kv, remat,
     rank's query heads finding their kv head in them); phi4-mini-3.8b's
     case ties the embedding and rematerialises each block group and
     query block at S 1040, so the recompute issues the tensor
-    collectives again.  The gradients of leaves whole on every model
-    rank are bitwise equal across the group."""
+    collectives again.  deepseek-v2-lite-16b (MLA + MoE, its block
+    group rematerialised) and llama4-scout-17b-a16e (attention + MoE
+    with a shared expert): a rank's heads and E/M experts, the latent
+    projections and the router whole.  The gradients of leaves whole on
+    every model rank are bitwise equal across the group, and so is each
+    MoE layer's routing digest (``gate_idx`` and ``keep``)."""
     script = tmp_path / "grad.py"
     script.write_text(textwrap.dedent(_GRAD_SCRIPT))
     _finish(_start(_torchrun(4, str(script), arch, str(kv), remat,
@@ -287,12 +307,32 @@ _REF_SCRIPT = """
     smoke = train.smoke_variant
     train.smoke_variant = lambda c: dataclasses.replace(smoke(c),
                                                         dtype=dtype)
+    # each step's aux metric (the driver keeps it out of its history):
+    # the replica step's jit, seen through the driver's name for jax
+    AUX = []
+
+    class _Jax:
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+        @staticmethod
+        def jit(fn, **kw):
+            f = jax.jit(fn, **kw)
+
+            def g(*args):
+                out = f(*args)
+                if isinstance(out, tuple) and len(out) == 3 and \
+                        isinstance(out[2], dict) and "aux" in out[2]:
+                    AUX.append(float(out[2]["aux"]))
+                return out
+            return g
+    train.jax = _Jax()
     spec = ExperimentSpec.from_json(open(sys.argv[1]).read())
     params, history, stats = train.run_training(spec, verbose=False)
     params = jax.tree.map(lambda x: np.asarray(x, np.float32), params)
     save_checkpoint(sys.argv[2], params, spec.steps)
     with open(sys.argv[2] + ".run.json", "w") as f:
-        json.dump({"history": history, "stats": stats}, f)
+        json.dump({"history": history, "stats": stats, "aux": AUX}, f)
 """
 
 _PORT_SCRIPT = """
@@ -306,6 +346,8 @@ _PORT_SCRIPT = """
     from repro_torch.launch import train
     from repro_torch.models import model as M
     dtype, microbatch = sys.argv[4], int(sys.argv[5])
+    # the final params cross to rank 0 in many pieces
+    train.SEGMENT_PIECE = 1 << 16
     smoke = train.smoke_variant
     train.smoke_variant = lambda c: dataclasses.replace(smoke(c),
                                                         dtype=dtype)
@@ -330,15 +372,16 @@ def _npz(path):
 
 
 def _against_reference(tmp_path, arch, mode, mesh_model, dtype="float32",
-                       microbatch=1, steps=4):
-    """``arch``'s smoke variant over ``steps`` steps on four gloo ranks
-    at ``mesh_model`` and the reference's ``run_training`` on four
-    forced host devices at the same ``mesh_model``, from the
-    reference's initial params.  Checks the counters, the merges and
-    the history's steps; returns the two runs and the final params as
-    float32 arrays."""
+                       microbatch=1, steps=4, seq=16):
+    """``arch``'s smoke variant over ``steps`` steps of 8 rows of
+    ``seq`` on four gloo ranks at ``mesh_model`` and the reference's
+    ``run_training`` on four forced host devices at the same
+    ``mesh_model``, from the reference's initial params.  Checks the
+    counters, the merges and the history's steps; returns the two runs
+    (each reference record with its step's ``aux`` metric) and the
+    final params as float32 arrays."""
     fields = dict(arch=arch, backend="spmd", mode=mode, steps=steps,
-                  batch=8, seq=16, smoke=True, log_every=1,
+                  batch=8, seq=seq, smoke=True, log_every=1,
                   mesh_model=mesh_model)
     if mode == "hybrid":
         fields["schedule"] = "step:2"
@@ -368,6 +411,8 @@ def _against_reference(tmp_path, arch, mode, mesh_model, dtype="float32",
     assert st["mesh_model"] == mesh_model
     assert all(p["model"] == mesh_model for p in st["layout"])
     hr, hp = ref_run["history"], port_run["history"]
+    for h in hr:
+        h["aux"] = ref_run["aux"][h["step"]]
     assert [(h["step"], h["group_size"], h["replicas"]) for h in hp] == \
         [(h["step"], h["group_size"], h["replicas"]) for h in hr]
     assert all((h["divergence"] > 0) == (h["replicas"] > 1) for h in hp)
@@ -418,15 +463,31 @@ def test_phi4_sync_mesh_model_4_bf16_matches_reference(tmp_path):
 
 # ------------------------------------------------------------ the refusal
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "deepseek-v2-lite-16b",
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hubert-xlarge",
                                   "jamba-v0.1-52b"])
 def test_other_families_are_refused_naming_a16c(arch):
-    """A family without a tensor-parallel form raises at ``mesh_model``
-    2; it never runs with M 1."""
+    """A family without a tensor-parallel form (the xLSTM cells, a
+    frontend, mamba) raises at ``mesh_model`` 2; it never runs with
+    M 1."""
     spec = ExperimentSpec(backend="spmd", arch=arch, smoke=True,
                           mesh_model=2, steps=1, batch=2, seq=8)
     with pytest.raises(ValueError, match="mesh_model=2.*A16c"):
         run_training(spec, verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("field,value,what", [
+    ("num_experts", 6, r"num_experts \(6\)"),
+    ("moe_d_ff", 250, r"moe_d_ff \* num_shared_experts \(250\)")])
+def test_mesh_model_must_divide_the_experts(field, value, what):
+    """M 4 divides deepseek-v2-lite-16b smoke's heads and vocabulary but
+    not 6 experts, nor a shared expert 250 wide: refused, naming the
+    dimension, before any rank starts."""
+    cfg = dataclasses.replace(smoke_variant(get_config(
+        "deepseek-v2-lite-16b")), **{field: value})
+    with pytest.raises(ValueError,
+                       match=f"mesh_model=4 does not divide .*{what}.*A16c"):
+        check_model_axis(cfg, 4)
+    check_model_axis(cfg, 2)
 
 
 def test_mesh_model_must_divide_the_world():
