@@ -83,11 +83,13 @@ main paths:
   merge's shape (the full-width run starts once ``[zoo-sim]``'s 1.0 run
   has released the card, beside its small runs and ``[zoo-wire]``;
   ``[arch]`` runs before ``[zoo-sim]``);
-- the model axis (``[spmd-tp]``): two runs side by side, each 4 gloo
+- the model axis (``[spmd-tp]``): three runs side by side, each 4 gloo
   ranks sharing the card as data 2 x model 2, hybrid step:1 over 2
-  steps of 2 x 512, SGD, at published widths and reduced depth:
-  h2o-danube-1.8b (attention + MLP, 2 of its 24 block groups) and
-  deepseek-v2-lite-16b (MLA + MoE, 1 of its 27); each rank's state
+  steps of 2 x 512, SGD, at published widths: h2o-danube-1.8b
+  (attention + MLP, 2 of its 24 block groups), deepseek-v2-lite-16b
+  (MLA + MoE, 1 of its 27) and xlstm-350m (mLSTM + sLSTM, 2 of its 6
+  groups; it starts once h2o's has ended, the other two when ``[spmd]``'s
+  full run has); each rank's state
   against the partition rules' shards to the byte, one ``flush`` launch
   a rank at K 2 and at K 1 (each model column merges its own slices),
   the leaves whole on every model rank and every MoE layer's routing
@@ -2038,7 +2040,7 @@ MLA_F32_ATOL = 2e-4                 # seed 0, float32 weights (64.8 GB)
 MLA_LONG_S = 4096
 ZOO_SCALE = 1.0        # [zoo-sim]: xlstm-350m's published shape
 ZOO_WORKERS = 16       # ... 16 x 1.76 GB snapshots + 16 staging rows
-ZOO_HORIZON = 0.125    # ... virtual seconds: about 25 gradients
+ZOO_HORIZON = 0.0625   # ... virtual seconds: 13 gradients, 11 updates
 ZOO_SMALL = 0.25       # the width run on the card and on the CPU ...
 ZOO_SMALL_HORIZON = 0.0625  # ... for 0.0625 virtual s: about 12 gradients
 # SGD at xlstm-350m's width over 0.5 virtual s: the train loss ran away
@@ -2876,16 +2878,20 @@ def drive_spmd(torch, tmp: str, full: dict):
     ``[zoo-sim]``'s small runs and ``[zoo-wire]``: nothing times them,
     and they fit the card together); then h2o-danube-1.8b's smoke variant
     on 2 ranks, the card against the CPU and a sync run twice, while
-    ``[spmd-tp]``'s two runs (:func:`spmd_tp_check`) run beside them
-    (started once the full run has ended: started beside it, deepseek's
-    ran out of the card's memory); then ``flush`` alone at every
+    ``[spmd-tp]``'s runs (:func:`spmd_tp_check`) run beside them
+    (started once the full run has ended, the ``TP_AFTER`` runs once the
+    run each names has: see there); then ``flush`` alone at every
     merge's shape.  Returns the flush
     launches of the full run and of ``[spmd-tp]`` (their rank 0's, read
     through ``RunResult.extra``) and the merges' times."""
     tp = {}
     try:
         launches = spmd_runs(torch, tmp, full, lambda: tp.update(
-            (label, spmd_tp_launch(label, tmp)) for label in TP_RUNS))
+            (label, spmd_tp_launch(label, tmp)) for label in TP_RUNS
+            if label not in TP_AFTER))
+        for label, after in TP_AFTER.items():
+            tp_wait(tp[after])
+            tp[label] = spmd_tp_launch(label, tmp)
         tp_launches = sum(spmd_tp_check(run) for run in tp.values())
     finally:
         for run in tp.values():
@@ -3085,12 +3091,20 @@ def merge_flush(torch, K: int, P: int, what: str,
 # of 2 rows of 512, SGD, at published widths and reduced depth (a
 # torchrun of this script's TP_CHILD, run_training on the registry's
 # config cut in that process), the final params assembled in rank 0's
-# host memory: h2o-danube-1.8b (attention + MLP) and
-# deepseek-v2-lite-16b (MLA + MoE), side by side
+# host memory: h2o-danube-1.8b (attention + MLP), deepseek-v2-lite-16b
+# (MLA + MoE) and xlstm-350m (mLSTM + sLSTM), side by side
 TP_MODEL = 2
 TP_BATCH, TP_SEQ, TP_LR = 2, 512, 1e-5
 TP_RUNS = {"h2o": ("h2o-danube-1.8b", 2),        # 2 of its 24 groups
-           "deepseek": ("deepseek-v2-lite-16b", 1)}   # 1 of its 27
+           "deepseek": ("deepseek-v2-lite-16b", 1),   # 1 of its 27
+           "xlstm": ("xlstm-350m", 2)}                # 2 of its 6
+# the [spmd-tp] runs that start once another has ended, the others when
+# [spmd]'s full run has: deepseek's ran out of the card's memory beside
+# the full run and beside xlstm's at 6 groups; beside the full run,
+# xlstm's at 2 groups took the card to 72.4 of its 81.6 GB before
+# [zoo-sim]'s and [zoo-wire]'s share (PERF.md); its ranks peak at 1.65
+# GB each, h2o's, which it replaces, at 2.08
+TP_AFTER = {"xlstm": "h2o"}
 TP_CHILD = "--spmd-tp-child"
 
 
@@ -3136,6 +3150,21 @@ def spmd_tp_launch(label: str, tmp: str) -> dict:
             "out": out, "t0": time.time(), "label": label}
 
 
+def tp_wait(run: dict, timeout: float = 600.0) -> str:
+    """Wait for a ``[spmd-tp]`` run's torchrun to end and keep its
+    output (read once)."""
+    if "text" not in run:
+        try:
+            run["text"], _ = run["proc"].communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            run["proc"].kill()
+            run["text"], _ = run["proc"].communicate()
+            raise AssertionError(f"[spmd-tp] {run['label']}: no end in "
+                                 f"{timeout} s:\n" + run["text"][-3000:])
+        run["t_end"] = time.time()
+    return run["text"]
+
+
 def spmd_tp_check(run: dict) -> int:
     """The model axis: a torchrun of 4 ranks sharing the card over gloo
     at model 2 (``run``, from :func:`spmd_tp_launch`).  Each rank's state
@@ -3156,8 +3185,12 @@ def spmd_tp_check(run: dict) -> int:
     arch, groups = TP_RUNS[label]
     tag = f"[spmd-tp] {label}"
     data = SPMD_RANKS // TP_MODEL
-    res = spmd_result(run["proc"], run["out"], f"{arch} model axis")
-    wall = time.time() - run["t0"]
+    text = tp_wait(run)
+    check(run["proc"].returncode == 0, f"{tag}: torchrun exited "
+          f"{run['proc'].returncode} (a rank failed):\n{text[-3000:]}")
+    with open(run["out"]) as f:
+        res = json.load(f)
+    wall = run["t_end"] - run["t0"]
     st, hist = res["stats"], res["history"]
     check(st["backend"] == "gloo" and st["world_size"] == SPMD_RANKS
           and st["mesh_model"] == TP_MODEL,
@@ -3220,8 +3253,11 @@ def spmd_tp_check(run: dict) -> int:
         f"assembled in rank 0's host memory ({len(res['final']['leaves'])} "
         f"leaves of the config's shapes, finite, whole leaves' digest "
         f"{res['final']['whole_digest']} = the ranks') by "
-        f"{res['final']['seconds']:.2f} s into rank 0's run; its torchrun "
-        f"read {wall:.2f} s after its start (beside other runs); peak GiB "
+        f"{res['final']['seconds']:.2f} s into rank 0's run (the params "
+        f"drawn, each rank's model slices taken leaf by leaf on the host, "
+        f"and moved to the card in {st['draw_s']:.2f} s of it); its "
+        f"torchrun ended {wall:.2f} s after its start (beside other runs);"
+        f" peak GiB "
         f"by rank "
         f"{[round(b / 2**30, 2) for b in st['peak_memory_bytes']]}; "
         f"collective s by kind: " + "; ".join(
@@ -3613,6 +3649,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    # the image sets are drawn once, in this process, and mapped by every
+    # worker process of the cluster phases' fleets, which would each draw
+    # the whole set to keep their shard (repro_torch/data/synthetic.py)
+    from repro_torch.data.synthetic import CACHE_ENV
+    data_dir = tempfile.mkdtemp(prefix="chip-smoke-data-")
+    os.environ[CACHE_ENV] = data_dir
+    try:
+        return _main(torch, t_start)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def _main(torch, t_start: float) -> int:
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind} x{torch.cuda.device_count()}, torch "

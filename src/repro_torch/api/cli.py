@@ -127,8 +127,8 @@ _SPEC_FLAGS = [
     ("--merge-alpha", "merge_alpha", float, "spmd: partial-merge factor"),
     ("--mesh-model", "mesh_model", int,
      "spmd: the model (tensor-parallel) axis M; M divides the world "
-     "size, and M > 1 covers attention, MLA, MLP and MoE blocks "
-     "(mamba, xLSTM and the frontends are refused)"),
+     "size, and M > 1 covers every family without a frontend "
+     "(attention, MLA, MLP, MoE, mamba, mLSTM and sLSTM blocks)"),
     ("--log-every", "log_every", int, "spmd: metric logging interval"),
     ("--cluster-workers", "cluster_workers", int,
      "cluster: worker count (threads)"),

@@ -15,9 +15,8 @@ The port runs all three backends: ``sim``, ``spmd`` (launched under
 ``torchrun`` for more than one rank; ``steps``, ``seq``, ``merge_alpha``,
 ``mesh_model`` and ``log_every`` are its fields; ``mesh_model`` M must
 divide the world size, and M > 1, the tensor-parallel ``model`` axis,
-covers attention, MLA, MLP and MoE blocks: the dense families, such as
-h2o-danube-1.8b, phi4-mini-3.8b, qwen2.5-32b and qwen1.5-110b, and
-deepseek-v2-lite-16b and llama4-scout-17b-a16e) and ``cluster``.  The cluster backend runs all four transports:
+covers every family without a frontend: attention, MLA, MLP, MoE,
+mamba, mLSTM and sLSTM blocks) and ``cluster``.  The cluster backend runs all four transports:
 ``inproc``, ``socket``, ``proc`` and ``host`` (``listen``, ``heartbeat_s`` and the
 elastic ceiling ``max_workers`` are the host transport's, and so is
 ``serve_every``, which down-samples the params pushes to read-only

@@ -15,7 +15,8 @@ none of them.
   trip count.
 - :func:`recurrence`: a recurrent mixer (mamba, mLSTM, sLSTM) runs a
   Python loop over positions or chunks; the analysis counts it from
-  three trip counts of its own code and multiplies (``launch/cost.py``);
+  three trip counts of its own code and multiplies (``launch/cost.py``),
+  its tensor-parallel collectives (a chunk's all-reduce among them) too;
 - :func:`phase`: a step names the phase it enters (the train step's
   optimizer update), and the analysis keeps each phase's peak.
 """
@@ -38,9 +39,11 @@ def trips(n: int):
     return range(n) if ACTIVE is None else ACTIVE.trips(n)
 
 
-def recurrence(fn, params, x, cfg, unit: int):
-    """``fn(params, x, cfg)``: a recurrent mixer's full-sequence forward,
-    whose loop takes one trip every ``unit`` positions of x (B, S, D)."""
+def recurrence(fn, params, x, cfg, unit: int, tp=None):
+    """``fn(params, x, cfg)``, or ``fn(params, x, cfg, tp)`` under a
+    tensor-parallel context ``tp``: a recurrent mixer's full-sequence
+    forward, whose loop takes one trip every ``unit`` positions of x
+    (B, S, D)."""
     if ACTIVE is None or not x.is_meta:
-        return fn(params, x, cfg)
-    return ACTIVE.recurrence(fn, params, x, cfg, unit)
+        return fn(params, x, cfg) if tp is None else fn(params, x, cfg, tp)
+    return ACTIVE.recurrence(fn, params, x, cfg, unit, tp)

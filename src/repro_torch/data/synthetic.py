@@ -9,17 +9,53 @@ reproduces the paper's §6 setup exactly.
 A numpy-only copy of ``src/repro/data/synthetic.py``: the same seeds
 give the same arrays.  Datasets are built on the host and moved to the
 device once by the trainer.
+
+An image set is a few hundred MB drawn from one generator stream, which
+every worker process of a fleet would otherwise draw whole to keep its
+shard.  With ``REPRO_TORCH_DATA_CACHE`` naming a directory, the first
+build of a set writes its four arrays there and later builds (in any
+process) map them read-only, copy on write: the same bytes, drawn once.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 _CHUNK_ROWS = 4096
+CACHE_ENV = "REPRO_TORCH_DATA_CACHE"
+_PARTS = ("x_tr", "y_tr", "x_te", "y_te")
+
+
+def _cached(name: str, build):
+    """``build()``'s arrays, through the directory ``CACHE_ENV`` names
+    (under ``name``), when it is set."""
+    root = os.environ.get(CACHE_ENV)
+    if not root:
+        return build()
+    paths = [os.path.join(root, f"{name}.{part}.npy") for part in _PARTS]
+    if all(os.path.exists(p) for p in paths):
+        return tuple(np.asarray(np.load(p, mmap_mode="c")) for p in paths)
+    arrays = build()
+    os.makedirs(root, exist_ok=True)
+    for p, a in zip(paths, arrays):
+        tmp = f"{p}.{os.getpid()}.tmp.npy"
+        np.save(tmp, a)
+        os.replace(tmp, p)      # whole or absent to a concurrent reader
+    return arrays
 
 
 def _class_image_dataset(n_train: int, n_test: int, shape, num_classes: int,
                          seed: int, noise: float):
     """Images = class template (low-frequency pattern) + per-sample noise."""
+    key = f"images-{n_train}-{n_test}-{'x'.join(map(str, shape))}-" \
+        f"{num_classes}-{seed}-{noise!r}"
+    return _cached(key, lambda: _draw_images(n_train, n_test, shape,
+                                             num_classes, seed, noise))
+
+
+def _draw_images(n_train: int, n_test: int, shape, num_classes: int,
+                 seed: int, noise: float):
     rng = np.random.default_rng(seed)
     H, W, C = shape
     # smooth class templates: random low-rank outer products per channel

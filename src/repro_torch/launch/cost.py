@@ -38,7 +38,13 @@ body by its trip count (``core/counting.py``):
   traced step a stand-in (:class:`_Recurrence`) allocates its output,
   the saved bytes until its backward, and its transient peaks, and
   counts the extrapolated work.  Collective bytes come from the layout
-  (``launch/dryrun.py``), not from the trace.
+  (``launch/dryrun.py``), counted from the collectives' calls; a
+  tensor-parallel mixer's collectives (its input's and output's, and a
+  collective inside each trip, such as mamba's ``proj`` all-reduce and
+  its recompute under remat) are measured with it at the three trip
+  counts, extrapolated alike, and added to the step's counting
+  collectives (``comm.bytes``) when the stand-in runs forward and
+  backward.
 """
 from __future__ import annotations
 
@@ -268,24 +274,25 @@ class Analysis(TorchDispatchMode):
             yield 0
         self._add_scaled_since(snap, n - 1)
 
-    def recurrence(self, fn, params, x, cfg, unit: int):
+    def recurrence(self, fn, params, x, cfg, unit: int, tp=None):
         S = x.shape[1]
         if S % unit or S // unit <= _TRIPS[-1]:
-            return fn(params, x, cfg)
+            return fn(params, x, cfg, tp)
         leaves = tree_leaves(params)
         grad = torch.is_grad_enabled() and (
             x.requires_grad or any(t.requires_grad for t in leaves))
         spec = _RecurrenceSpec(
             fn, tuple(x.shape[:1]) + (unit,) + tuple(x.shape[2:]), x.dtype,
             tree_map(lambda t: _Leaf(tuple(t.shape), t.dtype), params),
-            cfg, grad)
+            cfg, grad, 1 if tp is None else tp.M, tp)
         model = self.models.get(spec)
         if model is None:
             # measured between passes, outside any transform
             self.missing.add(spec)
             model = _RecurrenceModel.zero(len(leaves))
+        comm = None if tp is None else getattr(tp.comm, "bytes", None)
         return _Recurrence.apply(x, model.at(S // unit), model.has_grad,
-                                 self, *leaves)[0]
+                                 self, comm, *leaves)[0]
 
 
 @dataclass(frozen=True)
@@ -306,10 +313,16 @@ class _RecurrenceSpec:
     params: Any                       # a tree of _Leaf
     cfg: Any
     grad: bool
+    model: int = 1                    # the tensor-parallel M
+    # the tensor-parallel context the mixer is measured with (its
+    # collectives counted in ``tp.comm.bytes``); the measured counts
+    # serve any context of the same M
+    tp: Any = field(default=None, compare=False)
 
     def __hash__(self):
         return hash((self.fn, self.x_unit_shape, self.dtype, self.cfg,
-                     self.grad, tuple(tree_leaves(self.params))))
+                     self.grad, self.model,
+                     tuple(tree_leaves(self.params))))
 
 
 # counts that add up over trips: a polynomial of degree <= 2 in the trip
@@ -341,9 +354,11 @@ class _RecurrenceModel:
     def at(self, n: int) -> Dict[str, float]:
         v2, v3, v4 = self.counts
         m = n - _TRIPS[0]
+        # the sums, and the collective bytes by direction and kind
+        # ("fwd <kind>", "bwd <kind>")
         out = {f: v2[f] + m * (v3[f] - v2[f])
                + m * (m - 1) // 2 * (v4[f] - 2 * v3[f] + v2[f])
-               for f in _SUMS}
+               for f in v2 if f not in _PEAKS}
         out.update({f: max(0, v4[f] + (n - _TRIPS[2]) * (v4[f] - v3[f]))
                     for f in _PEAKS})
         return out
@@ -362,9 +377,11 @@ def _measure(spec: _RecurrenceSpec) -> _RecurrenceModel:
         leaves = tree_leaves(params)
         L0 = a.hold(params, x)
         a.peak = L0
+        coll = _CollectiveMarks(spec.tp)
         with a, torch.set_grad_enabled(spec.grad):
-            y = spec.fn(params, x, spec.cfg)
+            y = spec.fn(params, x, spec.cfg, spec.tp)
             L1, Pf = a.live, a.peak
+            coll.mark("fwd")
             v = {"fwd_flops": a.flops, "fwd_bytes": a.hbm_bytes,
                  "saved": L1 - L0 - alloc_bytes(_nbytes(y)),
                  "fwd_extra": Pf - L1, "bwd_flops": 0, "bwd_bytes": 0,
@@ -382,11 +399,42 @@ def _measure(spec: _RecurrenceSpec) -> _RecurrenceModel:
                          bwd_extra=a.peak - B0 - G)
                 has_grad = tuple(g is not None for g in grads[1:])
                 del grads, gy
+                coll.mark("bwd")
             v["ops"] = a.ops
+            v.update(coll.counts)
         del y
         a.close()
         out.append(v)
     return _RecurrenceModel(tuple(out), has_grad)
+
+
+class _CollectiveMarks:
+    """The collective bytes a measured mixer's tensor-parallel context
+    counts (``tp.comm.bytes``, by kind), split at each :meth:`mark` into
+    ``"<label> <kind>"`` entries of :attr:`counts`."""
+
+    def __init__(self, tp):
+        self.bytes = None if tp is None else getattr(tp.comm, "bytes", None)
+        self.last = dict(self.bytes or {})
+        self.counts: Dict[str, float] = {}
+
+    def mark(self, label: str) -> None:
+        if self.bytes is None:
+            return
+        for kind, n in self.bytes.items():
+            self.counts[f"{label} {kind}"] = n - self.last.get(kind, 0.0)
+        self.last = dict(self.bytes)
+
+
+def _count_collectives(comm, model, label: str) -> None:
+    """Add the extrapolated ``"<label> <kind>"`` bytes of ``model`` to
+    the step's counting collectives ``comm`` (a dict by kind)."""
+    if comm is None:
+        return
+    for key, n in model.items():
+        if key.startswith(label + " "):
+            kind = key[len(label) + 1:]
+            comm[kind] = comm.get(kind, 0.0) + n
 
 
 class _Recurrence(torch.autograd.Function):
@@ -396,7 +444,8 @@ class _Recurrence(torch.autograd.Function):
     param leaves in the backward."""
 
     @staticmethod
-    def forward(x, model, has_grad, analysis, *leaves):
+    def forward(x, model, has_grad, analysis, comm, *leaves):
+        _count_collectives(comm, model, "fwd")
         analysis.flops += model["fwd_flops"]
         analysis.hbm_bytes += model["fwd_bytes"]
         analysis.ops += int(model["ops"])
@@ -409,8 +458,9 @@ class _Recurrence(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, model, has_grad, analysis, *leaves = inputs
+        x, model, has_grad, analysis, comm, *leaves = inputs
         ctx.model, ctx.has_grad, ctx.analysis = model, has_grad, analysis
+        ctx.comm = comm
         ctx.shapes = [(t.shape, t.dtype) for t in [x] + leaves]
         ctx.save_for_backward(output[1])
         ctx.mark_non_differentiable(output[1])
@@ -419,6 +469,7 @@ class _Recurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _):
         model, analysis = ctx.model, ctx.analysis
+        _count_collectives(ctx.comm, model, "bwd")
         analysis.flops += model["bwd_flops"]
         analysis.hbm_bytes += model["bwd_bytes"]
         dev = torch.device("meta")
@@ -428,7 +479,7 @@ class _Recurrence(torch.autograd.Function):
         extra = int(model["bwd_extra"])
         if extra > 0:
             torch.empty((extra,), dtype=torch.uint8, device=dev)
-        return (grads[0], None, None, None, *grads[1:])
+        return (grads[0], None, None, None, None, *grads[1:])
 
 
 _MODELS: Dict[_RecurrenceSpec, _RecurrenceModel] = {}

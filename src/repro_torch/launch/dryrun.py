@@ -15,8 +15,8 @@ Usage:
       --shape train_4k --cards 4 --model 4     # MLA + MoE, model 4
 
 A layout is ``--cards N`` H100s: N/M on the data axis and ``--model M``
-on the model axis (default 1; M > 1 covers attention, MLA, MLP and
-MoE blocks, ``parallel/tensor.py``), with ``--hybrid-rep R`` groups of
+on the model axis (default 1; M > 1 covers every family without a
+frontend, ``parallel/tensor.py``), with ``--hybrid-rep R`` groups of
 N/(M R) data positions for the group-annealed step.  Each record holds
 two layouts side by side:
 
@@ -31,8 +31,11 @@ two layouts side by side:
   rematerialised group again in its recompute), each gradient
   reduce-scattered in float32, the whole leaves' gradients all-reduced,
   the update on the shards; with ``--model M`` > 1 on a card's model
-  slices, its tensor all-reduces and all-gathers counted from its calls
-  (``tensor all-reduce``, ``tensor all-gather``) and an MoE layer's
+  slices, its tensor all-reduces, all-gathers and reduce-scatters
+  counted from its calls (``tensor all-reduce``, ``tensor all-gather``,
+  ``tensor reduce-scatter``; a recurrence's, its chunks' all-reduces
+  among them, from three trip counts, ``launch/cost.py``) and an MoE
+  layer's
   one-hot dispatch and combine traced over the card's E/M experts.  A
   serving step's FSDP state is the rules' shards over ``{"data": N/M,
   "model": M}`` (params and ``cache_specs``, exact); its peak is an
@@ -74,7 +77,6 @@ import traceback
 from typing import Any, Dict, Optional
 
 import torch
-from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.registry import (ARCH_NAMES, SHAPES, get_config,
                                           input_specs, shape_applicable)
@@ -85,6 +87,7 @@ from repro_torch.launch.steps import (card_memory_bytes, chained,
                                       derive_microbatch, make_train_step)
 from repro_torch.models import model as M
 from repro_torch.models.config import MOE
+from repro_torch.models.model import meta_params
 from repro_torch.optim import adamw
 from repro_torch.parallel.fsdp import GroupShards
 from repro_torch.parallel.partition import (cache_shardings,
@@ -101,28 +104,6 @@ SPMD = "spmd_whole_replica"
 FSDP = "fsdp_partition_rules"
 
 
-class _OnMeta(TorchFunctionMode):
-    """Every factory call with a ``device=`` lands on ``meta``: the
-    model's own init code, unchanged, builds shapes without memory."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if "device" in kwargs:
-            kwargs = {**kwargs, "device": "meta"}
-        return func(*args, **kwargs)
-
-
-_PARAMS: Dict[Any, Any] = {}
-
-
-def meta_params(cfg):
-    """The model's params as meta tensors (cached by config)."""
-    if cfg not in _PARAMS:
-        with _OnMeta():
-            _PARAMS[cfg] = M.init_params(torch.Generator(), cfg)
-    return _PARAMS[cfg]
-
-
 def bound_seconds(flops: float, nbytes: float, dtype) -> float:
     """The least time an H100 could take: bytes over the memory rate or
     operations over the peak rate of the model's dtype, the larger."""
@@ -134,7 +115,7 @@ def _check_mesh(mesh_kind: Optional[str]) -> None:
         raise ValueError(
             f"--mesh {mesh_kind}: a 16-wide model axis over every family "
             "is ROADMAP A16c.6; the port's layouts are --cards N with "
-            "--model M for attention, MLA, MLP and MoE blocks")
+            "--model M")
 
 
 def _per_card_batch(B: int, g: int) -> int:
@@ -160,7 +141,8 @@ class _CountingComm:
     def reset(self) -> None:
         self.bytes = {"all-gather": 0.0, "reduce-scatter": 0.0,
                       "all-reduce": 0.0, "tensor all-reduce": 0.0,
-                      "tensor all-gather": 0.0}
+                      "tensor all-gather": 0.0,
+                      "tensor reduce-scatter": 0.0}
 
     @contextlib.contextmanager
     def timing(self, kind):
@@ -177,6 +159,10 @@ class _CountingComm:
 
     def model_all_gather_(self, out, t):
         self.bytes["tensor all-gather"] += _nbytes(out) * _ring(self.model)
+
+    def model_reduce_scatter_(self, out, t):
+        self.bytes["tensor reduce-scatter"] += _nbytes(t) \
+            * _ring(self.model)
 
     def all_gather_(self, out, t, g):
         self.bytes["all-gather"] += _nbytes(out) * _ring(g)
@@ -422,10 +408,9 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             tag: str = "", cards: int = 1,
             hybrid_rep: int = 1, model: int = 1) -> Dict[str, Any]:
     """One record.  ``remat`` overrides the config's (None keeps it).
-    ``model`` M > 1: the cards are data N/M x model M (attention, MLA,
-    MLP and MoE blocks; any other is skipped, naming A16c), the
-    micro-batch
-    derived from the traced tensor-parallel step's peak."""
+    ``model`` M > 1: the cards are data N/M x model M (a frontend is
+    skipped, naming A16c), the micro-batch derived from the traced
+    tensor-parallel step's peak."""
     _check_mesh(mesh_kind)
     _check_flags(remat, q_block)
     cfg = get_config(arch)
@@ -586,8 +571,8 @@ def main(argv=None) -> int:
                          "the model axis")
     ap.add_argument("--model", type=int, default=1,
                     help="the model axis M (default 1); M > 1 covers "
-                         "attention, MLA, MLP and MoE blocks, the others "
-                         "are skipped naming ROADMAP A16c")
+                         "every family without a frontend; a frontend is "
+                         "skipped naming ROADMAP A16c")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--remat", default=None,

@@ -165,7 +165,8 @@ class Collectives:
     With ``model`` M > 1 a rank sits on two axes: the FSDP collectives
     (``all_reduce_sum_``, ``all_gather_``, ``reduce_scatter_``) run over
     its data column within the replica group, the tensor-parallel ones
-    (``model_all_reduce_``, ``model_all_gather_``) over its model group,
+    (``model_all_reduce_``, ``model_all_gather_``,
+    ``model_reduce_scatter_``) over its model group,
     and the merges' ``all_to_all_`` over its model column: the W/M ranks
     with its model index, where ``position`` is its place and
     ``positions`` their count.  Every rank creates the model groups, then
@@ -370,6 +371,17 @@ class Collectives:
             out.copy_(t)
             return
         self._gather(out, t, self._model)
+
+    def model_reduce_scatter_(self, out: torch.Tensor, t: torch.Tensor
+                              ) -> None:
+        """``out`` <- this rank's 1/M of flat ``t`` summed over its model
+        group (model index k takes the k-th slice)."""
+        if self.model == 1:
+            out.copy_(t)
+            return
+        grp = self._model
+        self._staged_pair(out, t, lambda o, i: _quiet(
+            dist.reduce_scatter_tensor, o, i, group=grp))
 
     def _gather(self, out, t, grp) -> None:
         self._staged_pair(out, t, lambda o, i: _quiet(

@@ -12,10 +12,11 @@ Every rank of a ``torch.distributed`` job runs :func:`run_training`
 (launched by ``torchrun``; with no process group it is one rank, and
 R = 1).  ``mesh_model`` M splits the W ranks into W/M data positions of
 M ranks (``launch/mesh.py``); each step a data position takes the
-gradient of its own rows of the batch.  With M > 1 (attention, MLA,
-MLP and MoE blocks, ``parallel/tensor.py``) each rank holds its model
-slice of every leaf and computes on its heads, MLP columns, experts and
-vocabulary rows, with collectives over its model group; a model with
+gradient of its own rows of the batch.  With M > 1
+(``parallel/tensor.py``) each rank holds its model slice of every leaf,
+taken leaf by leaf as the params are drawn, and computes on its heads,
+MLP columns, experts, inner channels and vocabulary rows, with
+collectives over its model group; a model with
 an MoE also reports its aux loss on logged steps and a digest of each
 rank's routing, which must be equal across each model group.  With
 g > 1 a replica group holds its replica in the reference's FSDP layout
@@ -83,7 +84,6 @@ from repro_torch.models import model as M
 from repro_torch.models.config import MOE
 from repro_torch.optim.optimizers import adamw, momentum, sgd
 from repro_torch.parallel.fsdp import GroupShards, all_gather_leaf
-from repro_torch.parallel.partition import map_with_path
 from repro_torch.parallel.tensor import TensorParallel, check_model_axis
 
 
@@ -264,22 +264,24 @@ class _Chunks:
         return float(torch.sqrt(total))
 
 
-def _digest(params, tp: TensorParallel, sharding) -> float:
+def _digest(params, tp: TensorParallel, sharding, codec: SlabCodec
+            ) -> float:
     """48 bits of the SHA-256 of a rank's leaves whole on every rank of
     its model group (each gathered along ``data`` when ``sharding``
-    shards it), as a float (exact)."""
+    shards it), in the slab's leaf order (the order of the params the
+    run returns, whatever the order of ``params``' dicts), as a float
+    (exact)."""
     h = hashlib.sha256()
-
-    def one(path, t):
-        if not tp.whole(path):
-            return
-        d = sharding.dims[path] if sharding is not None else None
-        if d is not None:
-            t = all_gather_leaf(t, d, sharding.g, sharding.comm)
-        h.update(t.detach().cpu().contiguous().view(torch.uint8)
-                 .numpy().tobytes())
     with torch.no_grad():
-        map_with_path(one, params)
+        for path, t in codec.items(params):
+            path = tuple(str(n) for n in path)
+            if not tp.whole(path):
+                continue
+            d = sharding.dims[path] if sharding is not None else None
+            if d is not None:
+                t = all_gather_leaf(t, d, sharding.g, sharding.comm)
+            h.update(t.detach().cpu().contiguous().view(torch.uint8)
+                     .numpy().tobytes())
     return float(int.from_bytes(h.digest()[:6], "big"))
 
 
@@ -307,7 +309,8 @@ def run_training(spec, ckpt_dir: Optional[str] = None,
     gradient (the reduce-scatters and the whole leaves' all-reduce), the
     FSDP gathers, with ``mesh_model`` > 1 the tensor collectives of the
     forward and backward, the divergence of logged steps and the merges
-    (``collective_s_by_kind``).
+    (``collective_s_by_kind``), and the seconds rank 0 took to draw (or
+    read) its params and move them to its device (``draw_s``).
 
     ``params`` (tests) is an initial params tree of numpy arrays, such
     as the reference's, in place of the port's own initialisation.
@@ -324,8 +327,6 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
     cfg = get_config(spec.arch)
     if spec.smoke:
         cfg = dataclasses.replace(smoke_variant(cfg), name=cfg.name)
-    # the model axis covers attention, MLA, MLP and MoE blocks; mamba,
-    # the xLSTM cells and the frontends are A16c
     check_model_axis(cfg, spec.mesh_model)
     if cfg.frontend is not None:
         raise ValueError(f"{spec.arch}: the train driver uses token "
@@ -347,17 +348,23 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
     opt = _optimizer(spec)
     stream = token_stream(spec.seed, cfg.vocab_size, spec.batch, spec.seq)
     phases = _phases(spec, data_axis)
+    # this rank's model slices (the params themselves when M is 1),
+    # taken on the host leaf by leaf as the params are drawn (the whole
+    # tree is never on this rank's host or card); each model column
+    # merges the slab of its own slices
+    t_draw = time.time()
+    tp = None
+    if width > 1:
+        tp = TensorParallel(cfg, M.meta_params(cfg), comm)
     if params is None:
         params = M.init_params(torch.Generator().manual_seed(spec.seed),
-                               cfg)
+                               cfg, None if tp is None else tp.take)
     else:
         params = params_from_numpy(params)
+        if tp is not None:
+            params = tp.slice(params)
     params = tree_to(params, dev)
-    # this rank's model slices (the params themselves when M is 1); each
-    # model column merges the slab of its own slices
-    tp = TensorParallel(cfg, params, comm) if width > 1 else None
-    if tp is not None:
-        params = tp.slice(params)
+    draw_s = time.time() - t_draw
     codec = slab_codec(params)
     launches_before = dict(hybrid_aggregate.LAUNCHES_BY_K)
 
@@ -517,7 +524,7 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
         mine += [state, held, step_peak]
         del opt_state, step_fn
         if tp is not None and idx == len(phases) - 1:
-            whole_digest = _digest(params, tp, sharding)
+            whole_digest = _digest(params, tp, sharding, codec)
         if rows is None:
             # (the phase's last step, logged, left its rows when R > 1)
             with comm.timing("merge"):
@@ -560,7 +567,7 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
                 ph[key] = [int(r[n_k + 3 * i + j]) for r in by_rank]
         stats.update(
             backend=backend, world_size=W, mesh_model=width, device=str(dev),
-            remat=cfg.remat,
+            remat=cfg.remat, draw_s=draw_s,
             device_name=torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else "cpu",
             merges=merges, launches_by_k=by_k, layout=layout,

@@ -7,8 +7,7 @@
 (:func:`rope_tables`): attention rotates ``head_dim``-wide heads, MLA
 its ``rope_head_dim``-wide part.  ``tp`` is the tensor-parallel context
 of the training forward at ``mesh_model`` M > 1 (``parallel/tensor.py``):
-attention, MLA, the MLP and the MoE take it; mamba, mLSTM and sLSTM
-raise ``ValueError`` naming ROADMAP A16c.
+every mixer and FFN takes it.
 """
 from __future__ import annotations
 
@@ -67,11 +66,6 @@ def init_layer(gen: torch.Generator, mixer: str, ffn: str,
     return p
 
 
-def _no_tensor_form(kind: str) -> ValueError:
-    return ValueError(f"{kind} has no tensor-parallel form in this port "
-                      "yet: ROADMAP A16c")
-
-
 def _ffn(p, x, ffn: str, cfg: ModelConfig, plain: bool = False, tp=None,
          column=None):
     """The FFN half: (x, aux).  ``column``: ``moe_forward``'s."""
@@ -102,17 +96,16 @@ def layer_forward(p, x, mixer: str, ffn: str, cfg: ModelConfig,
         h = mla_mod.mla_forward(p["mixer"], h, cfg,
                                 ropes[cfg.rope_head_dim], plain=plain,
                                 tp=tp)
-    elif tp is not None:
-        raise _no_tensor_form(mixer)
     elif mixer == MAMBA:
         h = counting.recurrence(mamba_mod.mamba_forward, p["mixer"], h, cfg,
-                                unit=min(cfg.ssm_chunk, h.shape[1]))
+                                unit=min(cfg.ssm_chunk, h.shape[1]), tp=tp)
     elif mixer == MLSTM:
         h = counting.recurrence(xlstm_mod.mlstm_forward, p["mixer"], h, cfg,
-                                unit=min(xlstm_mod.MLSTM_CHUNK, h.shape[1]))
+                                unit=min(xlstm_mod.MLSTM_CHUNK, h.shape[1]),
+                                tp=tp)
     else:
         h = counting.recurrence(xlstm_mod.slstm_forward, p["mixer"], h, cfg,
-                                unit=1)
+                                unit=1, tp=tp)
     return _ffn(p, x + h, ffn, cfg, plain, tp, column)
 
 

@@ -9,6 +9,18 @@ The two add in a different order; ROADMAP C.24 states the gap.  When
 the config rematerialises, each chunk is checkpointed with its carry in
 and out (``src/repro/models/mamba.py:92``).  Plain PyTorch, as the
 reference's scan is jnp outside any Pallas kernel.
+
+Under the ``model`` axis (``tp``, ``parallel/tensor.py``) a rank holds
+di/M of the inner channels: its columns of ``w_in``'s two halves side
+by side, and its channels of ``conv_w``, ``conv_b``, ``w_dt``,
+``dt_bias``, ``A_log`` and ``D``, so the conv and the scan are local.
+``w_x`` (di, dt_rank + 2 d_state) is row-parallel: each rank's ``proj``
+is a partial sum over its channels, summed over the model group inside
+each chunk (in float32, rounded once to the activations' dtype, the
+dtype the reference's einsum gives) before the rank reads it for its
+own channels (``tp.sum``: its gradient is summed too).  Under remat the
+chunk's all-reduce runs again in its recompute, in the same order on
+every rank.  ``w_out`` is row-parallel (``tp.reduce``).
 """
 from __future__ import annotations
 
@@ -60,11 +72,15 @@ def causal_conv(x, w, b, d_conv: int, init_state=None):
     return y + b, xp[:, xp.shape[1] - (d_conv - 1):]
 
 
-def _ssm_inputs(params, xc, cfg: ModelConfig):
+def _ssm_inputs(params, xc, cfg: ModelConfig, tp=None):
     """xc (B,S,di) after the conv -> a, bx (B,S,di,ds) and C (B,S,ds),
-    float32."""
+    float32.  Under ``tp`` xc holds a rank's di/M channels and ``proj``
+    is summed over the model group."""
     ds, dtr = cfg.mamba_d_state, cfg.resolved_dt_rank
-    proj = (xc @ params["w_x"]).float()
+    proj = xc @ params["w_x"]
+    if tp is not None:
+        proj = tp.sum(proj.float()).to(xc.dtype)
+    proj = proj.float()
     dt, Bm, Cm = torch.split(proj, [dtr, ds, ds], dim=-1)
     dt = act.softplus(dt @ params["w_dt"].float() + params["dt_bias"])
     A = -act.exp(params["A_log"])                                 # (di,ds)
@@ -73,11 +89,14 @@ def _ssm_inputs(params, xc, cfg: ModelConfig):
     return a, bx, Cm
 
 
-def mamba_forward(params, x, cfg: ModelConfig):
-    """x (B, S, D) -> (B, S, D)."""
+def mamba_forward(params, x, cfg: ModelConfig, tp=None):
+    """x (B, S, D) -> (B, S, D); ``tp``: a rank's inner channels."""
     B, S, D = x.shape
-    di, chunk = cfg.mamba_d_inner, min(cfg.ssm_chunk, S)
+    chunk = min(cfg.ssm_chunk, S)
+    if tp is not None:
+        x = tp.copy(x)
     xi, z = torch.chunk(x @ params["w_in"], 2, dim=-1)
+    di = xi.shape[-1]
     xc, _ = causal_conv(xi, params["conv_w"], params["conv_b"],
                         cfg.mamba_d_conv)
     xc = F.silu(xc)
@@ -86,7 +105,7 @@ def mamba_forward(params, x, cfg: ModelConfig):
                          f"chunk {chunk}")
 
     def body(h, xci):
-        a, bx, Cm = _ssm_inputs(params, xci, cfg)
+        a, bx, Cm = _ssm_inputs(params, xci, cfg, tp)
         ys = []
         for t in range(a.shape[1]):
             h = a[:, t] * h + bx[:, t]
@@ -101,7 +120,8 @@ def mamba_forward(params, x, cfg: ModelConfig):
     y = torch.cat(ys, dim=1)
     y = y + params["D"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
-    return y @ params["w_out"]
+    y = y @ params["w_out"]
+    return y if tp is None else tp.reduce(y)
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,

@@ -27,11 +27,12 @@ trains through jnp the same way
 (``src/repro/kernels/flash_attention.py:82-83``); the kernels have no
 backward, and their wrappers refuse inputs that require grad.
 
-The training forward also runs over the ``model`` axis for the
-attention, MLA, MLP and MoE families (``tp``, ``parallel/tensor.py``):
-the embedding takes its vocabulary rows in parallel, each block its
-heads, MLP columns or experts, the head gives a rank's V/M logits, and
-:func:`loss_fn` takes a vocabulary-parallel cross-entropy from them.
+The training forward also runs over the ``model`` axis for every
+family without a frontend (``tp``, ``parallel/tensor.py``): the
+embedding takes its vocabulary rows in parallel, each block its heads,
+MLP columns, experts or inner channels, the head gives a rank's V/M
+logits, and :func:`loss_fn` takes a vocabulary-parallel cross-entropy
+from them.
 The MoE's aux loss is the same on every rank of a model group and is
 added once, as the cross-entropy is.
 """
@@ -41,6 +42,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.models import remat
 from repro_torch.models.blocks import (init_layer, init_layer_cache,
@@ -60,17 +62,32 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
-def _stacked_init(make, n: int):
+def _with_path(fn, tree, path: Tuple[str, ...]):
+    """``fn(path, leaf)`` over a dict tree, paths as ``map_with_path``
+    gives them in the params tree."""
+    if isinstance(tree, dict):
+        return {k: _with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _stacked_init(make, n: int, take=None, path: Tuple[str, ...] = ()):
     """``n`` draws of the dict tree ``make()``, stacked on a leading axis
     (the reference's ``vmap``-ed init).  Each draw is copied into place
     as it is made, so the peak is the stack and one draw (a model of
-    many groups at full width would not fit twice)."""
-    first = make()
+    many groups at full width would not fit twice).  ``take(path,
+    leaf)``, when given, keeps its part of each drawn leaf (``path``:
+    the stacked leaf's in the params tree), so only those parts are
+    stacked."""
+    def draw():
+        tree = make()
+        return tree if take is None else _with_path(take, tree, path)
+    first = draw()
     out = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
     _map(lambda o, t: o[0].copy_(t), out, first)
     del first
     for g in range(1, n):
-        _map(lambda o, t: o[g].copy_(t), out, make())
+        _map(lambda o, t: o[g].copy_(t), out, draw())
     return out
 
 
@@ -94,11 +111,17 @@ def _unstack(tree, n: int):
 
 # ------------------------------------------------------------------ init
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
-    """Random params drawn from ``gen``, on ``gen``'s device."""
+def init_params(gen: torch.Generator, cfg: ModelConfig, take=None
+                ) -> Dict[str, Any]:
+    """Random params drawn from ``gen``, on ``gen``'s device.  ``take(path,
+    leaf)`` (``TensorParallel.take``), when given, keeps its part of each
+    leaf as it is drawn (a block group's leaf without its stacked group
+    dim): the draws, and so every value, are those of the whole tree,
+    and only one layer's leaves are ever whole."""
     cfg.validate()
     dtype = _dtype(cfg)
     dev = gen.device
+    keep = take or _whole
 
     def normal(shape, scale):
         return (torch.randn(shape, generator=gen, device=dev) * scale
@@ -106,22 +129,47 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 
     params: Dict[str, Any] = {}
     if cfg.frontend != "audio":
-        params["embed"] = normal((cfg.vocab_size, cfg.d_model),
-                                 cfg.d_model ** -0.5)
+        params["embed"] = keep(("embed",), normal(
+            (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5))
     if cfg.frontend is not None:
         fd, d = cfg.frontend_dim, cfg.d_model
-        params["frontend_proj"] = {"w1": normal((fd, d), fd ** -0.5),
-                                   "w2": normal((d, d), d ** -0.5)}
+        params["frontend_proj"] = {
+            "w1": keep(("frontend_proj", "w1"), normal((fd, d), fd ** -0.5)),
+            "w2": keep(("frontend_proj", "w2"), normal((d, d), d ** -0.5))}
     params["groups"] = tuple(
         _stacked_init(lambda: init_layer(gen, mixer, ffn, cfg, dtype),
-                      cfg.num_groups)
-        for mixer, ffn in cfg.block_pattern)
-    params["final_norm"] = init_norm(cfg.norm, cfg.d_model, device=dev)
+                      cfg.num_groups, take, ("groups", str(j)))
+        for j, (mixer, ffn) in enumerate(cfg.block_pattern))
+    params["final_norm"] = _with_path(
+        keep, init_norm(cfg.norm, cfg.d_model, device=dev), ("final_norm",))
     if cfg.frontend == "audio" or not cfg.tie_embeddings:
-        params["lm_head"] = (torch.randn(
+        params["lm_head"] = keep(("lm_head",), (torch.randn(
             (cfg.d_model, cfg.vocab_size), generator=gen, device=dev)
-            * cfg.d_model ** -0.5).to(dtype)
+            * cfg.d_model ** -0.5).to(dtype))
     return params
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every factory call with a ``device=`` lands on ``meta``: the
+    model's own init code, unchanged, builds shapes without memory."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "device" in kwargs:
+            kwargs = {**kwargs, "device": "meta"}
+        return func(*args, **kwargs)
+
+
+_META: Dict[Any, Any] = {}
+
+
+def meta_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The model's params as meta tensors (cached by config): the leaf
+    shapes and dtypes of :func:`init_params`, without memory."""
+    if cfg not in _META:
+        with _OnMeta():
+            _META[cfg] = init_params(torch.Generator(), cfg)
+    return _META[cfg]
 
 
 # ------------------------------------------------------------- embedding

@@ -10,6 +10,29 @@ connections and is a loop over time with per-head recurrent weights.
 Plain PyTorch, as the reference's are jnp outside any Pallas kernel;
 ``exp``, ``tanh`` and ``log_sigmoid`` come from
 :mod:`repro_torch.models.activations`.
+
+Under the ``model`` axis (``tp``, ``parallel/tensor.py``):
+
+* mLSTM: a rank holds di/M channels of ``w_up``, ``w_z``, ``conv_w``
+  and ``conv_b``, H/M heads of ``gn_scale`` and di/M rows of
+  ``w_down``; ``lq``, ``lk``, ``lv``, ``w_if`` and ``b_if`` are whole.
+  Its q, k, v and gates contract all di, so ``xc`` and ``u`` are
+  gathered whole (``tp.gather_for_heads``: the backward reduce-scatters,
+  as each rank reads them for its own heads), each rank computes its
+  H/M heads (the whole leaves narrowed to them: their gradients are
+  partial, summed over the model group once a step), its heads' channels
+  are its di/M channels of ``z``, and ``w_down``'s output is summed
+  (``tp.reduce``).
+* sLSTM: ``w_x`` and ``b`` are split on their d output channels and
+  ``r_h`` over heads.  The reference lays the recurrent term of head h
+  (B, H, 4, dh) out as (B, 4, H dh) as it lies, so gate channel e reads
+  heads of every rank's slice: the recurrence cannot be cut by channel
+  without a collective in every step.  So the gate pre-activations and
+  ``r_h`` are gathered whole (``tp.gather``: every rank then runs the
+  whole recurrence, the norm over all d and the FFN alike, so the
+  backward keeps the rank's slice), and the FFN, whose width M divides
+  in no registry config (1365 for xlstm-350m), stays whole; where M
+  divides it, it is column- and row-parallel as the MLP.
 """
 from __future__ import annotations
 
@@ -61,7 +84,12 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     }
 
 
-def _mlstm_qkv_gates(params, x, cfg: ModelConfig, conv_state=None):
+def _mlstm_qkv_gates(params, x, cfg: ModelConfig, conv_state=None,
+                     tp=None):
+    """q, k, v, the log gates, z and the conv's last inputs; under ``tp``
+    a rank's heads of q, k, v and the gates and its channels of z."""
+    if tp is not None:
+        x = tp.copy(x)
     u = x @ params["w_up"]
     z = x @ params["w_z"]
     dc = cfg.xlstm_conv
@@ -74,11 +102,16 @@ def _mlstm_qkv_gates(params, x, cfg: ModelConfig, conv_state=None):
         xc = xc + up[:, i:i + S] * params["conv_w"][i]
     xc = F.silu(xc + params["conv_b"])
     new_conv = up[:, up.shape[1] - (dc - 1):]
-    q = torch.einsum("bse,ehk->bshk", xc, params["lq"])
-    k = torch.einsum("bse,ehk->bshk", xc, params["lk"])
-    v = torch.einsum("bse,ehk->bshk", u, params["lv"])
-    gates = torch.einsum("bse,ehg->bshg", xc.float(), params["w_if"]) \
-        + params["b_if"]
+    lq, lk, lv = params["lq"], params["lk"], params["lv"]
+    w_if, b_if = params["w_if"], params["b_if"]
+    if tp is not None:
+        xc, u = tp.gather_for_heads(xc), tp.gather_for_heads(u)
+        lq, lk, lv, w_if = (tp.my_heads(t, 1) for t in (lq, lk, lv, w_if))
+        b_if = tp.my_heads(b_if, 0)
+    q = torch.einsum("bse,ehk->bshk", xc, lq)
+    k = torch.einsum("bse,ehk->bshk", xc, lk)
+    v = torch.einsum("bse,ehk->bshk", u, lv)
+    gates = torch.einsum("bse,ehg->bshg", xc.float(), w_if) + b_if
     li = gates[..., 0]                          # log input gate (B,S,H)
     lf = act.log_sigmoid(gates[..., 1])         # log forget gate
     return q, k, v, li, lf, z, new_conv
@@ -134,10 +167,13 @@ def _mlstm_chunk(carry, q, k, v, li, lf, dh: int):
     return (C_new, n_new, m_state), out
 
 
-def mlstm_forward(params, x, cfg: ModelConfig):
+def mlstm_forward(params, x, cfg: ModelConfig, tp=None):
+    """x (B, S, D) -> (B, S, D); ``tp``: a rank's heads."""
     B, S, D = x.shape
     di, H, dh = _mlstm_dims(cfg)
-    q, k, v, li, lf, z, _ = _mlstm_qkv_gates(params, x, cfg)
+    if tp is not None:
+        di, H = di // tp.M, tp.heads
+    q, k, v, li, lf, z, _ = _mlstm_qkv_gates(params, x, cfg, tp=tp)
     c = min(MLSTM_CHUNK, S)
     if S % c:
         raise ValueError(f"sequence {S} is not a multiple of the mLSTM "
@@ -154,7 +190,8 @@ def mlstm_forward(params, x, cfg: ModelConfig):
         outs.append(out)
     h = torch.cat(outs, dim=1)
     h = _headnorm(h, params["gn_scale"]).reshape(B, S, di).to(x.dtype)
-    return (h * F.silu(z)) @ params["w_down"]
+    y = (h * F.silu(z)) @ params["w_down"]
+    return y if tp is None else tp.reduce(y)
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype,
@@ -238,25 +275,40 @@ def _slstm_step(params, xg, state, H: int, dh: int):
     return c1, n1, m1, h1
 
 
-def _slstm_out(params, h, dtype):
+def _slstm_out(params, h, dtype, tp=None):
+    """The norm over all d and the FFN; under ``tp`` the FFN is column-
+    and row-parallel where its leaves are sliced, else whole."""
     var = torch.mean(torch.square(h), dim=-1, keepdim=True)
     h = (h * torch.rsqrt(var + 1e-5) * params["gn_scale"]).to(dtype)
+    sliced = tp is not None and tp.slstm_ffn
+    if sliced:
+        h = tp.copy(h)
     up = h @ params["w_up"]
-    return F.gelu(up, approximate="tanh") @ params["w_down"]
+    y = F.gelu(up, approximate="tanh") @ params["w_down"]
+    return tp.reduce(y) if sliced else y
 
 
-def slstm_forward(params, x, cfg: ModelConfig):
+def slstm_forward(params, x, cfg: ModelConfig, tp=None):
+    """x (B, S, D) -> (B, S, D); under ``tp`` a rank's d/M gate channels
+    of ``w_x`` and ``b`` and H/M heads of ``r_h``, gathered whole before
+    the recurrence."""
     B, S, D = x.shape
     H = cfg.num_heads
+    r_h = params["r_h"]
+    if tp is not None:
+        x = tp.copy(x)
     xg = torch.einsum("bsd,dge->bsge", x.float(), params["w_x"]) \
         + params["b"]
+    if tp is not None:
+        xg, r_h = tp.gather(xg, -1), tp.gather(r_h, 0)
+    p = {"r_h": r_h}
     zeros = x.new_zeros((B, D), dtype=torch.float32)
     state = (zeros, zeros, torch.full_like(zeros, -30.0), zeros)
     hs = []
     for t in range(S):
-        state = _slstm_step(params, xg[:, t], state, H, D // H)
+        state = _slstm_step(p, xg[:, t], state, H, D // H)
         hs.append(state[3])
-    return _slstm_out(params, torch.stack(hs, dim=1), x.dtype)
+    return _slstm_out(params, torch.stack(hs, dim=1), x.dtype, tp)
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, dtype,

@@ -60,7 +60,23 @@ rank per card on NCCL unless a phase says otherwise:
   the dry-run's trace) fit a card with 10% to spare: merges at K 2 and
   K 1 per model column with one ``flush`` launch a rank each,
   divergence > 0 exactly while R > 1, the digests equal, the final
-  params assembled as ``[tensor-moe]``'s.
+  params assembled as ``[tensor-moe]``'s;
+* ``[tensor-ssm]``: the model axis for mamba and the xLSTM cells.
+  jamba-v0.1-52b at its published width (mamba + attention, MLP and
+  MoE; bf16 weights), sync, SGD, one row of 4096 a card a step, at data
+  2 x model 2 and data 1 x model 4, at ``SSM_GROUPS`` of its 4 block
+  groups (the host's draw, not the card, caps the depth), in the fewest
+  micro-batches whose traced step peak fits a card with 10% to spare at
+  both M: each card's state
+  against the dry-run to the byte, its step peak within 10% or 256 MiB
+  of the traced peak, the first loss at M 4 within 3e-2 of M 2's, the
+  whole leaves' and the routing digests equal across each model group,
+  the final params assembled in rank 0's host memory (the cut config's
+  shapes, mamba's ``w_in`` whole, finite); then xlstm-350m at its
+  published width and depth, hybrid step:1 at data 2 x model 2 (g 1 ->
+  2, R 2 -> 1), twice: merges at K 2 and K 1 with one ``flush`` launch
+  on every rank each, divergence > 0 exactly while R > 1, the whole
+  leaves equal across each model group, final params bitwise equal.
 """
 from __future__ import annotations
 
@@ -103,6 +119,18 @@ DS_HYBRID_SEQ, DS_HYBRID_MODEL = 1024, 2
 # merge, or the reshard with the replica it assembles), and one
 # SEGMENT_PIECE of temporaries at 16 bytes an element
 MERGE_SLAB_BYTES, MERGE_PIECE_BYTES = 8, 16
+JAMBA = "jamba-v0.1-52b"
+SSM_SEQ, SSM_ROWS, SSM_STEPS, SSM_LR = 4096, 1, 3, 1e-5
+SSM_MODELS = (2, 4)
+# jamba's depth: every rank draws every parameter on the host to take its
+# slices, 97-114 M a second on the four-card host, so one group (13.3 G
+# parameters) takes 115-140 s a run; two would fit the cards (traced peak
+# 0.770 of one) but double a phase that already takes about 20 minutes
+SSM_GROUPS = 1
+XLSTM_TP_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
+                "--schedule", "step:1", "--steps", "2", "--batch", "4",
+                "--seq", "512", "--lr", "1e-5", "--optimizer", "sgd",
+                "--log-every", "1", "--mesh-model", "2"]
 H2O_TP_RUN = ["--arch", "h2o-danube-1.8b", "--no-smoke", "--mode", "hybrid",
               "--schedule", "step:2", "--steps", "4", "--batch", "2",
               "--seq", "1024", "--lr", "1e-5", "--optimizer", "sgd",
@@ -497,15 +525,15 @@ def at_depth(arch: str, groups: int) -> None:
 
 
 def moe_child(out: str, spec_path: str, micro: int, groups: int) -> int:
-    """A rank of a ``[tensor-moe]`` run (started by torchrun): the spec
-    at ``spec_path`` on deepseek-v2-lite-16b with ``groups`` of its 27
-    block groups.  Rank 0 writes what it assembled of the final params
-    (in its host memory) beside ``out``."""
+    """A rank of a ``[tensor-moe]`` or ``[tensor-ssm]`` run (started by
+    torchrun): the spec at ``spec_path`` on its arch cut to ``groups`` of
+    its block groups.  Rank 0 writes what it assembled of the final
+    params (in its host memory) beside ``out``."""
     from repro_torch.api.spec import ExperimentSpec
     from repro_torch.launch.train import run_training
     with open(spec_path) as f:
         spec = ExperimentSpec.from_json(f.read())
-    at_depth(DS, groups)
+    at_depth(spec.arch, groups)
     t0 = time.time()
     final, _, _ = run_training(spec, out_json=out, verbose=True,
                                device="cuda", microbatch=micro)
@@ -519,23 +547,23 @@ def moe_child(out: str, spec_path: str, micro: int, groups: int) -> int:
 def final_summary(final, model: int, seconds: float) -> dict:
     """What rank 0 holds of a run's final params: their leaves' devices,
     shapes and dtypes, whether every value is finite, and 48 bits of the
-    SHA-256 of the leaves whole on every model rank at ``model`` > 1
-    (``launch/train.py`` digests the same leaves after the last step,
-    and a merge of one replica changes no bit of them)."""
+    SHA-256 of the leaves whole on every model rank at ``model`` > 1,
+    in the slab's leaf order (``launch/train.py`` digests the same
+    leaves in that order after the last step, and a merge of one
+    replica changes no bit of them)."""
     import hashlib
     import torch
-    from repro_torch.parallel.partition import map_with_path
+    from repro_torch.core.slab import slab_codec
     from repro_torch.parallel.tensor import model_dims
     dims = model_dims(final, model)
     h = hashlib.sha256()
     leaves = []
-
-    def one(path, t):
+    for path, t in slab_codec(final).items(final):
+        path = tuple(str(n) for n in path)
         leaves.append(["/".join(path), list(t.shape), str(t.dtype),
                        str(t.device), bool(torch.isfinite(t).all())])
         if model > 1 and dims[path] is None:
             h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
-    map_with_path(one, final)
     return {"leaves": leaves, "seconds": seconds,
             "whole_digest": int.from_bytes(h.digest()[:6], "big")}
 
@@ -774,6 +802,197 @@ def phase_tensor_moe_hybrid(tmp: str) -> dict:
             "outer_s": res["outer_s"]}
 
 
+# ------------------------------------------------------------ [tensor-ssm]
+
+def _ssm_spec(mesh_model: int):
+    from repro_torch.api.spec import ExperimentSpec
+    return ExperimentSpec(arch=JAMBA, backend="spmd", mode="sync",
+                          steps=SSM_STEPS, batch=SSM_ROWS * CARDS,
+                          seq=SSM_SEQ, lr=SSM_LR, optimizer="sgd",
+                          smoke=False, log_every=1, mesh_model=mesh_model)
+
+
+def _at_groups(arch: str, groups: int):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), num_groups=groups)
+
+
+def _ssm_plans(opt, cfg):
+    """For each M of ``SSM_MODELS``, the fewest micro-batches whose traced
+    step peak fits a card with ``PEAK_RTOL`` to spare (the SGD update,
+    which holds every leaf's float32 update at once, can peak above the
+    forward, so more micro-batches, whose float32 accumulator adds to
+    it, need not lower it) and the dry-run's layout there."""
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import card_memory_bytes
+    card = card_memory_bytes("meta")
+    plans = {}
+    for mm in SSM_MODELS:
+        spec = _ssm_spec(mm)
+        shape = InputShape("ssm", spec.seq, spec.batch, "train")
+        rows = spec.batch // (CARDS // mm)
+        for micro in (m for m in range(1, rows + 1) if rows % m == 0):
+            peak = dryrun.analyze_step(cfg, shape, CARDS, micro, fsdp=True,
+                                       optimizer=opt,
+                                       model=mm)[0].peak_bytes
+            if peak * (1 + PEAK_RTOL) <= card:
+                plans[mm] = (micro, dryrun.fsdp_layout(
+                    cfg, shape, CARDS, microbatch=micro, optimizer=opt,
+                    model=mm))
+                break
+        check(mm in plans, f"[tensor-ssm] {SSM_GROUPS} group(s) of {JAMBA} "
+              f"fit no card at M {mm}")
+    return plans
+
+
+def phase_tensor_ssm(tmp: str) -> dict:
+    import numpy as np
+    from repro_torch.optim.optimizers import sgd
+    opt = sgd(SSM_LR)
+    t0 = time.time()
+    from repro_torch.convert import tree_leaves
+    from repro_torch.models.model import meta_params
+    groups = SSM_GROUPS
+    cfg = _at_groups(JAMBA, groups)
+    plans = _ssm_plans(opt, cfg)
+    n = sum(t.numel() for t in tree_leaves(meta_params(cfg)))
+    log(f"[tensor-ssm] {JAMBA} at {groups} of its 4 block groups ({n:,} "
+        f"parameters; the host's draw caps the depth), its step fitting a "
+        f"card with {PEAK_RTOL:.0%} to spare at M {SSM_MODELS}: "
+        + "; ".join(
+            f"M {mm}: {micro} micro-batch(es), state "
+            f"{pred['state_bytes_total']} B, traced peak "
+            f"{pred['peak_bytes']} B, collectives a step "
+            f"{ {k: int(v) for k, v in pred['collective_bytes_per_device'].items()} } B"
+            for mm, (micro, pred) in plans.items())
+        + f" (meta device, {time.time() - t0:.1f} s); cut: depth only, "
+        "every width the published one")
+    out = {"groups": groups, "parameters": n}
+    first = None
+    for mm in SSM_MODELS:
+        micro, pred = plans[mm]
+        spec = _ssm_spec(mm)
+        res = _moe_run(tmp, f"ssm{mm}", spec, micro, groups)
+        st, hist = res["stats"], res["history"]
+        check(st["backend"] == "nccl" and st["world_size"] == CARDS
+              and st["mesh_model"] == mm,
+              f"[tensor-ssm] M {mm}: backend {st['backend']}, world "
+              f"{st['world_size']}, mesh_model {st['mesh_model']}")
+        (lay,) = st["layout"]
+        check((lay["g"], lay["model"]) == (CARDS // mm, mm),
+              f"[tensor-ssm] M {mm}: layout {lay}")
+        state = pred["state_bytes_total"]
+        check(all(b == state for b in lay["state_bytes"]),
+              f"[tensor-ssm] M {mm}: state bytes by card "
+              f"{lay['state_bytes']}, the dry-run's {state}")
+        peak = pred["peak_bytes"]
+        tol = max(PEAK_RTOL * peak, PEAK_SLACK)
+        check(all(abs(b - peak) <= tol for b in lay["step_peak_bytes"]),
+              f"[tensor-ssm] M {mm}: step peaks by card "
+              f"{lay['step_peak_bytes']}, the dry-run's {peak} within "
+              f"{tol:.0f}")
+        losses = [h["loss"] for h in hist]
+        auxes = [h["aux"] for h in hist]
+        check(all(math.isfinite(x) for x in losses + auxes),
+              f"[tensor-ssm] M {mm}: losses {losses}, aux {auxes}")
+        if first is None:
+            first = losses[0]
+        check(abs(losses[0] - first) <= TENSOR_LOSS_ATOL,
+              f"[tensor-ssm] M {mm}: first loss {losses[0]}, M "
+              f"{SSM_MODELS[0]}'s {first}")
+        for key in ("whole_digest_by_rank", "routing_digest_by_rank"):
+            check(_groups_equal(st[key], mm),
+                  f"[tensor-ssm] M {mm}: {key} {st[key]}")
+        check_final(f"[tensor-ssm] M {mm}", res, cfg, mm)
+        steps = _walls(hist)
+        tokens = spec.batch * spec.seq
+        by_kind = st["collective_s_by_kind"]
+        log(f"[tensor-ssm] {JAMBA} full width, {groups} of 4 groups, remat "
+            f"{st['remat']}, sync over {CARDS} x {st['device_name']} on "
+            f"{st['backend']} as data {lay['g']} x model {mm}, SGD, "
+            f"{spec.batch} x {spec.seq} a step in {micro} micro-batch(es) "
+            f"a data position: state {lay['state_bytes'][0]} B a card = "
+            f"the dry-run's to the byte; step peak by card "
+            f"{lay['step_peak_bytes']} B against {peak} B (ratios "
+            f"{[round(b / peak, 6) for b in lay['step_peak_bytes']]}); "
+            f"first loss {losses[0]:.6f} against M {SSM_MODELS[0]}'s "
+            f"{first:.6f} (diff {losses[0] - first:.3e}); aux "
+            f"{[round(a, 6) for a in auxes]}; whole-leaf and routing "
+            f"digests equal across each model group "
+            f"({st['routing_digest_by_rank']}); params drawn and moved to "
+            f"the card in {st['draw_s']:.1f} s on rank 0")
+        log(f"[tensor-ssm] M {mm}: step walls {steps} s; last step "
+            f"{steps[-1]:.3f} s = {tokens / steps[-1]:.1f} tokens/s "
+            f"({tokens} tokens a step); losses "
+            f"{[round(x, 4) for x in losses]}; peak card memory by card "
+            f"{[round(b / 2**30, 2) for b in st['peak_memory_bytes']]} GiB; "
+            f"collective s by kind and card: " + "; ".join(
+                f"{k} {[round(r[k], 3) for r in by_kind]}"
+                for k in by_kind[0]) + f"; {res['outer_s']:.1f} s with "
+            f"torchrun; final params assembled in rank 0's host memory "
+            f"({len(res['final']['leaves'])} leaves of the cut config's "
+            f"shapes, finite) by {res['final']['seconds']:.1f} s into rank "
+            f"0's run")
+        out[f"M{mm}"] = {"microbatch": micro, "prediction": pred,
+                         "layout": lay, "losses": losses, "aux": auxes,
+                         "step_walls": steps, "tokens_per_step": tokens,
+                         "collective_s_by_kind": by_kind,
+                         "peak_memory_bytes": st["peak_memory_bytes"],
+                         "draw_s": st["draw_s"], "final": res["final"],
+                         "outer_s": res["outer_s"]}
+    runs = []
+    for label in ("a", "b"):
+        t0 = time.time()
+        res = spmd_run(XLSTM_TP_RUN, os.path.join(tmp, f"xl-tp-{label}.json"),
+                       ckpt_dir=os.path.join(tmp, f"xl-tp-{label}"))
+        ex, hist = res["extra"], res["extra"]["history"]
+        check(ex["backend"] == "nccl" and ex["mesh_model"] == 2,
+              f"[tensor-ssm] xlstm: backend {ex['backend']}, mesh_model "
+              f"{ex.get('mesh_model')}")
+        check([(h["group_size"], h["replicas"]) for h in hist] ==
+              [(1, 2), (2, 1)], f"[tensor-ssm] xlstm: {hist}")
+        check([m["K"] for m in ex["merges"]] == [2, 1],
+              f"[tensor-ssm] xlstm: merges {ex['merges']}")
+        check(all(r == {"1": 1, "2": 1}
+                  for r in ex["flush_launches_by_rank"]),
+              f"[tensor-ssm] xlstm: flush launches by rank "
+              f"{ex['flush_launches_by_rank']}")
+        check(all((h["divergence"] > 0) == (h["replicas"] > 1)
+                  and math.isfinite(h["loss"]) for h in hist),
+              f"[tensor-ssm] xlstm: history {hist}")
+        check(_groups_equal(ex["whole_digest_by_rank"], 2),
+              f"[tensor-ssm] xlstm: whole digests "
+              f"{ex['whole_digest_by_rank']}")
+        log(f"[tensor-ssm] xlstm-350m full width and depth, remat "
+            f"{ex['remat']}, NCCL data 2 x model 2, run {label}: g "
+            f"{[h['group_size'] for h in hist]}, merges K "
+            f"{[m['K'] for m in ex['merges']]}, flush launches by rank "
+            f"{ex['flush_launches_by_rank']}; divergence "
+            f"{[float('%.6g' % h['divergence']) for h in hist]}; losses "
+            f"{[round(h['loss'], 6) for h in hist]}; layout "
+            f"{[(p['g'], p['model'], p['fsdp'], p['state_bytes'][0]) for p in ex['layout']]}"
+            f"; step walls {_walls(hist)} s; collective s by kind: "
+            + "; ".join(f"{k} {[round(r[k], 3) for r in ex['collective_s_by_kind']]}"
+                        for k in ex["collective_s_by_kind"][0])
+            + f"; {time.time() - t0:.1f} s with torchrun")
+        runs.append(res)
+    a, b = (_npz(os.path.join(tmp, f"xl-tp-{x}", "step_2.npz"))
+            for x in ("a", "b"))
+    check(sorted(a) == sorted(b) and all(
+        np.array_equal(a[k], b[k]) and a[k].tobytes() == b[k].tobytes()
+        for k in a), "[tensor-ssm] xlstm: two runs' final params differ")
+    log("[tensor-ssm] xlstm: two runs' final params bitwise equal")
+    out["xlstm"] = [{"history": r["extra"]["history"],
+                     "merges": r["extra"]["merges"],
+                     "layout": r["extra"]["layout"],
+                     "collective_s_by_kind":
+                         r["extra"]["collective_s_by_kind"]}
+                    for r in runs]
+    return out
+
+
 # ---------------------------------------------------------------- [hybrid]
 
 def phase_hybrid(tmp: str) -> dict:
@@ -930,7 +1149,7 @@ def main(argv=None) -> int:
                     help="write every phase's figures here as JSON")
     ap.add_argument("--phases",
                     default="nccl,fsdp,hybrid,staging,tensor,tensor-moe,"
-                            "tensor-moe-hybrid",
+                            "tensor-moe-hybrid,tensor-ssm",
                     help="a comma-separated subset, in order; tensor "
                          "needs fsdp before it")
     ap.add_argument(FSDP_CHILD, default=None, help=argparse.SUPPRESS)
@@ -978,6 +1197,8 @@ def main(argv=None) -> int:
                 figures[name] = phase_tensor_moe(tmp)
             elif name == "tensor-moe-hybrid":
                 figures[name] = phase_tensor_moe_hybrid(tmp)
+            elif name == "tensor-ssm":
+                figures[name] = phase_tensor_ssm(tmp)
             else:
                 figures[name] = {"nccl": phase_nccl, "fsdp": phase_fsdp,
                                  "hybrid": phase_hybrid}[name](tmp)

@@ -1,48 +1,72 @@
 """The ``model`` axis within a replica group: the counterpart of GSPMD's
 partitioning over the reference's ``model`` mesh axis, for attention
-(grouped-query and MLA), the MLP and the MoE.
+(grouped-query and MLA), the MLP, the MoE, mamba and the xLSTM cells.
 
 The reference marks its tensor-parallel boundaries with activation
 constraints (``src/repro/models/attention.py:55-57`` q/k/v over heads,
 ``:161-163`` the output over heads and ``y`` whole,
 ``models/mla.py:71-78``, ``models/mlp.py:25-33``, ``models/moe.py:68``,
-``:98-105`` and ``:112``, ``models/model.py:92`` ``x`` whole and
+``:98-105`` and ``:112``, ``models/mamba.py:75`` and ``:99-101``,
+``models/xlstm.py:139``, ``models/model.py:92`` ``x`` whole and
 ``:123`` the logits over ``vocab``) and lets GSPMD place the
 collectives.  Here they are explicit, Megatron-style.  A rank holds the
 model slice of each leaf that the partition rules shard over ``model``
 (``parallel/partition.py`` over ``{"data": g, "model": M}``, sanitized):
 its H/M query heads (MLA's ``wq``, ``w_uk``, ``w_uv`` and ``wo`` too),
 KV/M kv heads, d_ff/M MLP columns (the MoE's shared expert's too), E/M
-experts and V/M vocabulary rows, contiguous, the k-th of M for model
-index k; every other leaf (the norms, MLA's latent projections
-``w_dkv``/``w_kr``, the MoE's ``router``) is whole on every rank.
+experts, V/M vocabulary rows, di/M of mamba's and the mLSTM's inner
+channels and d/M of the sLSTM's gate channels (with its H/M heads of
+``r_h``), contiguous, the k-th of M for model index k; every other leaf
+(the norms, MLA's latent projections ``w_dkv``/``w_kr``, the MoE's
+``router``, the mLSTM's ``lq``/``lk``/``lv``/``w_if``/``b_if``, the
+sLSTM's ``gn_scale`` and its FFN where M does not divide its width) is
+whole on every rank.  Mamba's ``w_in`` holds ``xi`` and ``z`` side by
+side (``src/repro/models/mamba.py:73-74``): a rank holds columns
+``[k di/M, (k+1) di/M)`` of each half, the two side by side
+(:data:`PAIRED`), so its channels of both come from one product;
+:meth:`TensorParallel.slice` and :meth:`TensorParallel.gather_host`
+convert from and to the reference's whole leaf.
 
-Three autograd Functions carry the boundaries, the loss being computed
-alike on every rank of a model group:
+Five autograd Functions carry the boundaries, the loss being computed
+alike on every rank of a model group.  Which one a value takes depends
+on whether the ranks then use it alike or each for its own slice:
 
 * :class:`CopyToModel` (identity forward, all-reduce backward): the
   input of a column-parallel product (q/k/v, ``w_up``/``w_gate``, the
-  head, the experts), whose gradient each rank holds a part of, and
-  what a rank's heads or experts read of a value every rank computes
-  alike (MLA's latent and rope key, the MoE's gate values);
+  head, the experts, mamba's ``w_in``, the xLSTM's up-projections and
+  ``w_x``), whose gradient each rank holds a part of, and what a rank's
+  heads or experts read of a value every rank computes alike (MLA's
+  latent and rope key, the MoE's gate values);
 * :class:`ReduceFromModel` (all-reduce forward, identity backward): the
-  output of a row-parallel product (``wo``, ``w_down``, the MoE's
-  experts and shared expert summed in one) and the vocabulary-parallel
-  embedding and gold logit;
+  output of a row-parallel product that every rank then uses alike
+  (``wo``, ``w_down``, mamba's ``w_out``, the MoE's experts and shared
+  expert summed in one) and the vocabulary-parallel embedding and gold
+  logit;
+* :class:`SumOverModel` (all-reduce forward and backward): a
+  row-parallel product that each rank then reads for its own channels
+  only (mamba's ``proj``, ``xc @ w_x``, in each scan chunk): the
+  gradient parts are summed as the forward's parts are;
 * :class:`GatherFromModel` (all-gather forward; the backward keeps the
-  rank's own slice, without summing): the local logsumexps of the
-  vocabulary-parallel loss.
+  rank's own slice, without summing): a value every rank then uses
+  alike (the local logsumexps of the vocabulary-parallel loss, the
+  sLSTM's gate pre-activations and its ``r_h``, whose recurrence every
+  rank runs whole);
+* :class:`GatherForModel` (all-gather forward; reduce-scatter
+  backward): a value each rank then reads for its own heads only (the
+  mLSTM's ``xc`` and ``u``, which its q, k, v and gates contract over
+  all di): the gradient parts are summed.
 
 Each of their collectives is timed as ``"tensor"``.  Where M does not
 divide KV, ``wk``/``wv`` (and ``bk``/``bv``) stay whole by the sanitize
 rule: a rank takes the kv heads its query heads map to
-(:meth:`TensorParallel.kv`) and those leaves' gradients are summed over
-the model group once a step (:meth:`TensorParallel.sum_partial`, timed
-as ``"gradient"``).  The MoE routes alike on every rank of a group (its
+(:meth:`TensorParallel.kv`).  Those leaves, and the mLSTM's whole
+``lq``/``lk``/``lv``/``w_if``/``b_if`` that a rank reads for its own
+heads, get a part of their gradient on each rank, summed over the model
+group once a step (:meth:`TensorParallel.sum_partial`, timed as
+``"gradient"``).  The MoE routes alike on every rank of a group (its
 input is whole and equal there); :meth:`TensorParallel.route` keeps a
-digest of each MoE layer's routing to show it.  Mamba, mLSTM, sLSTM and
-the frontends have no form here yet (ROADMAP A16c) and are refused
-(:func:`check_model_axis`).
+digest of each MoE layer's routing to show it.  The frontends have no
+form here yet (ROADMAP A16c) and are refused (:func:`check_model_axis`).
 """
 from __future__ import annotations
 
@@ -50,16 +74,23 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.config import (ATTN, ATTN_GLOBAL, MLA, MLP, MOE,
-                                       NONE)
-from repro_torch.parallel.fsdp import axis_dims, shard_tree, side_by_side
+from repro_torch.models.config import (ATTN, ATTN_GLOBAL, MAMBA, MLA, MLP,
+                                       MLSTM, MOE, NONE, SLSTM)
+from repro_torch.models.xlstm import _mlstm_dims
+from repro_torch.parallel.fsdp import axis_dims, side_by_side
 from repro_torch.parallel.partition import map_with_path
 
 Path = Tuple[str, ...]
-MODEL_AXIS_MIXERS = (ATTN, ATTN_GLOBAL, MLA)
+MODEL_AXIS_MIXERS = (ATTN, ATTN_GLOBAL, MLA, MAMBA, MLSTM, SLSTM)
 MODEL_AXIS_FFNS = (MLP, MOE, NONE)
 # the leaves of a kv head: whole when M does not divide KV
 KV_LEAVES = ("wk", "wv", "bk", "bv")
+# the mLSTM's leaves whole over ``model`` that a rank reads for its own
+# heads only: their gradients are summed over the model group
+HEAD_READ_LEAVES = ("lq", "lk", "lv", "w_if", "b_if")
+# leaves holding several tensors side by side along their model dim: a
+# rank holds its slice of each (mamba's ``w_in``: ``xi`` and ``z``)
+PAIRED = {"w_in": 2}
 # an odd 64-bit multiplier (2**64 / golden ratio, as a signed int64):
 # position i of a routing weighs (i + 1) times it in its digest
 _GOLDEN = -7046029254386353131
@@ -67,10 +98,10 @@ _GOLDEN = -7046029254386353131
 
 def check_model_axis(cfg, model: int) -> None:
     """Raise ``ValueError`` naming ROADMAP A16c unless ``cfg`` has a
-    tensor-parallel form at ``model`` M: attention, MLA, MLP and MoE
-    blocks only, no frontend, and M dividing the heads, the MLP width,
-    the experts, the shared experts' width and the vocabulary (the kv
-    heads may stay whole)."""
+    tensor-parallel form at ``model`` M: no frontend, and M dividing the
+    heads, the vocabulary, the MLP width, the experts, the shared
+    experts' width, mamba's inner width, the mLSTM's inner width and the
+    sLSTM's d_model (the kv heads may stay whole)."""
     if model == 1:
         return
     mixers = {m for m, _ in cfg.block_pattern}
@@ -82,7 +113,8 @@ def check_model_axis(cfg, model: int) -> None:
         raise ValueError(
             f"mesh_model={model}: {cfg.name} has {what}, which have no "
             "tensor-parallel form in this port yet; the model axis covers "
-            "attention, MLA, MLP and MoE blocks, the rest is ROADMAP A16c")
+            "attention, MLA, MLP, MoE, mamba, mLSTM and sLSTM blocks, the "
+            "rest is ROADMAP A16c")
     dims = [("num_heads", cfg.num_heads), ("vocab_size", cfg.vocab_size)]
     if MLP in ffns:
         dims.append(("d_ff", cfg.d_ff))
@@ -92,6 +124,12 @@ def check_model_axis(cfg, model: int) -> None:
             dims.append(("moe_d_ff * num_shared_experts",
                          (cfg.moe_d_ff or cfg.d_ff)
                          * cfg.num_shared_experts))
+    if MAMBA in mixers:
+        dims.append(("mamba_d_inner", cfg.mamba_d_inner))
+    if MLSTM in mixers:
+        dims.append(("mLSTM inner width", _mlstm_dims(cfg)[0]))
+    if SLSTM in mixers:
+        dims.append(("d_model (the sLSTM's gate channels)", cfg.d_model))
     for name, n in dims:
         if n % model:
             raise ValueError(f"mesh_model={model} does not divide "
@@ -139,24 +177,76 @@ class ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
-class GatherFromModel(torch.autograd.Function):
-    """``GatherFromModel.apply(x, comm)``: the model group's ``x`` laid
-    side by side along the last dim forward; backward, the rank's own
-    slice of the gradient (every rank computes the same loss, so
-    nothing is summed)."""
+class SumOverModel(torch.autograd.Function):
+    """``SumOverModel.apply(x, comm)``: ``x`` summed over the model group
+    forward; backward, the gradient summed over the group too (each
+    rank reads the sum for its own channels, so each holds a part of
+    its gradient)."""
 
     @staticmethod
     def forward(ctx, x, comm):
-        ctx.k, ctx.n = comm.k, x.shape[-1]
-        x = x.contiguous()
-        flat = x.new_empty((comm.model * x.numel(),))
-        with comm.timing("tensor"):
-            comm.model_all_gather_(flat, x.view(-1))
-        return side_by_side(flat, x, comm.model, x.ndim - 1)
+        ctx.comm = comm
+        return _all_reduce(x, comm)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.narrow(-1, ctx.k * ctx.n, ctx.n).contiguous(), None
+        return _all_reduce(grad, ctx.comm), None
+
+
+def _gather(x: torch.Tensor, comm, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    flat = x.new_empty((comm.model * x.numel(),))
+    with comm.timing("tensor"):
+        comm.model_all_gather_(flat, x.view(-1))
+    return side_by_side(flat, x, comm.model, dim)
+
+
+class GatherFromModel(torch.autograd.Function):
+    """``GatherFromModel.apply(x, comm, dim=-1)``: the model group's
+    ``x`` laid side by side along ``dim`` forward; backward, the rank's
+    own slice of the gradient (every rank then computes alike, so the
+    gradient is the same on every rank and nothing is summed)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim: int = -1):
+        ctx.dim = dim % x.ndim
+        ctx.k, ctx.n = comm.k, x.shape[ctx.dim]
+        return _gather(x, comm, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.k * ctx.n, ctx.n).contiguous(),
+                None, None)
+
+
+class GatherForModel(torch.autograd.Function):
+    """``GatherForModel.apply(x, comm, dim)``: the model group's ``x``
+    laid side by side along ``dim`` forward; backward, the rank's slice
+    of the gradient summed over the group (a reduce-scatter, in float32
+    and cast back): each rank reads the whole value for its own heads,
+    so each holds a part of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim: int):
+        ctx.dim, ctx.comm = dim % x.ndim, comm
+        return _gather(x, comm, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        comm, M = ctx.comm, ctx.comm.model
+        parts = grad.unflatten(ctx.dim, (M, -1)).movedim(ctx.dim, 0)
+        staged = torch.empty(parts.shape, dtype=torch.float32,
+                             device=grad.device)
+        staged.copy_(parts)
+        out = staged.new_empty(staged.shape[1:])
+        with comm.timing("tensor"):
+            comm.model_reduce_scatter_(out.view(-1), staged.view(-1))
+        return out.to(grad.dtype), None, None
+
+
+def _pair_view(t: torch.Tensor, dim: int, pairs: int) -> torch.Tensor:
+    """``t`` with ``dim`` split into (pairs, rest)."""
+    return t.unflatten(dim, (pairs, t.shape[dim] // pairs))
 
 
 class TensorParallel:
@@ -173,6 +263,12 @@ class TensorParallel:
         self.comm = comm
         self.M, self.k = comm.model, comm.k
         self.dims = model_dims(params, self.M)
+        self.shapes: Dict[Path, Tuple[int, ...]] = {}
+        map_with_path(lambda p, t: self.shapes.__setitem__(
+            p, tuple(t.shape)), params)
+        # the sliced leaves holding tensors side by side (PAIRED)
+        self.pairs = {p: PAIRED[p[-1]] for p, d in self.dims.items()
+                      if d is not None and p[-1] in PAIRED}
         H, KV = cfg.num_heads, cfg.num_kv_heads
         self.heads = H // self.M
         self.vocab = cfg.vocab_size // self.M
@@ -200,23 +296,46 @@ class TensorParallel:
                     f"{self.k} do not map onto contiguous kv heads "
                     f"(H {H}, KV {KV}): ROADMAP A16c")
             self.kv_range = (first, n)
+        # the sLSTM's FFN is sliced only where M divides its width (in no
+        # registry config): then column- and row-parallel as the MLP
+        self.slstm_ffn = any(
+            self.dims[("groups", str(j), "mixer", "w_up")] is not None
+            for j, (m, _) in enumerate(cfg.block_pattern) if m == SLSTM)
         self.partial = {p for p, d in self.dims.items()
-                        if self.kv_whole and p[0] == "groups"
-                        and p[-1] in KV_LEAVES}
+                        if d is None and p[0] == "groups" and (
+                            (self.kv_whole and p[-1] in KV_LEAVES)
+                            or p[-1] in HEAD_READ_LEAVES)}
 
     # ------------------------------------------------------------ leaves
+
+    def take(self, path: Path, leaf: torch.Tensor) -> torch.Tensor:
+        """This rank's model slice of the whole leaf at ``path`` (a fresh
+        contiguous tensor; a whole leaf is the leaf).  A leaf under
+        ``"groups"`` may come without its stacked group dim (one group's
+        draw) or with it."""
+        d = self.dims[path]
+        if d is None:
+            return leaf
+        full = len(self.shapes[path])
+        d -= full - leaf.ndim
+        pairs = self.pairs.get(path, 1)
+        t = _pair_view(leaf, d, pairs)
+        n = t.shape[d + 1] // self.M
+        return t.narrow(d + 1, self.k * n, n).flatten(d, d + 1).clone(
+            memory_format=torch.contiguous_format)
 
     def slice(self, tree):
         """This rank's model slices of a whole tree shaped like the
         params (fresh contiguous tensors; a whole leaf is the leaf)."""
-        return shard_tree(tree, self.k, self.M, self.dims)
+        return map_with_path(self.take, tree)
 
     def gather_host(self, tree, device: torch.device, piece: int):
         """On model index 0, the whole tree of a host tree of model
         slices, in host memory (None on the other ranks): each sliced
         leaf is all-gathered over the model group through ``device`` in
         pieces along its first dim of at most ``piece`` elements a rank,
-        each piece copied to the host as it comes."""
+        each piece copied to the host as it comes.  A paired leaf's
+        slices are laid back into the reference's whole layout."""
         def one(path, t):
             d = self.dims[path]
             if d is None:
@@ -226,6 +345,7 @@ class TensorParallel:
             full[d] *= self.M
             out = torch.empty(full, dtype=t.dtype) if self.k == 0 else None
             step = max(1, piece // max(1, t[0].numel()))
+            pairs = self.pairs.get(path, 1)
             for i in range(0, n0, step):
                 part = t[i:i + step].to(device).contiguous()
                 flat = part.new_empty((self.M * part.numel(),))
@@ -238,9 +358,14 @@ class TensorParallel:
                     for k in range(self.M):
                         out[k * n0 + i:k * n0 + i + part.shape[0]] = \
                             parts[k]
-                else:
-                    out[i:i + part.shape[0]] = side_by_side(
-                        flat, part, self.M, d).cpu()
+                    continue
+                whole = side_by_side(flat, part, self.M, d)
+                if pairs > 1:
+                    # (M, pairs, n) along d, as the ranks hold it, to
+                    # (pairs, M, n), the reference's order
+                    whole = whole.unflatten(d, (self.M, pairs, -1)) \
+                        .transpose(d, d + 1).flatten(d, d + 2)
+                out[i:i + part.shape[0]] = whole.cpu()
             return out
         with torch.no_grad():
             tree = map_with_path(one, tree)
@@ -261,9 +386,10 @@ class TensorParallel:
         return leaf.narrow(dim, *self.kv_range)
 
     def sum_partial(self, grads):
-        """``grads`` with the gradients of whole kv-head leaves, which
-        each rank computes from its own query heads only, summed over
-        the model group."""
+        """``grads`` with the gradients of the whole leaves that each rank
+        reads for its own heads only (kv-head leaves where M does not
+        divide KV, the mLSTM's ``lq``/``lk``/``lv``/``w_if``/``b_if``),
+        summed over the model group."""
         if not self.partial:
             return grads
 
@@ -297,6 +423,27 @@ class TensorParallel:
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return ReduceFromModel.apply(x, self.comm)
 
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """:class:`SumOverModel`: a row-parallel product each rank then
+        reads for its own channels."""
+        return SumOverModel.apply(x, self.comm)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """:class:`GatherFromModel`: the whole of ``x`` along ``dim``,
+        which every rank then uses alike."""
+        return GatherFromModel.apply(x, self.comm, dim)
+
+    def gather_for_heads(self, x: torch.Tensor, dim: int = -1
+                         ) -> torch.Tensor:
+        """:class:`GatherForModel`: the whole of ``x`` along ``dim``,
+        which each rank then reads for its own heads."""
+        return GatherForModel.apply(x, self.comm, dim)
+
+    def my_heads(self, leaf: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's H/M heads of a leaf whole over ``model`` (the
+        mLSTM's ``lq``/``lk``/``lv``/``w_if``/``b_if``), along ``dim``."""
+        return leaf.narrow(dim, self.k * self.heads, self.heads)
+
     def embed(self, table: torch.Tensor, tokens: torch.Tensor
               ) -> torch.Tensor:
         """The vocabulary-parallel lookup: this rank's rows of the
@@ -316,8 +463,8 @@ class TensorParallel:
         gathered over the model group and combined by one more
         logsumexp; the gold logit from the rank that holds it, zeros
         from the others, summed."""
-        lse = torch.logsumexp(GatherFromModel.apply(
-            torch.logsumexp(logits, dim=-1)[..., None], self.comm), dim=-1)
+        lse = torch.logsumexp(self.gather(
+            torch.logsumexp(logits, dim=-1)[..., None]), dim=-1)
         local = labels.long() - self.v0
         held = (local >= 0) & (local < self.vocab)
         gold = torch.gather(logits, -1, local.clamp(0, self.vocab - 1)

@@ -1,6 +1,6 @@
 """Where a ``proc`` worker process's start-up goes.
 
-    python -m repro_torch.profile_spawn --workers 1 8 25
+    python -m repro_torch.profile_spawn --workers 1 8 25 [--data-cache DIR]
 
 Spawns each fleet size's children together, as ``ProcTransport`` does,
 and has each time the steps a worker process takes before its HELLO
@@ -10,6 +10,9 @@ the device, importing the port, rebuilding the workload (drawing the
 data set, initialising the params), moving its shard to the device, and
 its first gradient.  Prints, per fleet and step, the step's seconds
 (min, median, max over the children) and when the last child finished
+it.  ``--data-cache DIR`` draws the data set once in this process into
+``DIR`` (``REPRO_TORCH_DATA_CACHE``, ``data/synthetic.py``), as
+``chip_smoke.py`` does, so that the children map it in place of drawing
 it.  This module imports torch only inside functions, so a child's
 ``import torch`` is timed, not paid while unpickling its target.
 """
@@ -98,16 +101,29 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--workers", type=int, nargs="+", default=[1, 25])
     ap.add_argument("--arch", default="cnn-cifar")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--data-cache", default=None)
     args = ap.parse_args(argv)
     import os
     import torch
+    if args.data_cache:
+        from repro_torch.api.spec import ExperimentSpec
+        from repro_torch.api.trainers import SIM_WORKLOADS
+        from repro_torch.data.synthetic import CACHE_ENV
+        os.environ[CACHE_ENV] = args.data_cache
+        t0 = time.time()
+        SIM_WORKLOADS[args.arch](ExperimentSpec(
+            arch=args.arch, backend="cluster", smoke=False),
+            torch.device("cpu"))
+        print(f"data set drawn into {args.data_cache} in "
+              f"{time.time() - t0:.2f} s", flush=True)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("profile_spawn: no CUDA device; pass --device cpu",
               file=sys.stderr)
         return 1
     about = {"device": torch.cuda.get_device_name(0)
              if args.device == "cuda" else "cpu",
-             "host_cpus": os.cpu_count(), "arch": args.arch}
+             "host_cpus": os.cpu_count(), "arch": args.arch,
+             "data_cache": args.data_cache}
     print(json.dumps(about), flush=True)
     for n in args.workers:
         report = fleet(n, args.device, args.arch)

@@ -817,3 +817,55 @@ def test_cuda_moe_model_axis_across_cards(cards, tmp_path):
             np.testing.assert_allclose(a[k].astype(np.float32),
                                        b[k].astype(np.float32), err_msg=k,
                                        **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
+def test_cuda_ssm_model_axis_across_cards(cards, tmp_path, arch):
+    """jamba-v0.1-52b's smoke variant (mamba + MLP, mamba + MoE) and
+    xlstm-350m's (mLSTM, sLSTM), float32, sync, at ``--mesh-model 2`` on
+    two cards over NCCL (one model group: each card half the inner
+    channels, its experts and heads; mamba's ``proj`` all-reduced in
+    each chunk) against the same run as one rank: the losses and the
+    checkpointed final params (mamba's ``w_in`` in the whole layout)
+    within the bf16 tolerance of ``test_cuda_model_axis_across_cards``,
+    the whole leaves' digests equal on both cards."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    run = ["-m", "repro_torch", "run", "--backend", "spmd", "--arch", arch,
+           "--smoke", "--mode", "sync", "--steps", "3", "--batch", "4",
+           "--seq", "64", "--quiet"]
+    outs = {}
+    for label, pre, extra in (
+            ("tp", [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc-per-node", "2"],
+             ["--mesh-model", "2"]),
+            ("one", [sys.executable], [])):
+        out = tmp_path / f"{label}.json"
+        proc = subprocess.run(
+            pre + run + extra + ["--out", str(out), "--ckpt-dir",
+                                 str(tmp_path / label)],
+            env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        outs[label] = json.loads(out.read_text())
+    tp = outs["tp"]["extra"]
+    assert tp["mesh_model"] == 2 and tp["backend"] == "nccl"
+    assert len(set(tp["whole_digest_by_rank"])) == 1
+    tol = dict(rtol=1.6e-2, atol=1e-5)
+    np.testing.assert_allclose(
+        [h["loss"] for h in tp["history"]],
+        [h["loss"] for h in outs["one"]["extra"]["history"]], **tol)
+    with np.load(tmp_path / "tp" / "step_3.npz") as a, \
+            np.load(tmp_path / "one" / "step_3.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_allclose(a[k].astype(np.float32),
+                                       b[k].astype(np.float32), err_msg=k,
+                                       **tol)
