@@ -87,7 +87,7 @@ main paths:
   ranks sharing the card as data 2 x model 2, hybrid step:1 over 2
   steps of 2 x 512, SGD, at published widths: h2o-danube-1.8b
   (attention + MLP, 2 of its 24 block groups), deepseek-v2-lite-16b
-  (MLA + MoE, 1 of its 27) and xlstm-350m (mLSTM + sLSTM, 2 of its 6
+  (MLA + MoE, 1 of its 27) and xlstm-350m (mLSTM + sLSTM, 1 of its 6
   groups; it starts once h2o's has ended, the other two when ``[spmd]``'s
   full run has); each rank's state
   against the partition rules' shards to the byte, one ``flush`` launch
@@ -95,8 +95,16 @@ main paths:
   the leaves whole on every model rank and every MoE layer's routing
   equal across each model group, the final params assembled in rank 0's
   host memory (the cut config's shapes, finite, the whole leaves the
-  ranks' bit for bit), then ``flush`` alone at a rank's chunk
-  of each run's merge, bitwise against its plain version.  Four cards
+  ranks' bit for bit); then, in the same torchrun, a sliced prefill and
+  greedy decode of 4 prompts of 24 tokens and 8 new
+  (``repro_torch/serve_smoke.py``) from params drawn sliced on the card
+  (bf16: the launches, which count in the kernels line, and the times),
+  then the same slices drawn in float32, their prefill and their decode
+  fed rank 0's whole run's tokens, within 1e-3 of the same params served
+  whole in float32; each rank's cache bytes the dry-run's, the routing
+  equal across each model group, rmsnorm and flash launched on the
+  sliced path; then ``flush`` alone at a rank's chunk of each
+  run's merge, bitwise against its plain version.  Four cards
   are ``python -m repro_torch.multicard_smoke``'s (NCCL), not this
   script's.
 
@@ -2060,6 +2068,9 @@ FLASH_NEW = [
      "bfloat16"),
     ("bidirectional hubert", 2, 1024, 16, 16, 80, 80, False, None, None,
      "bfloat16"),
+    # a rank's heads of h2o's prefill at model 2 (the sliced serving)
+    ("h2o model 2", 1, LONG_S, 16, 4, 80, 80, True, 4096, None,
+     "bfloat16"),
 ]
 # smaller held cases: chunk no tile divides, chunk below a tile, ragged S,
 # MLA's smoke pair, f32 on the CUDA-core kernel
@@ -2076,6 +2087,8 @@ FLASH_NEW_SMALL = [
     ("MLA 80/64 f32", 2, 40, 4, 4, 80, 64, True, None, None, "float32"),
 ]
 RMS_NEW_D = (1024, 2048, 4096, 5120)
+# the rows a rank normalizes in h2o's sliced decode step at data 2
+RMS_SLICED = (2, 2560)
 
 
 def qkv_v(torch, seed, B, S, H, KV, d, dv, dtype):
@@ -2104,6 +2117,15 @@ def compare_new_kernel_shapes(torch):
                 errs["rmsnorm"] = max(errs["rmsnorm"], hold(
                     torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale),
                     *RMS_TOL[dtype], f"N={n} D={width} {dtype}"))
+    n, width = RMS_SLICED
+    scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
+    for dtype in ("float32", "bfloat16"):
+        x = torch.randn(n, width, device="cuda", generator=gen).to(
+            getattr(torch, dtype))
+        (y,) = same_twice(torch, lambda: rms.rmsnorm(x, scale))
+        errs["rmsnorm"] = max(errs["rmsnorm"], hold(
+            torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale), *RMS_TOL[dtype],
+            f"sliced decode N={n} D={width} {dtype}"))
     for seed, (label, B, S, H, KV, d, dv, causal, window, chunk, dtype) in \
             enumerate(FLASH_NEW + FLASH_NEW_SMALL):
         q, k, v = qkv_v(torch, 50 + seed, B, S, H, KV, d, dv, dtype)
@@ -2151,6 +2173,24 @@ def time_new_kernel_shapes(torch):
             log(f"[time] {name}: kernel alone {t['kernel_only_ms']:.6f} ms "
                 f"= {100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of "
                 f"bound {t['bound_ms']:.6f} ms")
+    n, width = RMS_SLICED
+    scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
+    x = torch.randn(n, width, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    name = f"rmsnorm sliced decode N={n} D={width} bfloat16"
+    case = {name: (lambda: rms.rmsnorm(x, scale),
+                   lambda: ref.rmsnorm_ref(x, scale),
+                   lambda ls=scale.to(x.dtype): F.rms_norm(
+                       x, (width,), ls, 1e-5),
+                   rms.cost(n, width, x.element_size()))}
+    out.update(time_cases(torch, timer, case))
+    out[name]["kernel_only_ms"] = kernel_only_ms(torch, case[name][0],
+                                                 "rmsnorm_kernel")
+    t = out[name]
+    log(f"[time] {name}: kernel alone {t['kernel_only_ms']:.6f} ms = "
+        f"{100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of bound "
+        f"{t['bound_ms']:.6f} ms; call {t['ms']:.6f} ms, plain "
+        f"{t['plain_ms']:.6f} ms, F.rms_norm {t['library_ms']}")
     for seed, (label, B, S, H, KV, d, dv, causal, window, chunk, dtype) in \
             enumerate(FLASH_NEW):
         q, k, v = qkv_v(torch, 70 + seed, B, S, H, KV, d, dv, dtype)
@@ -2881,10 +2921,13 @@ def drive_spmd(torch, tmp: str, full: dict):
     ``[spmd-tp]``'s runs (:func:`spmd_tp_check`) run beside them
     (started once the full run has ended, the ``TP_AFTER`` runs once the
     run each names has: see there); then ``flush`` alone at every
-    merge's shape.  Returns the flush
-    launches of the full run and of ``[spmd-tp]`` (their rank 0's, read
-    through ``RunResult.extra``) and the merges' times."""
+    merge's shape.  The card's memory in use is sampled all along
+    (``nvidia-smi``).  Returns the flush launches of the full run and of
+    ``[spmd-tp]`` (their rank 0's, read through ``RunResult.extra``),
+    ``[spmd-tp]``'s sliced serving's rmsnorm and flash launches (every
+    rank's) and the merges' times."""
     tp = {}
+    monitor = CardMonitor()
     try:
         launches = spmd_runs(torch, tmp, full, lambda: tp.update(
             (label, spmd_tp_launch(label, tmp)) for label in TP_RUNS
@@ -2892,10 +2935,20 @@ def drive_spmd(torch, tmp: str, full: dict):
         for label, after in TP_AFTER.items():
             tp_wait(tp[after])
             tp[label] = spmd_tp_launch(label, tmp)
-        tp_launches = sum(spmd_tp_check(run) for run in tp.values())
+        tp_launches = {"flush": 0, "rmsnorm": 0, "flash_attention": 0}
+        for run in tp.values():
+            flush, served = spmd_tp_check(run)
+            tp_launches["flush"] += flush
+            for name, n in served.items():
+                tp_launches[name] += n
     finally:
         for run in tp.values():
             stop(run["proc"])
+        monitor.stop()
+    peak = max(m for _, _, m in monitor.card)
+    log(f"[spmd-tp] the card's memory in use while [spmd] and [spmd-tp] "
+        f"ran: {monitor.card_before:.0f} MiB at the start, peak {peak:.0f} "
+        f"MiB ({len(monitor.card)} nvidia-smi samples)")
     times = spmd_merge_flush(torch)
     times.update(spmd_tp_merge_flush(torch))
     return launches, tp_launches, times
@@ -3097,15 +3150,23 @@ TP_MODEL = 2
 TP_BATCH, TP_SEQ, TP_LR = 2, 512, 1e-5
 TP_RUNS = {"h2o": ("h2o-danube-1.8b", 2),        # 2 of its 24 groups
            "deepseek": ("deepseek-v2-lite-16b", 1),   # 1 of its 27
-           "xlstm": ("xlstm-350m", 2)}                # 2 of its 6
+           "xlstm": ("xlstm-350m", 1)}                # 1 of its 6
 # the [spmd-tp] runs that start once another has ended, the others when
 # [spmd]'s full run has: deepseek's ran out of the card's memory beside
 # the full run and beside xlstm's at 6 groups; beside the full run,
 # xlstm's at 2 groups took the card to 72.4 of its 81.6 GB before
 # [zoo-sim]'s and [zoo-wire]'s share (PERF.md); its ranks peak at 1.65
-# GB each, h2o's, which it replaces, at 2.08
+# GB each, h2o's, which it replaces, at 2.08.  xlstm's run follows h2o's
+# on the phase's longest chain, and the sliced serving added to each run
+# lengthened it: xlstm went from 2 of its groups to 1 to make the room,
+# its width unchanged
 TP_AFTER = {"xlstm": "h2o"}
 TP_CHILD = "--spmd-tp-child"
+# after its training, each [spmd-tp] run serves sliced in the same
+# torchrun (repro_torch/serve_smoke.py): 4 prompts of 24 tokens, 8 new,
+# a cache of 32 (M 2 divides it), the params drawn sliced from seed 0 on
+# the card, against rank 0's whole run of the same params
+TP_SERVE = dict(batch=4, prompt=24, gen=8, max_seq=32)
 
 
 def tp_config(arch: str, groups: int):
@@ -3116,21 +3177,34 @@ def tp_config(arch: str, groups: int):
 
 def spmd_tp_child(out: str, arch: str, groups: int) -> int:
     """A rank of a ``[spmd-tp]`` run (started by torchrun); rank 0 writes
-    what it assembled of the final params beside ``out``."""
+    what it assembled of the final params beside ``out``, then, after
+    the sliced serving (``TP_SERVE``) in the same process group, its
+    figures."""
     from repro_torch.api.spec import ExperimentSpec
+    from repro_torch.launch.mesh import distributed, rank_device
     from repro_torch.launch.train import run_training
     from repro_torch.multicard_smoke import at_depth, final_summary
+    from repro_torch.serve_smoke import sliced_serve
     spec = ExperimentSpec(
         arch=arch, backend="spmd", mode="hybrid", schedule="step:1",
         steps=2, batch=TP_BATCH, seq=TP_SEQ, lr=TP_LR, optimizer="sgd",
         smoke=False, log_every=1, mesh_model=TP_MODEL)
     at_depth(arch, groups)
     t0 = time.time()
-    final, _, _ = run_training(spec, out_json=out, verbose=False,
-                               device="cuda")
-    if final is not None:
-        with open(out + ".final.json", "w") as f:
-            json.dump(final_summary(final, TP_MODEL, time.time() - t0), f)
+    with distributed(rank_device("cuda")):
+        final, _, _ = run_training(spec, out_json=out, verbose=False,
+                                   device="cuda")
+        if final is not None:
+            with open(out + ".final.json", "w") as f:
+                json.dump(final_summary(final, TP_MODEL, time.time() - t0),
+                          f)
+        del final
+        served = sliced_serve(tp_config(arch, groups), TP_MODEL,
+                              TP_SERVE["batch"], TP_SERVE["prompt"],
+                              TP_SERVE["gen"], TP_SERVE["max_seq"])
+    if served is not None:
+        with open(out + ".serve.json", "w") as f:
+            json.dump(served, f)
     return 0
 
 
@@ -3176,7 +3250,9 @@ def spmd_tp_check(run: dict) -> int:
     layer's routing) equal across each model group at the end, and the
     final params rank 0 assembled in its host memory of the cut
     config's shapes, finite, their whole leaves the ranks' bit for bit.
-    Returns the run's flush launches (rank 0's)."""
+    Then its sliced serving (:func:`tp_serve_check`).  Returns the run's
+    flush launches (rank 0's) and its sliced serving's rmsnorm and
+    flash launches (all ranks')."""
     from repro_torch.configs.registry import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.multicard_smoke import check_final
@@ -3262,7 +3338,25 @@ def spmd_tp_check(run: dict) -> int:
         f"{[round(b / 2**30, 2) for b in st['peak_memory_bytes']]}; "
         f"collective s by kind: " + "; ".join(
             f"{k} {[round(r[k], 2) for r in by_kind]}" for k in by_kind[0]))
-    return sum(flush_by_k.values())
+    return sum(flush_by_k.values()), tp_serve_check(run, cfg)
+
+
+def tp_serve_check(run: dict, cfg) -> dict:
+    """A ``[spmd-tp]`` run's sliced serving (``repro_torch/serve_smoke.py``,
+    ``TP_SERVE``), held by ``serve_smoke.check_served``: the float32
+    logits within ``F32_TOL`` of rank 0's float32 whole run's, each
+    rank's cache bytes the dry-run's to the byte, the MoE's routing
+    digests equal across each model group, rmsnorm and flash launched on
+    the sliced path.  Returns the sliced run's launches, summed over the
+    ranks."""
+    from repro_torch.serve_smoke import check_served, summary
+    tag = f"[spmd-tp] {run['label']} serve"
+    with open(run["out"] + ".serve.json") as f:
+        sv = json.load(f)
+    want = check_served(tag, sv, cfg, SPMD_RANKS, TP_MODEL)
+    log(f"{tag}: {summary(sv, want)}")
+    return {k: sum(r[k] for r in sv["by_rank"]["launches"])
+            for k in ("rmsnorm", "flash_attention")}
 
 
 def published_groups(arch: str) -> int:
@@ -3750,7 +3844,9 @@ def _main(torch, t_start: float) -> int:
     finally:
         stop(full.get("proc"))
         shutil.rmtree(tmp, ignore_errors=True)
-    launches["flush"] += sum(spmd_launches.values()) + tp_launches
+    launches["flush"] += sum(spmd_launches.values())
+    for name, n in tp_launches.items():
+        launches[name] += n
     log(f"[phase] spmd and spmd-tp done at {time.time() - t_start:.1f} s")
     for name in PORTED:
         check(launches[name] > 0, f"{name} was never launched")

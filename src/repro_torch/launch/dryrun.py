@@ -37,10 +37,17 @@ two layouts side by side:
   among them, from three trip counts, ``launch/cost.py``) and an MoE
   layer's
   one-hot dispatch and combine traced over the card's E/M experts.  A
-  serving step's FSDP state is the rules' shards over ``{"data": N/M,
-  "model": M}`` (params and ``cache_specs``, exact); its peak is an
-  estimate: the held state replaced by its shards plus one group's
-  layer.
+  serving step at a batch the data axis divides is traced through the
+  sliced prefill or decode (ROADMAP A16c.5): one card's model slices
+  and FSDP shards, its batch rows and its slice of the cache
+  (``parallel/tensor.py::cache_dims``), its collectives counted from
+  its calls, the split-softmax combines, the greedy token's gather and
+  the MoE's counts apart (``combine all-gather``, ``argmax all-gather``,
+  ``routing all-gather``); the cache a card holds sits beside the
+  rule's (``cache_bytes_rule``).  At a batch the data axis does not
+  divide (``long_500k`` at data > 1) the peak is an estimate, the held
+  state replaced by the rules' shards plus one group's layer, naming
+  ROADMAP A16c.5b.
 
 Collective bytes are what each card sends on a ring: ``2 (g-1)/g`` of
 the bytes for an all-reduce over g cards, ``(g-1)/g`` for an all-gather
@@ -100,6 +107,10 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor cores
               torch.float32: 67e12}      # outside the tensor cores
+# the serving collectives counted apart (``parallel/tensor.py``): the
+# split-softmax combines, the greedy token over the vocabulary shards,
+# the MoE's per-group counts over the data column (``parallel/fsdp.py``)
+SERVE_KINDS = ("combine", "argmax", "routing")
 SPMD = "spmd_whole_replica"
 FSDP = "fsdp_partition_rules"
 
@@ -157,15 +168,22 @@ class _CountingComm:
             else "tensor all-reduce"
         self.bytes[key] += 2 * _nbytes(t) * _ring(self.model)
 
+    def _add(self, key: str, n: float) -> None:
+        self.bytes[key] = self.bytes.get(key, 0.0) + n
+
     def model_all_gather_(self, out, t):
-        self.bytes["tensor all-gather"] += _nbytes(out) * _ring(self.model)
+        key = f"{self.kind} all-gather" if self.kind in SERVE_KINDS \
+            else "tensor all-gather"
+        self._add(key, _nbytes(out) * _ring(self.model))
 
     def model_reduce_scatter_(self, out, t):
         self.bytes["tensor reduce-scatter"] += _nbytes(t) \
             * _ring(self.model)
 
     def all_gather_(self, out, t, g):
-        self.bytes["all-gather"] += _nbytes(out) * _ring(g)
+        key = f"{self.kind} all-gather" if self.kind in SERVE_KINDS \
+            else "all-gather"
+        self._add(key, _nbytes(out) * _ring(g))
 
     def reduce_scatter_(self, out, t, g):
         self.bytes["reduce-scatter"] += _nbytes(t) * _ring(g)
@@ -209,28 +227,24 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
     params = meta_params(cfg)
     info = {"cfg": cfg, "per_card_batch": b, "params": params,
             "group": data // hybrid_rep, "model": model}
+    sliced = fsdp and (info["group"] > 1 or model > 1)
     if shape.kind == "train":
         if b % microbatch:
             raise ValueError(f"microbatch {microbatch} does not divide the "
                              f"per-card batch {b}")
         opt = optimizer or adamw(3e-4)
         kw = {}
-        if fsdp and (info["group"] > 1 or model > 1):
-            comm = info["comm"] = _CountingComm(model)
+        if sliced:
+            params, tp, sharding = _card_slices(cfg, params, info, model)
             reduce = []
-            if model > 1:
-                tp = TensorParallel(cfg, params, comm)
-                params = tp.slice(params)
+            if tp is not None:
                 kw["tensor"] = tp
                 if tp.partial:
                     reduce.append(tp.sum_partial)
-            if info["group"] > 1:
-                sharding = GroupShards(params, info["group"], 0, comm,
-                                       model)
-                params = sharding.shard(params)
+            if sharding is not None:
                 kw["gather"] = sharding.gather
                 if any(f == MOE for _, f in cfg.block_pattern):
-                    kw["column"] = sharding.column_mean
+                    kw["column"] = sharding
                 reduce.append(sharding.group_mean)
             kw["reduce_grads"] = chained(reduce)
         opt_state = opt.init(params)
@@ -246,20 +260,56 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
                 info["comm"].reset()
                 return counted(*args)
         return step, (params, opt_state, specs["batch"]), info
+    # serving: whole on each card, or (sliced) a card's model slices and
+    # FSDP shards, its batch rows and its slice of the cache (ROADMAP
+    # A16c.5, regime (a); a batch the data axis does not divide is
+    # refused naming A16c.5b)
+    kw, tp = {}, None
+    if sliced:
+        params, tp, sharding = _card_slices(cfg, params, info, model)
+        kw = {"tp": tp, "column": sharding,
+              "gather": None if sharding is None else sharding.gather}
+
+    def counted():
+        if sliced:
+            info["comm"].reset()
     if shape.kind == "prefill":
         def prefill(params, batch):
+            counted()
             with torch.no_grad():
-                return prefill_step(params, batch, cfg)
+                return prefill_step(params, batch, cfg, **kw)
         return prefill, (params, specs["batch"]), info
-    info["cache"] = specs["cache"]
+    info["cache"] = M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device="meta", tp=tp, data=info["group"]) \
+        if sliced else specs["cache"]
     cur_index = specs["cur_index"]
 
     def serve_step(params, cache, tokens):
+        counted()
         with torch.no_grad():
             logits, cache = M.decode_step(params, cache, tokens, cur_index,
-                                          cfg)
-            return torch.argmax(logits, dim=-1).to(torch.int32), cache
-    return serve_step, (params, specs["cache"], specs["tokens"]), info
+                                          cfg, max_seq=shape.seq_len, **kw)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32) \
+                if tp is None else tp.argmax(logits)
+            return tok, cache
+    return serve_step, (params, info["cache"], specs["tokens"]), info
+
+
+def _card_slices(cfg, params, info, model: int):
+    """A card's state of the whole ``params`` at ``info``'s data column
+    of ``info["group"]`` positions x ``model``: ``(params, tp,
+    sharding)``, its model slices (``tp``, a ``TensorParallel``, None at
+    M 1) and their FSDP shards (``sharding``, a ``GroupShards``, None at
+    one position).  ``info["comm"]`` counts their collectives."""
+    comm = info["comm"] = _CountingComm(model)
+    tp = sharding = None
+    if model > 1:
+        tp = TensorParallel(cfg, params, comm)
+        params = tp.slice(params)
+    if info["group"] > 1:
+        sharding = GroupShards(params, info["group"], 0, comm, model)
+        params = sharding.shard(params)
+    return params, tp, sharding
 
 
 def _ring(g: int) -> float:
@@ -269,9 +319,10 @@ def _ring(g: int) -> float:
 def _layouts(shape, info, report: C.Report, traced=None
              ) -> Dict[str, Any]:
     """Per-card state, peak and collectives in both layouts.  ``traced``
-    is ``(report, info)`` of the FSDP layout's own train step
+    is ``(report, info)`` of the FSDP layout's own train or serving step
     (:func:`build_step` with ``fsdp``), whose peak and collectives are
-    then the traced ones."""
+    then the traced ones; a traced serving step's cache bytes are what
+    the card holds, beside the rule's (``cache_bytes_rule``)."""
     g = info["group"]
     params = info["params"]
     mesh = {"data": g, "model": info["model"]}
@@ -297,8 +348,10 @@ def _layouts(shape, info, report: C.Report, traced=None
         # global batch's cache, sharded by the rules
         full = M.init_cache(info["cfg"], shape.global_batch, shape.seq_len,
                             device="meta")
-        sharded["cache"] = shard_bytes(
+        sharded["cache"] = rule_cache = shard_bytes(
             cache_shardings(full, shape.global_batch, mesh), full)
+        if traced is not None:
+            sharded["cache"] = C.tree_bytes(traced[1]["cache"])
     spmd_coll = {"all-reduce": 2 * 4 * _num_params(params) * _ring(g)
                  if shape.kind == "train" else 0.0}
     spmd_peak = report.peak_bytes
@@ -337,17 +390,35 @@ def _layouts(shape, info, report: C.Report, traced=None
             "collective_bytes_per_device": {"total": sum(coll.values()),
                                             **coll}}
     out[FSDP]["mesh"] = mesh
-    if traced is not None:
+    if "cache" in info:
+        out[FSDP]["cache_bytes_rule"] = rule_cache
+    if traced is not None and shape.kind == "train":
         out[FSDP]["peak_traced"] = (
             "the FSDP train step traced on one card's shards: each part "
             "gathered where it is used, the backward's reduce-scatters, "
             "the tensor collectives of the model axis, the update on the "
             "shards; collectives counted from its calls")
+    elif traced is not None:
+        out[FSDP]["peak_traced"] = (
+            f"the sliced {shape.kind} step traced on one card's model "
+            "slices and FSDP shards (each part gathered where it is used), "
+            "its batch rows and its slice of the cache; collectives "
+            "counted from its calls (ROADMAP A16c.5)")
     else:
         out[FSDP]["peak_is_estimate"] = (
             "the traced peak with the held state replaced by its shards "
-            "plus one group's layer gathered whole")
+            "plus one group's layer gathered whole" + (
+                "; a batch the data axis does not divide is served "
+                "sliced in ROADMAP A16c.5b"
+                if shape.kind != "train" and _regime_b(shape, g) else ""))
     return out
+
+
+def _regime_b(shape, data: int) -> bool:
+    """Whether a serving shape's batch is one the data axis does not
+    divide (long_500k's B 1 at data > 1): the partition rule's regime
+    (b), ROADMAP A16c.5b."""
+    return shape.global_batch % data != 0
 
 
 def _numel(shape) -> int:
@@ -460,8 +531,9 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             report, info = analyze_step(cfg, shape_name, cards,
                                         microbatch, accum_dtype, hybrid_rep,
                                         model=model)
-        if traced is None and shape.kind == "train" and (
-                info["group"] > 1 or model > 1):
+        if traced is None and (info["group"] > 1 or model > 1) and (
+                shape.kind == "train"
+                or not _regime_b(shape, cards // model)):
             traced = analyze_step(cfg, shape_name, cards, microbatch,
                                   accum_dtype, hybrid_rep, fsdp=True,
                                   model=model)

@@ -3,6 +3,16 @@ decode with a ring-buffer-aware KV cache, plus ``prefill_step``, the
 counterpart of the reference's serving prefill
 (``launch/dryrun.py:150-154``).
 
+Both also run sliced over a mesh of data positions x model ranks (ROADMAP
+A16c.5; the reference lowers them on its mesh in
+``src/repro/launch/dryrun.py:150-185``): with ``tp`` a rank holds its
+model slices (``parallel/tensor.py``), with ``gather`` their FSDP
+shards over its data column (``parallel/fsdp.py``), and ``column`` (the
+column's ``GroupShards``) says which batch rows it serves and groups the
+MoE's tokens over the column.  The reference's serving shards the batch
+over the data axis when it divides it (``tok_spec``); a batch it does
+not divide is regime (b), ROADMAP A16c.5b, and refused here.
+
 Example:
   python -m repro_torch serve --arch h2o-danube-1.8b --smoke \\
       --batch 4 --prompt-len 32 --gen-len 16 --device cpu
@@ -22,35 +32,66 @@ from repro_torch.convert import resolve_device
 from repro_torch.models import model as M
 
 
+def data_rows(batch: int, column=None) -> slice:
+    """The batch rows a data position serves: its B/g contiguous rows of
+    the column's ``batch`` (all of them without ``column``).  A batch
+    the g positions do not divide is refused naming ROADMAP A16c.5b."""
+    g, d = (1, 0) if column is None else (column.g, column.rank)
+    if batch % g:
+        raise ValueError(
+            f"a batch of {batch} over {g} data positions: the sliced "
+            "serving forward takes a batch the data axis divides; the "
+            "sequence over data and channels over data x model is ROADMAP "
+            "A16c.5b")
+    n = batch // g
+    return slice(d * n, (d + 1) * n)
+
+
 def greedy_generate(cfg, params, prompts: np.ndarray, gen_len: int,
-                    max_seq: int = 0) -> np.ndarray:
+                    max_seq: int = 0, gather=None, tp=None,
+                    column=None) -> np.ndarray:
     """prompts: (B, P) int32.  Returns (B, P+gen_len) int32 tokens.
 
     As the reference does it: the prompt is replayed through
     ``decode_step`` one token at a time (cache-exact), then each new
     token is the argmax of the last logits.  Tokens stay on the device
-    until the end."""
+    until the end.  Sliced (``gather``, ``tp``, ``column``; see above) a
+    rank serves its data position's rows (:func:`data_rows`) from its
+    slice of the cache, and returns those rows' tokens, each the argmax
+    over the vocabulary shards (``TensorParallel.argmax``)."""
     B, P = prompts.shape
+    rows = data_rows(B, column)
     max_seq = max_seq or (P + gen_len)
     dev = params["embed"].device
-    cache = M.init_cache(cfg, B, max_seq, device=dev)
-    toks = torch.as_tensor(np.ascontiguousarray(prompts), device=dev)
+    g = 1 if column is None else column.g
+    cache = M.init_cache(cfg, B, max_seq, device=dev, tp=tp, data=g)
+    toks = torch.as_tensor(np.ascontiguousarray(prompts[rows]), device=dev)
+    argmax = (lambda t: torch.argmax(t, dim=-1).to(torch.int32)) \
+        if tp is None else tp.argmax
+
+    def step(tokens, i):
+        return M.decode_step(params, cache, tokens, i, cfg, gather=gather,
+                             tp=tp, column=column, max_seq=max_seq)[0]
     last = None
     for i in range(P):
-        last, cache = M.decode_step(params, cache, toks[:, i:i + 1], i, cfg)
+        last = step(toks[:, i:i + 1], i)
     out = [toks]
-    cur = torch.argmax(last, dim=-1).to(torch.int32)
+    cur = argmax(last)
     for j in range(gen_len):
         out.append(cur)
-        logits, cache = M.decode_step(params, cache, cur, P + j, cfg)
-        cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        cur = argmax(step(cur, P + j))
     return torch.cat(out, dim=1).cpu().numpy()
 
 
-def prefill_step(params, batch, cfg) -> torch.Tensor:
-    """The full-sequence forward's last-position logits (B, vocab)."""
-    logits, _ = M.forward(params, batch, cfg)
-    return logits[:, -1]
+def prefill_step(params, batch, cfg, gather=None, tp=None, column=None
+                 ) -> torch.Tensor:
+    """The full-sequence forward's last-position logits (B, vocab).
+    Sliced (see above), ``batch`` is a rank's rows and the logits are
+    gathered whole over the vocabulary shards."""
+    logits, _ = M.forward(params, batch, cfg, gather=gather, tp=tp,
+                          column=column)
+    last = logits[:, -1]
+    return last if tp is None else tp.gather(last, -1)
 
 
 def add_args(ap: argparse.ArgumentParser) -> None:

@@ -82,7 +82,7 @@ def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
                     accum_dtype: torch.dtype = torch.float32,
                     reduce_grads: Optional[Callable] = None,
                     gather: Optional[Callable] = None, tensor=None,
-                    column: Optional[Callable] = None):
+                    column=None):
     """``(params, opt_state, batch) -> (params, opt_state, loss,
     metrics)``: ``metrics`` is ``loss_fn``'s (``ce`` and the MoE's
     ``aux``), averaged over the micro-batches as the loss is.
@@ -100,8 +100,8 @@ def make_train_step(cfg: ModelConfig, opt, microbatch: int = 1,
     model slices): the forward and backward then run their collectives
     over the model group, and ``reduce_grads`` sums the gradients of
     whole leaves over the data column only.  ``column``
-    (``GroupShards.column_mean``) takes the MoE's aux loss over the
-    replica group's batch."""
+    (a ``GroupShards``) groups the MoE's tokens and takes its aux loss
+    over the replica group's batch."""
     grad_fn = gradient.grad_and_value(
         lambda p, b: M.loss_fn(p, b, cfg, gather=gather, tp=tensor,
                                column=column),

@@ -469,7 +469,7 @@ def _run(spec, ckpt_dir, out_json, verbose, dev, params, backend,
                 tp.sum_partial if tp is not None and tp.partial else None,
                 sharding.group_mean if sharding else None]),
             gather=sharding.gather if sharding else None, tensor=tp,
-            column=sharding.column_mean if sharding and moe else None)
+            column=sharding if sharding and moe else None)
         step_peak = 0
 
         while step < t_end:

@@ -24,7 +24,15 @@ With a tensor-parallel context ``tp`` (``parallel/tensor.py``; the
 training forward at ``mesh_model`` M > 1) a rank projects its H/M query
 heads and the kv heads they map to from its slices of ``wq``/``wk``/
 ``wv`` (and ``bq``/``bk``/``bv``), attends over them, and ``wo`` is
-row-parallel: its partial output is summed over the model group.
+row-parallel: its partial output is summed over the model group.  The
+decode takes ``tp`` too (the sliced serving forward, ROADMAP A16c.5):
+where M divides KV a rank holds its kv heads of the cache and attends
+locally; else the cache's sequence is split over the model group
+(``seq``, the partition rule's: ``models/model.py::sequence_split``): a
+rank writes the new key and value only into a slot it holds, scores
+every head's query (gathered over the group) over its slots, and the
+group combines the partial softmaxes (``tp.softmax``); where M divides
+neither, the cache is whole on every rank.
 """
 from __future__ import annotations
 
@@ -141,23 +149,29 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 
 
 def attention_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
-                     rope: RopeTable, global_layer: bool = False):
+                     rope: RopeTable, global_layer: bool = False, tp=None,
+                     seq: bool = False):
     """One-token decode.  x: (B, 1, D); ``cur_index``: tokens so far (a
     Python int); ``rope``: the table at position ``cur_index``.  Returns
     (y, cache).  The new key and value are written
     into ``cache`` in place (the reference returns a new cache), and the
-    same dict is returned."""
+    same dict is returned.  ``tp``: a rank's heads and its slice of the
+    cache, a slice of its sequence where ``seq`` (see above)."""
     B = x.shape[0]
+    # a rank's wq holds its query heads; wk/wv its kv heads, or every kv
+    # head where M does not divide KV, which the cache then holds too
     q, k, v = _project_qkv(params, x, cfg, rope)
 
     ck, cv = cache["k"], cache["v"]
-    L = ck.shape[1]
+    L = ck.shape[1] * (tp.M if seq else 1)
     slot = cur_index % L                  # ring for SWA/chunked; linear else
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    first = tp.k * ck.shape[1] if seq else 0
+    if first <= slot < first + ck.shape[1]:
+        ck[:, slot - first] = k[:, 0].to(ck.dtype)
+        cv[:, slot - first] = v[:, 0].to(cv.dtype)
 
     # positions held in each cache slot (ring-aware)
-    slots = torch.arange(L, device=x.device)
+    slots = torch.arange(first, first + ck.shape[1], device=x.device)
     slot_pos = cur_index - torch.remainder(cur_index - slots, L)
     valid = (slot_pos >= 0) & (slot_pos <= cur_index)
     if not global_layer and cfg.sliding_window is not None:
@@ -166,15 +180,27 @@ def attention_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
         valid &= torch.div(slot_pos, cfg.attn_chunk, rounding_mode="floor") \
             == cur_index // cfg.attn_chunk
 
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    H = cfg.num_heads
-    g = H // KV
-    qg = q.reshape(B, 1, KV, g, hd)
+    hd = cfg.resolved_head_dim
+    heads = q.shape[2]
+    if seq:
+        q = tp.gather(q, 2)               # every head's query
+    elif tp is not None and tp.kv_whole:
+        # the kv heads this rank's query heads map to
+        ck, cv = ck.narrow(2, *tp.kv_range), cv.narrow(2, *tp.kv_range)
+    KV, H = ck.shape[2], q.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
                           ck.float()) * (hd ** -0.5)
     scores = torch.where(valid, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
-    out = out.reshape(B, 1, H, hd).to(x.dtype)
+    if seq:
+        # the softmax over the group's slots; then this rank's heads
+        out = tp.softmax(scores, lambda e: torch.einsum(
+            "bkgqs,bskd->bkgqd", e, cv.float()))
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd) \
+            .narrow(2, tp.k * heads, heads)
+    else:
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
+    out = out.reshape(B, 1, heads, hd).to(x.dtype)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, cache
+    return (y, cache) if tp is None else (tp.reduce(y), cache)

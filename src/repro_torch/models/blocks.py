@@ -7,7 +7,8 @@
 (:func:`rope_tables`): attention rotates ``head_dim``-wide heads, MLA
 its ``rope_head_dim``-wide part.  ``tp`` is the tensor-parallel context
 of the training forward at ``mesh_model`` M > 1 (``parallel/tensor.py``):
-every mixer and FFN takes it.
+every mixer and FFN takes it, in the full-sequence forward and in the
+one-token decode.
 """
 from __future__ import annotations
 
@@ -127,23 +128,27 @@ def init_layer_cache(mixer: str, cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def layer_decode(p, x, cache, cur_index: int, mixer: str, ffn: str,
-                 cfg: ModelConfig, ropes: Dict[int, RopeTable]):
+                 cfg: ModelConfig, ropes: Dict[int, RopeTable], tp=None,
+                 column=None, seq: bool = False):
     """One-token layer step; ``ropes`` at ``cur_index``.  Returns
-    (x, cache); the cache is updated in place."""
+    (x, cache); the cache is updated in place.  ``tp``: a rank's slices
+    of the layer and of its cache, which holds a slice of its sequence
+    where ``seq`` (``models/model.py::sequence_split``); ``column``:
+    ``moe_forward``'s."""
     h = apply_norm(cfg.norm, p["mixer_norm"], x, cfg.norm_eps)
     if mixer in (ATTN, ATTN_GLOBAL):
         h, cache = attn_mod.attention_decode(
             p["mixer"], h, cache, cur_index, cfg,
             ropes[cfg.resolved_head_dim],
-            global_layer=(mixer == ATTN_GLOBAL))
+            global_layer=(mixer == ATTN_GLOBAL), tp=tp, seq=seq)
     elif mixer == MLA:
         h, cache = mla_mod.mla_decode(p["mixer"], h, cache, cur_index, cfg,
-                                      ropes[cfg.rope_head_dim])
+                                      ropes[cfg.rope_head_dim], tp, seq)
     elif mixer == MAMBA:
-        h, cache = mamba_mod.mamba_decode(p["mixer"], h, cache, cfg)
+        h, cache = mamba_mod.mamba_decode(p["mixer"], h, cache, cfg, tp)
     elif mixer == MLSTM:
-        h, cache = xlstm_mod.mlstm_decode(p["mixer"], h, cache, cfg)
+        h, cache = xlstm_mod.mlstm_decode(p["mixer"], h, cache, cfg, tp)
     else:
-        h, cache = xlstm_mod.slstm_decode(p["mixer"], h, cache, cfg)
-    x, _ = _ffn(p, x + h, ffn, cfg)
+        h, cache = xlstm_mod.slstm_decode(p["mixer"], h, cache, cfg, tp)
+    x, _ = _ffn(p, x + h, ffn, cfg, tp=tp, column=column)
     return x, cache

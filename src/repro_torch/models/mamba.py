@@ -20,7 +20,9 @@ each chunk (in float32, rounded once to the activations' dtype, the
 dtype the reference's einsum gives) before the rank reads it for its
 own channels (``tp.sum``: its gradient is summed too).  Under remat the
 chunk's all-reduce runs again in its recompute, in the same order on
-every rank.  ``w_out`` is row-parallel (``tp.reduce``).
+every rank.  ``w_out`` is row-parallel (``tp.reduce``).  The decode
+takes ``tp`` the same way: a rank holds its channels of the ``conv``
+and ``h`` caches.
 """
 from __future__ import annotations
 
@@ -135,18 +137,19 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
-def mamba_decode(params, x, cache, cfg: ModelConfig):
+def mamba_decode(params, x, cache, cfg: ModelConfig, tp=None):
     """One-token recurrence.  x (B, 1, D).  The cache is updated in
-    place and returned."""
+    place and returned.  ``tp``: a rank's inner channels."""
     xi, z = torch.chunk(x @ params["w_in"], 2, dim=-1)
     xc, conv = causal_conv(xi, params["conv_w"], params["conv_b"],
                            cfg.mamba_d_conv, cache["conv"])
     xc = F.silu(xc)
-    a, bx, Cm = _ssm_inputs(params, xc, cfg)
+    a, bx, Cm = _ssm_inputs(params, xc, cfg, tp)
     h = a[:, 0] * cache["h"] + bx[:, 0]
     y = torch.einsum("bds,bs->bd", h, Cm[:, 0])[:, None]
     y = y + params["D"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     cache["conv"].copy_(conv)
     cache["h"].copy_(h)
-    return y @ params["w_out"], cache
+    y = y @ params["w_out"]
+    return (y, cache) if tp is None else (tp.reduce(y), cache)

@@ -22,8 +22,17 @@ latent and the rope key alike; its heads read them through
 ``tp.copy``, so their gradients, partial on each rank, are summed there
 and ``w_dkv``/``w_kr`` get the same full gradient on every rank.  The
 queries' input goes through ``tp.copy`` too; ``wo`` is row-parallel and
-its output is summed over the model group.  The decode path has no
-``tp``.
+its output is summed over the model group.  The decode takes ``tp``
+too (the sliced serving forward, ROADMAP A16c.5): where M divides the
+cache's length the partition rule splits the latent cache's sequence
+over the model group (``seq``: ``models/model.py::sequence_split``), so
+a rank writes the new latent and rope key only into a slot it holds,
+gathers every head's absorbed query over the group (``w_uk`` is split
+over heads), scores its slots for all heads, the group combines the
+partial softmaxes in latent space (``tp.softmax``), and a rank
+up-projects its own heads with its ``w_uv`` before the row-parallel
+``wo``; else the cache is whole on every rank and a rank attends with
+its own heads.
 """
 from __future__ import annotations
 
@@ -102,27 +111,42 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 
 
 def mla_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
-               rope: RopeTable):
+               rope: RopeTable, tp=None, seq: bool = False):
     """One-token decode from the latent cache, absorbed: the score is
     ``q_nope . (c W_uk) + q_rope . k_rope`` and the output is taken in
     latent space, then up-projected by ``W_uv``.  The cache is written in
-    place and returned."""
+    place and returned.  ``tp``: a rank's heads and its slice of the
+    cache, a slice of its sequence where ``seq`` (see above)."""
     hd, rh = cfg.resolved_head_dim, cfg.rope_head_dim
     q = _queries(params, x, cfg, rope)                # (B,1,H,hd+rh)
     c_new, kr_new = _latent(params, x, rope)
     c, kr = cache["c_kv"], cache["k_rope"]
-    c[:, cur_index] = c_new[:, 0].to(c.dtype)
-    kr[:, cur_index] = kr_new[:, 0].to(kr.dtype)
+    first = tp.k * c.shape[1] if seq else 0
+    if first <= cur_index < first + c.shape[1]:
+        c[:, cur_index - first] = c_new[:, 0].to(c.dtype)
+        kr[:, cur_index - first] = kr_new[:, 0].to(kr.dtype)
 
+    heads = q.shape[2]
     q_nope, q_rope = q[..., :hd].float(), q[..., hd:].float()
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"].float())
+    if seq:
+        # every head's absorbed query, then the rope part
+        q_lat, q_rope = tp.gather(torch.cat([q_lat, q_rope], -1), 2) \
+            .split([q_lat.shape[-1], rh], dim=-1)
     s_lat = torch.einsum("bshr,btr->bhst", q_lat, c.float())
     s_rope = torch.einsum("bshk,btk->bhst", q_rope, kr.float())
     scores = (s_lat + s_rope) * ((hd + rh) ** -0.5)
-    valid = torch.arange(c.shape[1], device=x.device) <= cur_index
+    valid = torch.arange(first, first + c.shape[1],
+                         device=x.device) <= cur_index
     scores = torch.where(valid, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", w, c.float())
+    if seq:
+        o_lat = tp.softmax(scores, lambda e: torch.einsum(
+            "bhst,btr->bhsr", e, c.float()))
+        o_lat = o_lat.transpose(1, 2).narrow(2, tp.k * heads, heads)
+    else:
+        w = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", w, c.float())
     out = torch.einsum("bshr,rhk->bshk", o_lat,
                        params["w_uv"].float()).to(x.dtype)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return (y, cache) if tp is None else (tp.reduce(y), cache)

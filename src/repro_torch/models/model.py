@@ -34,10 +34,15 @@ MLP columns, experts or inner channels, the head gives a rank's V/M
 logits, and :func:`loss_fn` takes a vocabulary-parallel cross-entropy
 from them.
 The MoE's aux loss is the same on every rank of a model group and is
-added once, as the cross-entropy is.
+added once, as the cross-entropy is.  The serving forward runs there too
+(ROADMAP A16c.5): the prefill is the forward through the kernels on a
+rank's slices, and :func:`decode_step` takes a rank's slices, its FSDP
+shards and its slice of the cache (:func:`init_cache` with ``tp`` and
+``data``, ``parallel/tensor.py::cache_dims``) and gives its V/M logits.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -50,6 +55,8 @@ from repro_torch.models.blocks import (init_layer, init_layer_cache,
                                        rope_tables)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.norms import apply_norm, init_norm
+from repro_torch.parallel.partition import map_with_path
+from repro_torch.parallel.tensor import cache_dims, slice_shape
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -231,8 +238,9 @@ def forward(params, batch: Dict[str, Any], cfg: ModelConfig,
 
     ``tp`` (``parallel/tensor.py``): ``params`` are a rank's model slices
     (under ``gather``, their FSDP shards), and the logits are the rank's
-    V/M vocabulary columns.  ``column`` (``GroupShards.column_mean``):
-    the MoE's aux loss is taken over the replica group's batch."""
+    V/M vocabulary columns.  ``column`` (a ``GroupShards``): the
+    MoE groups its tokens and takes its aux loss over the data column's
+    batch (``models/moe.py``)."""
     take = gather or _whole
     inputs = {k: take((k,), params[k]) for k in _INPUTS[cfg.frontend]}
     x, positions = embed_inputs(inputs, batch, cfg, tp)
@@ -290,30 +298,88 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
 
 # ---------------------------------------------------------------- decode
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Per-pattern-entry caches (KV, latent, SSM or xLSTM state), each
-    leaf stacked on a leading ``num_groups`` axis (the reference's
-    tree)."""
-    dtype = _dtype(cfg)
+def _whole_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
     return tuple(
         _map(lambda v: torch.stack([v] * cfg.num_groups),
-             init_layer_cache(mixer, cfg, batch, max_seq, dtype,
+             init_layer_cache(mixer, cfg, batch, max_seq, _dtype(cfg),
                               device=device))
         for mixer, _ in cfg.block_pattern)
 
 
-def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+               tp=None, data: int = 1):
+    """Per-pattern-entry caches (KV, latent, SSM or xLSTM state), each
+    leaf stacked on a leading ``num_groups`` axis (the reference's
+    tree).  With ``tp`` (a ``TensorParallel``) or ``data`` g > 1 data
+    positions, the slice of the whole cache of ``batch`` rows that a
+    rank holds, made at its own size (every rank's has the same shape
+    and initial values; ``parallel/tensor.py::cache_dims``)."""
+    g, M_ = data, 1 if tp is None else tp.M
+    if M_ == 1 and g == 1:
+        return _whole_cache(cfg, batch, max_seq, device)
+    with _OnMeta():
+        shapes = _whole_cache(cfg, batch, max_seq, None)
+    dims = cache_dims(shapes, batch, g, M_)
+    # each leaf's initial value (zeros; -30 for the stabilizers ``m``)
+    fills = {}
+    map_with_path(lambda p, t: fills.__setitem__(p, t.reshape(-1)[0]),
+                  _whole_cache(cfg, 1, 1, "cpu"))
+
+    def one(path, t):
+        return torch.full(slice_shape(t.shape, dims[path], g, M_),
+                          fills[path].item(), dtype=t.dtype, device=device)
+    return map_with_path(one, shapes)
+
+
+@functools.lru_cache(maxsize=None)
+def sequence_split(cfg: ModelConfig, max_seq: int, model: int
+                   ) -> Tuple[bool, ...]:
+    """Whether each pattern entry's cache of length ``max_seq`` holds a
+    slice of its sequence over ``model`` ranks, as the partition rule
+    cuts it (``parallel/tensor.py::cache_dims``): attention's where M
+    does not divide its kv heads, MLA's, each where M divides its
+    length."""
+    with _OnMeta():
+        shapes = _whole_cache(cfg, 1, max_seq, None)
+    dims = cache_dims(shapes, 1, 1, model)
+    return tuple(any(dims[(str(j), k)][1] == 2 for k in ("k", "c_kv")
+                     if (str(j), k) in dims)
+                 for j in range(len(cfg.block_pattern)))
+
+
+def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig,
+                gather=None, tp=None, column=None, max_seq: int = 0):
     """One-token decode.  tokens: (B, 1) int; ``cur_index``: tokens
     already in the cache (a Python int).  Returns (logits, cache); the
-    cache is updated in place and returned."""
-    x = params["embed"][tokens].to(_dtype(cfg))
+    cache is updated in place and returned.  ``gather``, ``tp`` and
+    ``column`` are :func:`forward`'s: ``params`` a rank's model slices
+    (under ``gather``, their FSDP shards, each block group's layer
+    gathered in its turn), ``cache`` its slice (:func:`init_cache` at
+    ``max_seq``, which says how it is cut: :func:`sequence_split`), the
+    logits its V/M vocabulary columns."""
+    split = (False,) * len(cfg.block_pattern)
+    if tp is not None and tp.M > 1:
+        if max_seq < 1:
+            raise ValueError("a sliced decode_step needs max_seq, the "
+                             "length its cache was made at")
+        split = sequence_split(cfg, max_seq, tp.M)
+    take = gather or _whole
+    embed = take(("embed",), params["embed"])
+    x = (embed[tokens] if tp is None else tp.embed(embed, tokens)
+         ).to(_dtype(cfg))
+    del embed
     positions = torch.full(tuple(tokens.shape), cur_index, dtype=torch.int32,
                            device=x.device)
     ropes = rope_tables(positions, cfg)
     for g in range(cfg.num_groups):
+        group = take(("groups",), tuple(_index(p, g)
+                                        for p in params["groups"]))
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
-            x, _ = layer_decode(_index(params["groups"][j], g), x,
-                                _index(cache[j], g), cur_index, mixer, ffn,
-                                cfg, ropes)
-    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    return x @ _head(params, cfg), cache
+            x, _ = layer_decode(group[j], x, _index(cache[j], g), cur_index,
+                                mixer, ffn, cfg, ropes, tp, column, split[j])
+        del group
+    x = apply_norm(cfg.norm, take(("final_norm",), params["final_norm"]),
+                   x, cfg.norm_eps)
+    if tp is not None:
+        x = tp.copy(x)
+    return x @ _head(params, cfg, take), cache

@@ -4,7 +4,9 @@
 Tokens are cut into groups of ``cfg.moe_group_size`` (one group when the
 token count is not a multiple, as in decode); each group routes its
 tokens top-k into per-expert buffers of ``C`` slots and drops what does
-not fit.  Shared experts (DeepSeek, llama4) run densely on every token.
+not fit.  With the batch split over a data column the groups are the
+column's (ROADMAP C.52): a group may span data positions, and a
+position's queue in it continues from the positions before.  Shared experts (DeepSeek, llama4) run densely on every token.
 Returns the Switch load-balance auxiliary loss beside the output.
 
 Top-k: ``jax.lax.top_k`` orders equal probabilities by lower expert
@@ -83,17 +85,39 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _place(t: torch.Tensor, lead: int, G: int, sg: int) -> torch.Tensor:
+    """``t`` (1, T, ...), a rank's tokens, laid into G groups of sg from
+    ``lead`` on, zeros around them: (G, sg, ...)."""
+    t = t.reshape((-1,) + tuple(t.shape[2:]))
+    out = t.new_zeros((G * sg,) + tuple(t.shape[1:]))
+    out[lead:lead + t.shape[0]] = t
+    return out.view((G, sg) + tuple(t.shape[1:]))
+
+
 def moe_forward(params, x, cfg: ModelConfig, tp=None, column=None):
     """x (B, S, D) -> (y, aux).  ``tp``: a rank's experts (see above).
-    ``column`` (``GroupShards.column_mean``; x is a rank's rows of a
-    replica group's batch): the aux loss' means are taken over the
-    group's batch, as the reference takes them over a replica's."""
+    ``column`` (a ``GroupShards``; x is a rank's rows of its data
+    column's batch): the groups and the capacity come from the column's
+    tokens, as the reference groups a replica's whole batch, and the
+    aux loss' means are taken over the column's batch.  A rank's tokens
+    take their places in the column's groups (batch-major, the
+    positions' rows one after another in rank order); where they do not
+    fill whole groups, each expert's queue in a group continues from
+    the counts of the positions before (``column.counts_before``, one
+    all-gather), so keep and gate values are the reference's token for
+    token.  Rows that fill whole groups route as without ``column``."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
-    sg = _group_size(cfg, T)
-    G = T // sg
-    xg = x.reshape(G, sg, D)
+    sg = _group_size(cfg, T * (1 if column is None else column.g))
+    # a rank whose tokens do not fill whole groups routes them as they
+    # are, then lays them into the G groups of the column's that hold
+    # them, from ``lead`` tokens into group ``g0``
+    spans = T % sg != 0
+    start = 0 if column is None else column.rank * T
+    g0, lead = divmod(start, sg)
+    G = (start + T - 1) // sg - g0 + 1 if spans else T // sg
+    xg = x.reshape(1, T, D) if spans else x.reshape(G, sg, D)
 
     logits = torch.einsum("gsd,de->gse", xg.float(), params["router"])
     probs = torch.softmax(logits, dim=-1)                       # (G,sg,E)
@@ -105,24 +129,42 @@ def moe_forward(params, x, cfg: ModelConfig, tp=None, column=None):
     onehot = F.one_hot(gate_idx, E).float()                     # (G,sg,k,E)
     ce = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
     if column is not None:
-        me, ce = column(torch.cat([me, ce])).split(E)
+        me, ce = column.column_mean(torch.cat([me, ce])).split(E)
     aux = E * torch.sum(me * ce)
 
+    if spans:
+        if tp is not None:
+            # the gate values' gradient, summed over the model group for
+            # this rank's tokens only
+            gate_vals = tp.copy(gate_vals)
+        gate_vals, gate_idx, onehot = (_place(t, lead, G, sg)
+                                       for t in (gate_vals, gate_idx, onehot))
     # capacity-limited positions within each group's expert queue
     C = _capacity(sg, cfg)
     flat = onehot.reshape(G, sg * k, E)
     pos = torch.cumsum(flat, dim=1) - flat
+    if spans:
+        # the queue of each (group, expert) before this rank's tokens
+        counts = flat.new_zeros((T * column.g // sg, E))
+        counts[g0:g0 + G] = torch.sum(flat, dim=1)
+        pos = pos + column.counts_before(counts)[g0:g0 + G, None, :]
     pos_in_e = torch.sum(pos * flat, dim=-1).reshape(G, sg, k)
     keep = pos_in_e < C
+    if spans:
+        held = torch.zeros(G * sg, dtype=torch.bool, device=x.device)
+        held[lead:lead + T] = True
+        keep = keep & held.view(G, sg, 1)
     gate_vals = gate_vals * keep.float()
     if tp is not None:
         tp.route(gate_idx, keep)
         # a rank's experts: their columns of the one-hots, their input
         # and gate values through the model group's backward sum
-        gate_vals = tp.copy(gate_vals)
+        if not spans:
+            gate_vals = tp.copy(gate_vals)
         onehot = onehot[..., tp.e0:tp.e0 + tp.experts]
         x = tp.copy(x)
-        xg = x.reshape(G, sg, D)
+    xg = _place(x.reshape(1, T, D), lead, G, sg) if spans \
+        else x.reshape(G, sg, D)
     slot = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, C))
     pos_oh = F.one_hot(slot.long(), C + 1).float()[..., :C]    # (G,sg,k,C)
     dispatch = torch.einsum("gske,gskc->gsec", onehot * keep[..., None],
@@ -134,7 +176,10 @@ def moe_forward(params, x, cfg: ModelConfig, tp=None, column=None):
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, ep["w_gate"])) \
         * torch.einsum("gecd,edf->gecf", xe, ep["w_up"])
     ye = torch.einsum("gecf,efd->gecd", h, ep["w_down"])
-    y = torch.einsum("gsec,gecd->gsd", combine, ye.float()).reshape(B, S, D)
+    y = torch.einsum("gsec,gecd->gsd", combine, ye.float())
+    if spans:
+        y = y.reshape(G * sg, D)[lead:lead + T]
+    y = y.reshape(B, S, D)
     if tp is None:
         y = y.to(x.dtype)
         if "shared" in params:

@@ -33,6 +33,14 @@ Under the ``model`` axis (``tp``, ``parallel/tensor.py``):
   backward keeps the rank's slice), and the FFN, whose width M divides
   in no registry config (1365 for xlstm-350m), stays whole; where M
   divides it, it is column- and row-parallel as the MLP.
+
+The decodes take ``tp`` the same way (the sliced serving forward,
+ROADMAP A16c.5).  The mLSTM's cache holds a rank's heads of ``C``,
+``n`` and ``m`` and its channels of ``conv``.  The sLSTM's holds a
+rank's d/M channels of ``c``, ``n``, ``m`` and ``h``, the partition
+rule's split (ROADMAP C.53): each step gathers them with the gate
+pre-activations in one all-gather, runs the recurrence whole, and keeps
+its channels.
 """
 from __future__ import annotations
 
@@ -207,12 +215,14 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
-def mlstm_decode(params, x, cache, cfg: ModelConfig):
+def mlstm_decode(params, x, cache, cfg: ModelConfig, tp=None):
     """x (B, 1, D) -> (y, cache): one recurrent step; the cache is
-    updated in place and returned."""
+    updated in place and returned.  ``tp``: a rank's heads."""
     di, H, dh = _mlstm_dims(cfg)
+    if tp is not None:
+        di = di // tp.M
     q, k, v, li, lf, z, conv = _mlstm_qkv_gates(params, x, cfg,
-                                                cache["conv"])
+                                                cache["conv"], tp)
     q = q[:, 0].float() * dh ** -0.5
     k = k[:, 0].float()
     v = v[:, 0].float()
@@ -232,7 +242,7 @@ def mlstm_decode(params, x, cache, cfg: ModelConfig):
     out = (h * F.silu(z)) @ params["w_down"]
     for name, val in (("conv", conv), ("C", C), ("n", nst), ("m", m_new)):
         cache[name].copy_(val)
-    return out, cache
+    return (out, cache) if tp is None else (tp.reduce(out), cache)
 
 
 # ================================================================= sLSTM
@@ -324,13 +334,25 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype,
             "h": zeros()}
 
 
-def slstm_decode(params, x, cache, cfg: ModelConfig):
+def slstm_decode(params, x, cache, cfg: ModelConfig, tp=None):
+    """x (B, 1, D) -> (y, cache): one recurrent step; the cache is
+    updated in place and returned.  ``tp``: a rank's gate channels, its
+    d/M of the states (see above)."""
     B, _, D = x.shape
     H = cfg.num_heads
+    names = ("c", "n", "m", "h")
     xg = torch.einsum("bsd,dge->bsge", x.float(), params["w_x"])[:, 0] \
         + params["b"]
-    new = _slstm_step(params, xg, (cache["c"], cache["n"], cache["m"],
-                                   cache["h"]), H, D // H)
-    for name, val in zip(("c", "n", "m", "h"), new):
+    state = tuple(cache[name] for name in names)
+    p = params
+    if tp is not None:
+        # the gate pre-activations and the states, whole, in one gather
+        whole = tp.gather(torch.cat([xg, torch.stack(state, 1)], 1), -1)
+        xg, state = whole[:, :4], tuple(whole[:, 4:].unbind(1))
+        p = {"r_h": tp.gather(params["r_h"], 0)}
+    new = _slstm_step(p, xg, state, H, D // H)
+    for name, val in zip(names, new):
+        if tp is not None:
+            val = val.narrow(-1, tp.k * (D // tp.M), D // tp.M)
         cache[name].copy_(val)
-    return _slstm_out(params, new[3], x.dtype)[:, None], cache
+    return _slstm_out(params, new[3], x.dtype, tp)[:, None], cache

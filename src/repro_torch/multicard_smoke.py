@@ -76,7 +76,22 @@ rank per card on NCCL unless a phase says otherwise:
   published width and depth, hybrid step:1 at data 2 x model 2 (g 1 ->
   2, R 2 -> 1), twice: merges at K 2 and K 1 with one ``flush`` launch
   on every rank each, divergence > 0 exactly while R > 1, the whole
-  leaves equal across each model group, final params bitwise equal.
+  leaves equal across each model group, final params bitwise equal;
+* ``[serve-tp]``: the serving forward over the model axis (ROADMAP
+  A16c.5, ``serve_smoke.py``).  jamba-v0.1-52b at ``SSM_GROUPS`` of its
+  4 groups (the only card path through mamba's sliced decode) and
+  deepseek-v2-lite-16b at full depth, each at data 2 x model 2 and at
+  data 1 x model 4, full width, bf16, the params drawn sliced from one
+  seed on each card: 8 prompts of 32 tokens, 16 new, a cache of 48.
+  bf16 for the launches and times; then the same slices drawn in
+  float32, whose prefill's last-position logits and decode's logits fed
+  rank 0's whole run's tokens are within 1e-3 of the same params served
+  whole in float32 (``serve_smoke.F32_TOL``), each
+  card's cache bytes the dry-run's to the byte, the routing digests
+  equal across each model group, rmsnorm and flash launched on every
+  card; decode ms a step and collective seconds by kind.  All four runs
+  end before any is checked, so a failed check still leaves every
+  run's figures.
 """
 from __future__ import annotations
 
@@ -131,6 +146,12 @@ XLSTM_TP_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
                 "--schedule", "step:1", "--steps", "2", "--batch", "4",
                 "--seq", "512", "--lr", "1e-5", "--optimizer", "sgd",
                 "--log-every", "1", "--mesh-model", "2"]
+# [serve-tp]: the batch, prompt, new tokens and cache length (M 2 and 4
+# divide 48)
+SERVE_TP = dict(batch=8, prompt=32, gen=16, max_seq=48)
+SERVE_RUNS = ((JAMBA, SSM_GROUPS), (DS, 27))       # deepseek: all 27
+SERVE_MODELS = (2, 4)
+SERVE_CHILD = "--serve-child"
 H2O_TP_RUN = ["--arch", "h2o-danube-1.8b", "--no-smoke", "--mode", "hybrid",
               "--schedule", "step:2", "--steps", "4", "--batch", "2",
               "--seq", "1024", "--lr", "1e-5", "--optimizer", "sgd",
@@ -995,6 +1016,57 @@ def phase_tensor_ssm(tmp: str) -> dict:
 
 # ---------------------------------------------------------------- [hybrid]
 
+def serve_child(out: str, arch: str, groups: int, model: int) -> int:
+    """A rank of a ``[serve-tp]`` run (started by torchrun): ``arch`` at
+    ``groups`` of its block groups served sliced at ``model``; rank 0
+    writes the figures to ``out``."""
+    from repro_torch.launch.mesh import distributed, rank_device
+    from repro_torch.serve_smoke import sliced_serve
+    cfg = _at_groups(arch, groups)
+    with distributed(rank_device("cuda")):
+        served = sliced_serve(cfg, model, SERVE_TP["batch"],
+                              SERVE_TP["prompt"], SERVE_TP["gen"],
+                              SERVE_TP["max_seq"])
+    if served is not None:
+        with open(out, "w") as f:
+            json.dump(served, f)
+    return 0
+
+
+def phase_serve_tp(tmp: str) -> dict:
+    from repro_torch.serve_smoke import check_served, summary
+    runs = {}
+    for arch, groups in SERVE_RUNS:
+        for mm in SERVE_MODELS:
+            out = os.path.join(tmp, f"serve-{arch}-{mm}.json")
+            t0 = time.time()
+            _torchrun(["-m", "repro_torch.multicard_smoke", SERVE_CHILD, out,
+                       arch, str(groups), str(mm)], _env())
+            with open(out) as f:
+                runs[(arch, mm)] = json.load(f)
+            runs[(arch, mm)]["outer_s"] = time.time() - t0
+    # every run's figures before any check
+    fails = []
+    for (arch, mm), sv in runs.items():
+        groups = dict(SERVE_RUNS)[arch]
+        tag = f"[serve-tp] {arch} M {mm}"
+        try:
+            want = check_served(tag, sv, _at_groups(arch, groups), CARDS, mm)
+        except AssertionError as e:
+            fails.append(str(e))
+            want = sv["by_rank"]["cache_bytes"][0]
+        log(f"{tag}: {groups} of {_full_groups(arch)} groups, full width, "
+            f"bf16, NCCL: {summary(sv, want)}; {sv['outer_s']:.1f} s with "
+            "torchrun")
+    check(not fails, "; ".join(fails))
+    return {f"{arch} M{mm}": sv for (arch, mm), sv in runs.items()}
+
+
+def _full_groups(arch: str) -> int:
+    from repro_torch.configs.registry import get_config
+    return get_config(arch).num_groups
+
+
 def phase_hybrid(tmp: str) -> dict:
     t0 = time.time()
     res = spmd_run(H2O_RUN, os.path.join(tmp, "h2o.json"))
@@ -1149,7 +1221,7 @@ def main(argv=None) -> int:
                     help="write every phase's figures here as JSON")
     ap.add_argument("--phases",
                     default="nccl,fsdp,hybrid,staging,tensor,tensor-moe,"
-                            "tensor-moe-hybrid,tensor-ssm",
+                            "tensor-moe-hybrid,tensor-ssm,serve-tp",
                     help="a comma-separated subset, in order; tensor "
                          "needs fsdp before it")
     ap.add_argument(FSDP_CHILD, default=None, help=argparse.SUPPRESS)
@@ -1157,7 +1229,12 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument(MOE_CHILD, nargs=4, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument(SERVE_CHILD, nargs=4, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.serve_child:
+        out, arch, groups, mm = args.serve_child
+        return serve_child(out, arch, int(groups), int(mm))
     if args.fsdp_child:
         return fsdp_child(args.fsdp_child)
     if args.tensor_child:
@@ -1199,6 +1276,8 @@ def main(argv=None) -> int:
                 figures[name] = phase_tensor_moe_hybrid(tmp)
             elif name == "tensor-ssm":
                 figures[name] = phase_tensor_ssm(tmp)
+            elif name == "serve-tp":
+                figures[name] = phase_serve_tp(tmp)
             else:
                 figures[name] = {"nccl": phase_nccl, "fsdp": phase_fsdp,
                                  "hybrid": phase_hybrid}[name](tmp)

@@ -28,7 +28,12 @@ The MoE's load-balance loss is a product of two means over the
 replica's batch (``src/repro/models/moe.py:83-87``, "global means"):
 :meth:`GroupShards.column_mean` averages the per-rank means over the
 data column (:class:`ColumnMean`), so every rank of the group computes
-the reference's aux loss from its own rows.
+the reference's aux loss from its own rows.  The reference also groups
+the replica's whole batch for the MoE's dispatch
+(``src/repro/models/moe.py:60``): where a rank's rows do not fill whole
+groups, a group spans data positions, and an expert's queue in it
+continues from the positions before: :meth:`GroupShards.counts_before`
+gives a rank those positions' counts with one all-gather.
 """
 from __future__ import annotations
 
@@ -200,6 +205,21 @@ class GroupShards:
         """``x``, a per-rank mean over its rows, as the mean over the
         data column's rows (autograd runs through :class:`ColumnMean`)."""
         return ColumnMean.apply(x, self.g, self.comm)
+
+    def counts_before(self, counts: torch.Tensor) -> torch.Tensor:
+        """The sum of ``counts`` (float32, the same shape on every rank)
+        over the data column's positions before this one: one
+        all-gather (timed as ``"routing"``), then the exclusive prefix,
+        added in position order."""
+        counts = counts.to(torch.float32).contiguous()
+        flat = counts.new_empty((self.g * counts.numel(),))
+        with self.comm.timing("routing"):
+            self.comm.all_gather_(flat, counts.view(-1), self.g)
+        parts = flat.view((self.g,) + tuple(counts.shape))
+        out = torch.zeros_like(counts)
+        for d in range(self.rank):
+            out = out + parts[d]
+        return out
 
     def group_mean(self, grads):
         """The gradient averaged over the data column: a sharded leaf's

@@ -13,7 +13,7 @@ meta tensor, a numpy array).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from repro_torch.parallel.sharding import (Mesh, MeshAxes, logical_spec,
                                            rules_for)
@@ -273,6 +273,14 @@ def _cache_spec(batch_size: int, mesh: Mesh):
 def cache_specs(cache, batch_size: int, mesh: Mesh) -> Any:
     """Each decode-cache leaf's mesh-axes spec."""
     return map_with_path(_cache_spec(batch_size, mesh), cache)
+
+
+def cache_leaf_specs(cache, batch_size: int, mesh: Mesh) -> Dict:
+    """Each decode-cache leaf's mesh-axes spec, by its ``map_with_path``
+    path."""
+    spec, out = _cache_spec(batch_size, mesh), {}
+    map_with_path(lambda p, leaf: out.__setitem__(p, spec(p, leaf)), cache)
+    return out
 
 
 def cache_shardings(cache, batch_size: int, mesh: Mesh) -> Any:

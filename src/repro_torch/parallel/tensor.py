@@ -67,6 +67,19 @@ group once a step (:meth:`TensorParallel.sum_partial`, timed as
 input is whole and equal there); :meth:`TensorParallel.route` keeps a
 digest of each MoE layer's routing to show it.  The frontends have no
 form here yet (ROADMAP A16c) and are refused (:func:`check_model_axis`).
+
+The serving forward (ROADMAP A16c.5, regime (a): a batch the data axis
+divides) runs on the same slices.  A rank holds its slice of the
+decode cache (:func:`cache_dims`, after ``parallel/partition.py``'s
+``cache_specs``): its B/g batch rows, and over ``model`` the rule's dim
+(an attention cache's kv heads where M divides them, else its
+sequence; MLA's latent sequence; a state's trailing dim), except where
+the port's compute splits another dim of equal bytes (mamba's ``h`` on
+its channels, the mLSTM's ``C`` and ``n`` on their heads: ROADMAP
+C.53).  Where the cache's sequence is split, a rank scores every
+head's query over its slots and the group combines the partial
+softmaxes (:meth:`TensorParallel.softmax`).  The greedy token is the
+argmax over the vocabulary shards (:meth:`TensorParallel.argmax`).
 """
 from __future__ import annotations
 
@@ -74,11 +87,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models import activations as act
 from repro_torch.models.config import (ATTN, ATTN_GLOBAL, MAMBA, MLA, MLP,
                                        MLSTM, MOE, NONE, SLSTM)
 from repro_torch.models.xlstm import _mlstm_dims
 from repro_torch.parallel.fsdp import axis_dims, side_by_side
-from repro_torch.parallel.partition import map_with_path
+from repro_torch.parallel.partition import cache_leaf_specs, map_with_path
 
 Path = Tuple[str, ...]
 MODEL_AXIS_MIXERS = (ATTN, ATTN_GLOBAL, MLA, MAMBA, MLSTM, SLSTM)
@@ -91,6 +105,11 @@ HEAD_READ_LEAVES = ("lq", "lk", "lv", "w_if", "b_if")
 # leaves holding several tensors side by side along their model dim: a
 # rank holds its slice of each (mamba's ``w_in``: ``xi`` and ``z``)
 PAIRED = {"w_in": 2}
+# decode-cache leaves the port splits over ``model`` on another dim than
+# the partition rule's, with the same bytes (ROADMAP C.53), by (name,
+# ndim): mamba's ``h`` (G, B, di, ds) on its channels, the mLSTM's ``C``
+# (G, B, H, dh, dh) and ``n`` (G, B, H, dh) on their heads
+CACHE_DIM = {("h", 4): 2, ("C", 5): 2, ("n", 4): 2}
 # an odd 64-bit multiplier (2**64 / golden ratio, as a signed int64):
 # position i of a routing weighs (i + 1) times it in its digest
 _GOLDEN = -7046029254386353131
@@ -134,6 +153,80 @@ def check_model_axis(cfg, model: int) -> None:
         if n % model:
             raise ValueError(f"mesh_model={model} does not divide "
                              f"{cfg.name}'s {name} ({n}): ROADMAP A16c")
+
+
+def cache_dims(cache, batch: int, data: int, model: int
+               ) -> Dict[Path, Tuple[Optional[int], Optional[int]]]:
+    """Each leaf of a whole decode cache (``models/model.py::init_cache``
+    at the global ``batch``) as ``(data dim, model dim)``: the dims a
+    rank of ``data`` positions x ``model`` ranks holds a contiguous
+    slice of (None: whole along that axis), after the partition rule's
+    regime (a), with :data:`CACHE_DIM`'s deviations.  A batch the data
+    axis does not divide is regime (b), refused naming ROADMAP
+    A16c.5b."""
+    if batch % data:
+        raise ValueError(
+            f"a batch of {batch} over {data} data positions: the sliced "
+            "serving forward takes a batch the data axis divides; the "
+            "sequence over data and channels over data x model is ROADMAP "
+            "A16c.5b")
+    specs = cache_leaf_specs(cache, batch, {"data": data, "model": model})
+    dims = {}
+    for path, spec in specs.items():
+        leaf_key = (path[-1], len(spec))
+        mdim = next((d for d, axes in enumerate(spec) if axes == "model"),
+                    None) if model > 1 else None
+        if model > 1 and leaf_key in CACHE_DIM:
+            mdim = CACHE_DIM[leaf_key]
+        dims[path] = (1 if data > 1 else None, mdim)
+    return dims
+
+
+def slice_shape(shape, dims, data: int, model: int) -> Tuple[int, ...]:
+    """What a rank holds of a cache leaf of ``shape`` cut as ``dims``
+    (its :func:`cache_dims` entry) over ``data`` x ``model`` ranks."""
+    out = list(shape)
+    for d, n in zip(dims, (data, model)):
+        if d is not None:
+            out[d] //= n
+    return tuple(out)
+
+
+def slice_cache(cache, dims, position: int, k: int, data: int,
+                model: int):
+    """The slice of a whole decode cache that data position
+    ``position``, model index ``k`` holds (fresh contiguous tensors)."""
+    def one(path, t):
+        for d, i, n in zip(dims[path], (position, k), (data, model)):
+            if d is not None:
+                w = t.shape[d] // n
+                t = t.narrow(d, i * w, w)
+        return t.clone(memory_format=torch.contiguous_format)
+    return map_with_path(one, cache)
+
+
+def unslice_cache(parts, dims, data: int, model: int):
+    """The whole decode cache of the W = data x model ranks' slices
+    ``parts`` (rank ``position * model + k``'s at index r): the inverse
+    of :func:`slice_cache`."""
+    def one(path, *ts):
+        ddim, mdim = dims[path]
+        rows = []
+        for p in range(data):
+            mine = ts[p * model:(p + 1) * model]
+            rows.append(torch.cat(mine, dim=mdim) if mdim is not None
+                        else mine[0])
+        return torch.cat(rows, dim=ddim) if ddim is not None else rows[0]
+    leaves = [dict(_flat(p)) for p in parts]
+    return map_with_path(lambda path, _: one(path, *(l[path]
+                                                     for l in leaves)),
+                         parts[0])
+
+
+def _flat(tree):
+    out = []
+    map_with_path(lambda p, t: out.append((p, t)), tree)
+    return out
 
 
 def model_dims(params, model: int) -> Dict[Path, Optional[int]]:
@@ -414,6 +507,51 @@ class TensorParallel:
         d = torch.sum((v + 1) * w)
         self.routing = d if self.routing is None \
             else self.routing * _GOLDEN + d
+
+    # ------------------------------------------------------------ serving
+
+    def softmax(self, scores: torch.Tensor, weigh) -> torch.Tensor:
+        """The softmax over the model group's keys, each rank holding
+        ``scores`` (..., L/M) float32 for its own: ``weigh(e)`` is a
+        rank's sum of its values weighted by ``e`` (..., dv).  Each rank
+        gives its largest score m, ``sum(exp(score - m))`` and
+        ``weigh(exp(score - m))``; one all-gather, and every rank adds
+        the parts in model-index order, so each gets the same float32
+        result (ROADMAP C.53)."""
+        top = torch.amax(scores, dim=-1, keepdim=True)
+        e = act.exp(scores - top)
+        mine = torch.cat([top, torch.sum(e, dim=-1, keepdim=True),
+                          weigh(e)], dim=-1)
+        flat = mine.new_empty((self.M * mine.numel(),))
+        with self.comm.timing("combine"):
+            self.comm.model_all_gather_(flat, mine.reshape(-1))
+        parts = flat.view((self.M,) + tuple(mine.shape))
+        top = torch.amax(parts[..., :1], dim=0)
+        s_all = o_all = None
+        for k in range(self.M):
+            w = act.exp(parts[k, ..., :1] - top)
+            s_k, o_k = w * parts[k, ..., 1:2], w * parts[k, ..., 2:]
+            s_all = s_k if s_all is None else s_all + s_k
+            o_all = o_k if o_all is None else o_all + o_k
+        return o_all / s_all
+
+    def argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token (int32, ``logits``' shape without its last
+        dim) from this rank's V/M vocabulary columns: each rank's largest
+        logit and its index, gathered over the model group; the largest
+        wins, a tie going to the lower index, as ``torch.argmax`` takes
+        the first."""
+        val, idx = torch.max(logits, dim=-1)
+        mine = torch.stack([val.double(), (idx + self.v0).double()], -1)
+        flat = mine.new_empty((self.M * mine.numel(),))
+        with self.comm.timing("argmax"):
+            self.comm.model_all_gather_(flat, mine.reshape(-1))
+        parts = flat.view((self.M,) + tuple(mine.shape))
+        best = parts[0]
+        for k in range(1, self.M):
+            best = torch.where((parts[k, ..., :1] > best[..., :1]),
+                               parts[k], best)
+        return best[..., 1].to(torch.int32)
 
     # ------------------------------------------------------- activations
 

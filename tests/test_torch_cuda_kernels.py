@@ -869,3 +869,61 @@ def test_cuda_ssm_model_axis_across_cards(cards, tmp_path, arch):
             np.testing.assert_allclose(a[k].astype(np.float32),
                                        b[k].astype(np.float32), err_msg=k,
                                        **tol)
+
+
+_SERVE_SCRIPT = """
+import dataclasses, json, sys
+from repro_torch.configs.registry import get_config, smoke_variant
+from repro_torch.launch.mesh import distributed, rank_device
+from repro_torch.serve_smoke import sliced_serve
+arch, out = sys.argv[1], sys.argv[2]
+cfg = smoke_variant(get_config(arch))
+with distributed(rank_device("cuda")):
+    served = sliced_serve(cfg, 2, 4, 24, 8, 32)
+if served is not None:
+    with open(out, "w") as f:
+        json.dump(served, f)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "deepseek-v2-lite-16b",
+                                  "jamba-v0.1-52b", "xlstm-350m"])
+def test_cuda_sliced_serving_across_cards(cards, tmp_path, arch):
+    """The sliced serving forward (``repro_torch/serve_smoke.py``) of each
+    family's smoke variant, float32, at model 2 on two cards over NCCL
+    (one model group): the prefill's last-position logits and the
+    decode's logits fed the whole run's tokens within 1e-4 of the same
+    params served whole on the first card, the greedy tokens equal, each
+    card's cache bytes the dry-run's, the routing equal on both cards,
+    rmsnorm launched on both (and flash where the model attends)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.configs.registry import get_config, smoke_variant
+    from repro_torch.models.config import ATTN, ATTN_GLOBAL, MLA
+    from repro_torch.serve_smoke import expected_cache_bytes
+    cfg = smoke_variant(get_config(arch))
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    script = tmp_path / "serve.py"
+    script.write_text(_SERVE_SCRIPT)
+    out = tmp_path / "served.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(script), arch, str(out)],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    sv = json.loads(out.read_text())
+    assert sv["max_abs_prefill"] <= 1e-4 and sv["max_abs_decode"] <= 1e-4
+    assert sv["first_divergence"] is None
+    by = sv["by_rank"]
+    want = expected_cache_bytes(cfg, 4, 32, 2, 2)
+    assert by["cache_bytes"] == [want, want]
+    assert by["routing"][0] == by["routing"][1]
+    attends = any(m in (ATTN, ATTN_GLOBAL, MLA) for m, _ in cfg.block_pattern)
+    assert all(r["rmsnorm"] > 0 and (r["flash_attention"] > 0) == attends
+               for r in by["launches"])

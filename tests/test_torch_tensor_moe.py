@@ -3,7 +3,10 @@
 deepseek-v2-lite-16b and llama4-scout-17b-a16e smoke on four gloo ranks
 against the reference's ``run_training`` on four forced host devices at
 the same ``mesh_model``, and the dry-run's tensor collectives for MLA
-and the MoE.  The harness is ``test_torch_tensor.py``'s."""
+and the MoE.  The MoE's groups over a data column (ROADMAP C.52): rows
+that do not fill whole groups against the reference, and rows that do
+routed as before.  The harness is ``test_torch_tensor.py``'s."""
+import dataclasses
 import sys
 import textwrap
 
@@ -20,6 +23,109 @@ from test_torch_tensor import (ATOL, BF16_TOL, RTOL, _REF_SCRIPT,
                                _leaves, _npz, _shape_list, _start)
 
 torch.set_num_threads(2)
+
+
+class _Column:
+    """A data column of ``g`` positions seen from position ``rank`` in one
+    process: the aux loss' means pass through, the counts each call
+    gives are kept, and the positions' before are ``before`` (zeros when
+    None)."""
+
+    def __init__(self, g, rank, before=None):
+        self.g, self.rank, self.before = g, rank, before
+        self.asked = []
+
+    def column_mean(self, x):
+        return x
+
+    def counts_before(self, counts):
+        self.asked.append(counts.clone())
+        return torch.zeros_like(counts) if self.before is None \
+            else self.before
+
+
+def _moe_layer(fields):
+    from repro_torch.convert import tree_map
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(smoke_variant(get_config(
+        "deepseek-v2-lite-16b")), **fields)
+    p = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    ffn = [g["ffn"] for g in p["groups"] if "router" in g.get("ffn", {})][0]
+    return cfg, tree_map(lambda t: t[0], ffn)
+
+
+@pytest.mark.parametrize("B,S,g,group,cf", [
+    (4, 4, 2, 512, 1.25),     # one group spans both positions
+    (6, 8, 3, 12, 1.25),      # positions hold several groups, end mid-group
+    (6, 8, 3, 12, 0.3),       # the same with the capacity binding
+    (16, 1, 2, 512, 0.5),     # a decode step: 16 rows, 32 choices, 16 slots
+])
+def test_moe_groups_span_the_data_column(B, S, g, group, cf):
+    """ROADMAP C.52: each data position's rows of a column's batch, routed
+    with the counts of the positions before (``counts_before``), give the
+    output the whole batch gives in one process, as the reference groups
+    a replica's whole batch: a group that spans positions, a position
+    that holds several groups or ends mid-group, and queues that
+    overflow across positions."""
+    from repro_torch.models.moe import moe_forward
+    cfg, ffn = _moe_layer({"moe_group_size": group,
+                           "moe_capacity_factor": cf})
+    x = torch.randn((B, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want, _ = moe_forward(ffn, x, cfg)
+    rows = B // g
+    counts = []
+    for d in range(g):
+        col = _Column(g, d)
+        moe_forward(ffn, x[d * rows:(d + 1) * rows], cfg, column=col)
+        counts.append(col.asked[0])
+    got = []
+    for d in range(g):
+        before = sum(counts[:d], torch.zeros_like(counts[0]))
+        got.append(moe_forward(ffn, x[d * rows:(d + 1) * rows], cfg,
+                               column=_Column(g, d, before))[0])
+    np.testing.assert_allclose(torch.cat(got).numpy(), want.numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_moe_rows_filling_whole_groups_are_unchanged():
+    """ROADMAP C.52: a position whose rows fill whole groups (512 tokens,
+    every registry training shape) routes alone, as before the column's
+    grouping: no counts are asked for, and its output and aux loss are
+    bitwise those of the same rows without a column."""
+    from repro_torch.models.moe import moe_forward
+    cfg, ffn = _moe_layer({})
+    x = torch.randn((4, 128, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    col = _Column(2, 1)
+    got, got_aux = moe_forward(ffn, x, cfg, column=col)
+    want, want_aux = moe_forward(ffn, x, cfg)
+    assert not col.asked
+    assert torch.equal(got, want) and torch.equal(got_aux, want_aux)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v2-lite-16b"])
+def test_moe_hybrid_mesh_model_2_rows_of_16_match_reference(tmp_path, arch):
+    """ROADMAP C.52 on four gloo ranks: jamba and deepseek smoke, float32,
+    hybrid step:2 at ``mesh_model=2``, 8 rows of 16 a step, so in the g
+    2 phase each data position holds 64 of its column's 128 tokens, one
+    MoE group that spans both positions (jamba was 9.7e-05 off at step 3
+    with each position grouping its own rows): losses, aux values,
+    divergence and final params within rtol 1e-5 / atol 1e-6 of the
+    reference's ``run_training``, the routing equal across each model
+    group."""
+    st, hp, hr, got, want = _against_reference(
+        tmp_path, arch, "hybrid", 2, seq=16)
+    assert [(p["g"], p["fsdp"]) for p in st["layout"]] == \
+        [(1, False), (2, True)]
+    assert _groups_equal(st["routing_digest_by_rank"], 2)
+    for key in ("loss", "aux", "divergence"):
+        np.testing.assert_allclose([h[key] for h in hp],
+                                   [h[key] for h in hr], rtol=RTOL,
+                                   atol=ATOL, err_msg=key)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
 
 
 def _groups_equal(values, M):

@@ -1,0 +1,372 @@
+"""The serving forward over the ``model`` axis (ROADMAP A16c.5,
+``launch/serve.py``, ``models/model.py::decode_step``,
+``parallel/tensor.py``): the sliced prefill and greedy decode on four
+gloo ranks, at data 2 x model 2 and at data 1 x model 4, against the
+reference's ``forward`` and ``decode_step`` on the same params.
+
+One torchrun a model width runs every case; the reference's runs, and
+the port's own on the whole params, are taken in this process
+meanwhile.  Each case holds, in float32: the last-position prefill
+logits, gathered whole over the vocabulary; every decode step's logits
+of the sliced decode fed the run's tokens; the greedy tokens (equal);
+and each rank's cache slice gathered whole after the run.  They are
+held within rtol 1e-5 / atol 2e-5 of the reference, and within twice
+the whole-params port's own distance to it (plus 1e-6): the
+whole-params port is up to 1.05e-05 from the reference on xlstm smoke's
+decode logits (|logit| up to 4.5), so atol 1e-6 is out of its reach, and
+the slicing must not add to that gap.  The cases: h2o smoke (a ring
+over its window of 16, with a 24-token prompt), h2o smoke with 2 kv
+heads (at model 4 the cache's sequence is split over the model group),
+deepseek smoke (MLA + the MoE at 16 rows and a capacity factor of 0.5,
+so every decode step drops tokens and a data position's queues continue
+the one's before), jamba smoke (mamba + MLP, mamba + MoE) and xlstm
+smoke (mLSTM, sLSTM).  The harness is ``test_torch_tensor.py``'s."""
+import dataclasses
+import json
+import textwrap
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import save_checkpoint as ref_save_checkpoint
+from repro.configs.registry import get_config as ref_get_config
+from repro.configs.registry import smoke_variant as ref_smoke_variant
+from repro.models import model as RM
+from repro_torch.checkpoint.ckpt import restore_checkpoint
+from repro_torch.configs.registry import get_config, smoke_variant
+from repro_torch.launch.serve import data_rows, prefill_step
+from repro_torch.models import model as M
+from repro_torch.parallel.partition import cache_shardings
+from repro_torch.parallel.tensor import (cache_dims, slice_cache,
+                                         unslice_cache)
+from test_torch_tensor import RTOL, _env, _finish, _start, _torchrun
+
+torch.set_num_threads(2)
+# the whole-params port's own distance to the reference, with room
+SERVE_ATOL = 2e-5
+PROMPT, GEN, MAX_SEQ = 24, 8, 32
+# name -> (arch, config fields, batch)
+CASES = {
+    "h2o": ("h2o-danube-1.8b", {}, 8),
+    "h2o_kv2": ("h2o-danube-1.8b", {"num_kv_heads": 2}, 8),
+    "deepseek": ("deepseek-v2-lite-16b", {"moe_capacity_factor": 0.5}, 16),
+    "jamba": ("jamba-v0.1-52b", {}, 8),
+    "xlstm": ("xlstm-350m", {}, 8),
+}
+
+_CHILD = """
+    import dataclasses, json, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.configs.registry import get_config, smoke_variant
+    from repro_torch.launch.mesh import Collectives
+    from repro_torch.launch.serve import (data_rows, greedy_generate,
+                                          prefill_step)
+    from repro_torch.models import model as M
+    from repro_torch.parallel.fsdp import GroupShards
+    from repro_torch.parallel.tensor import (TensorParallel, cache_dims,
+                                             unslice_cache)
+    torch.set_num_threads(1)
+    out_dir, model = sys.argv[1], int(sys.argv[2])
+    cases = json.loads(sys.argv[3])
+    prompt, gen, max_seq = (int(a) for a in sys.argv[4:7])
+    dist.init_process_group("gloo")
+    W, rank = dist.get_world_size(), dist.get_rank()
+    for name, (arch, fields, B) in cases.items():
+        cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
+        like = M.init_params(torch.Generator().manual_seed(0), cfg)
+        params, _ = restore_checkpoint(f"{out_dir}/{name}_init", like)
+        comm = Collectives(torch.device("cpu"), model=model)
+        g, d = W // model, comm.position
+        tp = TensorParallel(cfg, params, comm)
+        mine = tp.slice(params)
+        gather = column = None
+        if g > 1:
+            column = GroupShards(mine, g, d, comm, model)
+            mine, gather = column.shard(mine), column.gather
+        prompts = np.load(f"{out_dir}/{name}_prompts.npy")
+        rows = data_rows(B, column)
+        with torch.no_grad():
+            pre = prefill_step(mine, {"tokens": torch.as_tensor(
+                prompts[rows])}, cfg, gather, tp, column)
+            toks = greedy_generate(cfg, mine, prompts, gen, max_seq, gather,
+                                   tp, column)
+            # the decode fed the run's tokens, every step's logits
+            cache = M.init_cache(cfg, B, max_seq, tp=tp, data=g)
+            steps = []
+            for i in range(prompt + gen):
+                logits, _ = M.decode_step(
+                    mine, cache, torch.as_tensor(toks[:, i:i + 1]), i, cfg,
+                    gather, tp, column, max_seq)
+                steps.append(tp.gather(logits, -1)[:, 0])
+            dec = torch.stack(steps, 1)
+        got = [None] * W
+        dist.all_gather_object(got, {"pre": pre.numpy(), "toks": toks,
+                                     "dec": dec.numpy(), "cache": cache})
+        if rank == 0:
+            heads = [got[p * model] for p in range(g)]
+            dims = cache_dims(M.init_cache(cfg, B, max_seq, device="meta"),
+                              B, g, model)
+            whole = unslice_cache([o["cache"] for o in got], dims, g, model)
+            out = {f"cache/{j}/{k}": v.numpy()
+                   for j, c in enumerate(whole) for k, v in c.items()}
+            for key in ("pre", "toks", "dec"):
+                out[key] = np.concatenate([h[key] for h in heads])
+            np.savez(f"{out_dir}/{name}_m{model}.npz", **out)
+    dist.destroy_process_group()
+"""
+
+
+# repro_torch/serve_smoke.py, what the card scripts run, on the CPU in
+# bf16 (the card's dtype): xlstm at data 2 x model 2, deepseek at model 4
+SMOKE_CASES = (("xlstm-350m", 2), ("deepseek-v2-lite-16b", 4))
+_SMOKE_CHILD = """
+    import dataclasses, json, sys
+    import torch
+    from repro_torch.configs.registry import get_config, smoke_variant
+    from repro_torch.launch.mesh import distributed, rank_device
+    from repro_torch.serve_smoke import sliced_serve
+    torch.set_num_threads(1)
+    out_dir, cases = sys.argv[1], json.loads(sys.argv[2])
+    with distributed(rank_device("cpu")):
+        for arch, model in cases:
+            cfg = dataclasses.replace(smoke_variant(get_config(arch)),
+                                      dtype="bfloat16")
+            served = sliced_serve(cfg, model, 4, 24, 8, 32, device="cpu")
+            if served is not None:
+                with open(f"{out_dir}/smoke_{arch}.json", "w") as f:
+                    json.dump(served, f)
+"""
+
+
+def _ref_cfg(arch, fields):
+    return dataclasses.replace(ref_smoke_variant(ref_get_config(arch)),
+                               **fields)
+
+
+def _reference(rcfg, params, prompts):
+    """The reference's prefill logits, greedy tokens, every decode
+    step's logits and final cache."""
+    B = prompts.shape[0]
+    logits, _ = RM.forward(params, {"tokens": jnp.asarray(prompts)}, rcfg)
+    step = jax.jit(lambda p, c, t, i: RM.decode_step(p, c, t, i, rcfg))
+    cache = RM.init_cache(rcfg, B, MAX_SEQ)
+    toks, dec = [prompts], []
+    cur = None
+    for i in range(PROMPT + GEN):
+        t = prompts[:, i:i + 1] if i < PROMPT else cur
+        if i >= PROMPT:
+            toks.append(t)
+        out, cache = step(params, cache, jnp.asarray(t), jnp.int32(i))
+        dec.append(np.asarray(out[:, 0]))
+        cur = np.asarray(jnp.argmax(out, axis=-1).astype(jnp.int32))
+    flat = {}
+    for j, c in enumerate(cache):
+        for k, v in c.items():
+            flat[f"cache/{j}/{k}"] = np.asarray(v, np.float32)
+    return {"pre": np.asarray(logits[:, -1]),
+            "toks": np.concatenate(toks, 1), "dec": np.stack(dec, 1),
+            **flat}
+
+
+def _whole_port(out, name, want):
+    """The port on the whole params: prefill logits, the decode fed the
+    reference's tokens, its final cache."""
+    arch, fields, B = CASES[name]
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
+    like = M.init_params(torch.Generator().manual_seed(0), cfg)
+    params, _ = restore_checkpoint(str(out / f"{name}_init"), like)
+    toks = torch.as_tensor(want["toks"])
+    with torch.no_grad():
+        pre = prefill_step(params, {"tokens": toks[:, :PROMPT]}, cfg)
+        cache = M.init_cache(cfg, B, MAX_SEQ)
+        dec = [M.decode_step(params, cache, toks[:, i:i + 1], i, cfg)[0]
+               for i in range(PROMPT + GEN)]
+    flat = {f"cache/{j}/{k}": v.numpy() for j, c in enumerate(cache)
+            for k, v in c.items()}
+    return {"pre": pre.numpy(), "dec": torch.cat(dec, 1).numpy(), **flat}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both torchruns (model 2 and model 4), the reference's runs and
+    the whole-params port's: ``(reference by case, {model: port by
+    case}, whole-params port by case)``."""
+    out = tmp_path_factory.mktemp("serve")
+    params = {}
+    for name, (arch, fields, B) in CASES.items():
+        rcfg = _ref_cfg(arch, fields)
+        p = jax.tree.map(lambda x: np.asarray(x, np.float32),
+                         RM.init_params(jax.random.PRNGKey(0), rcfg))
+        if name == "deepseek":
+            # sharper routing: the queues bind unevenly
+            for grp in p["groups"]:
+                if "router" in grp.get("ffn", {}):
+                    grp["ffn"]["router"] = grp["ffn"]["router"] * 4.0
+        ref_save_checkpoint(str(out / f"{name}_init"), p, 0)
+        params[name] = (rcfg, p)
+        np.save(out / f"{name}_prompts.npy",
+                np.random.default_rng(1).integers(
+                    0, rcfg.vocab_size, (B, PROMPT)).astype(np.int32))
+    (out / "child.py").write_text(textwrap.dedent(_CHILD))
+    (out / "smoke.py").write_text(textwrap.dedent(_SMOKE_CHILD))
+    procs = {m: _start(_torchrun(4, str(out / "child.py"), str(out), str(m),
+                                 json.dumps(CASES), str(PROMPT), str(GEN),
+                                 str(MAX_SEQ)), _env())
+             for m in (2, 4)}
+    procs["smoke"] = _start(_torchrun(4, str(out / "smoke.py"), str(out),
+                                      json.dumps(SMOKE_CASES)), _env())
+    want = {name: _reference(rcfg, p, np.load(out / f"{name}_prompts.npy"))
+            for name, (rcfg, p) in params.items()}
+    whole = {name: _whole_port(out, name, want[name]) for name in CASES}
+    got = {}
+    for m, proc in procs.items():
+        _finish(proc, f"the sliced serving torchrun at {m}")
+        if m == "smoke":
+            got[m] = {arch: json.loads((out / f"smoke_{arch}.json")
+                                       .read_text())
+                      for arch, _ in SMOKE_CASES}
+            continue
+        got[m] = {}
+        for name in CASES:
+            with np.load(out / f"{name}_m{m}.npz") as z:
+                got[m][name] = {k: z[k] for k in z.files}
+    return want, got, whole
+
+
+@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("case", list(CASES))
+def test_sliced_serving_matches_reference(runs, case, model):
+    """The sliced prefill's last-position logits, the greedy tokens,
+    every decode step's logits and the caches gathered whole, against
+    the reference's ``forward`` and ``decode_step``: within rtol 1e-5 /
+    atol 2e-5, and no farther than twice the whole-params port (plus
+    1e-6)."""
+    want, got, whole = runs
+    w, g, o = want[case], got[model][case], whole[case]
+    np.testing.assert_array_equal(g["toks"], w["toks"])
+    assert sorted(k for k in g if k.startswith("cache/")) == \
+        sorted(k for k in w if k.startswith("cache/"))
+    for key in w:
+        if key == "toks":
+            continue
+        np.testing.assert_allclose(g[key], w[key], rtol=RTOL,
+                                   atol=SERVE_ATOL, err_msg=key)
+        ours = float(np.abs(g[key] - w[key]).max())
+        theirs = float(np.abs(o[key] - w[key]).max())
+        assert ours <= 2 * theirs + 1e-6, (key, ours, theirs)
+
+
+@pytest.mark.parametrize("arch,model", SMOKE_CASES)
+def test_serve_smoke_on_cpu_ranks(runs, arch, model):
+    """``serve_smoke.sliced_serve``, which the card scripts run, on four
+    gloo ranks, its counted run in bf16: every rank's figures reach rank
+    0, the float32 check's logits are the float32 whole run's within
+    1e-5, and ``check_served`` holds them (the cache bytes the
+    dry-run's, the routing equal across each model group).  On the CPU
+    the kernels' wrappers run their plain versions, so no launch is
+    counted: the counts are 0 here, and the launch check is the
+    card's."""
+    from repro_torch.serve_smoke import check_served
+    sv = runs[1]["smoke"][arch]
+    by = sv["by_rank"]
+    assert (sv["data"], sv["model"], sv["dtype"]) == (4 // model, model,
+                                                      "bfloat16")
+    assert all(n == 0 for r in by["launches"] for n in r.values())
+    assert sv["max_abs_prefill"] <= 1e-5 and sv["max_abs_decode"] <= 1e-5
+    assert sv["logit_max_abs"] > 0
+    for r in by["launches"]:
+        r.update(rmsnorm=1, flash_attention=1)
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)),
+                              dtype="bfloat16")
+    assert check_served("[cpu]", sv, cfg, 4, model) == \
+        by["cache_bytes"][0] > 0
+
+
+def test_deepseek_decode_drops_tokens():
+    """The MoE case binds: 16 rows a decode step route 32 choices into 4
+    experts of 4 slots, so every step drops tokens, and the second data
+    position's queues continue the first's."""
+    from repro_torch.models.moe import _capacity
+    cfg = dataclasses.replace(smoke_variant(get_config(
+        "deepseek-v2-lite-16b")), **CASES["deepseek"][1])
+    B = CASES["deepseek"][2]
+    cap = _capacity(B, cfg)
+    assert cfg.num_experts * cap < B * cfg.num_experts_per_tok
+
+
+@pytest.mark.parametrize("data,model", [(2, 2), (1, 4), (4, 1)])
+@pytest.mark.parametrize("name", list(CASES))
+def test_cache_slices_are_the_rule_and_invert(name, data, model):
+    """Each rank's cache slice holds, leaf by leaf, the bytes of the
+    partition rule's shard (``cache_shardings``; mamba's ``h`` and the
+    mLSTM's ``C``/``n`` split on another dim of equal size, ROADMAP
+    C.53), ``init_cache`` makes it at that shape, and the slices of a
+    whole cache gather back to it."""
+    arch, fields, B = CASES[name]
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
+    whole = M.init_cache(cfg, B, MAX_SEQ)
+    gen = torch.Generator().manual_seed(0)
+    whole = tuple({k: torch.randn(v.shape, generator=gen).to(v.dtype)
+                   for k, v in c.items()} for c in whole)
+    dims = cache_dims(whole, B, data, model)
+    rule = cache_shardings(whole, B, {"data": data, "model": model})
+    parts = [slice_cache(whole, dims, r // model, r % model, data, model)
+             for r in range(data * model)]
+    tp = types.SimpleNamespace(M=model)
+    made = M.init_cache(cfg, B, MAX_SEQ, tp=tp if model > 1 else None,
+                        data=data)
+    for j, c in enumerate(parts[0]):
+        for k, t in c.items():
+            assert int(np.prod(rule[j][k])) == t.numel(), (j, k)
+            assert tuple(made[j][k].shape) == tuple(t.shape), (j, k)
+    back = unslice_cache(parts, dims, data, model)
+    for a, b in zip(back, whole):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+def test_a_batch_the_data_axis_does_not_divide_is_refused():
+    """Regime (b), a batch the data positions do not divide (long_500k's
+    B 1 at data > 1), is ROADMAP A16c.5b: the rows a position serves and
+    the cache's slice are refused naming it."""
+    column = types.SimpleNamespace(g=2, rank=0)
+    with pytest.raises(ValueError, match="A16c.5b"):
+        data_rows(3, column)
+    cfg = smoke_variant(get_config("h2o-danube-1.8b"))
+    with pytest.raises(ValueError, match="A16c.5b"):
+        M.init_cache(cfg, 1, MAX_SEQ, data=2)
+    assert data_rows(8, types.SimpleNamespace(g=2, rank=1)) == slice(4, 8)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("name", list(CASES))
+def test_sequence_split_follows_the_rule(name, model):
+    """``sequence_split`` says which pattern entries' caches hold a slice
+    of their sequence over ``model`` ranks, as the partition rule cuts
+    them: an attention cache where M does not divide its kv heads, MLA's
+    wherever M divides its length, no state."""
+    from repro_torch.models.config import ATTN, ATTN_GLOBAL, MLA
+    arch, fields, _ = CASES[name]
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
+    want = tuple(m == MLA or (m in (ATTN, ATTN_GLOBAL)
+                              and cfg.num_kv_heads % model != 0)
+                 for m, _ in cfg.block_pattern)
+    assert M.sequence_split(cfg, MAX_SEQ, model) == want
+    # a length M does not divide (below h2o's ring of 16) stays whole
+    assert not any(M.sequence_split(cfg, 15, model))
+
+
+def test_a_sliced_decode_needs_its_cache_length():
+    """How a rank's cache is cut depends on the length it was made at:
+    a sliced ``decode_step`` without ``max_seq`` is refused."""
+    cfg = smoke_variant(get_config("deepseek-v2-lite-16b"))
+    with pytest.raises(ValueError, match="max_seq"):
+        M.decode_step({}, (), torch.zeros((1, 1), dtype=torch.int32), 0,
+                      cfg, tp=types.SimpleNamespace(M=2))
