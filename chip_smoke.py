@@ -73,7 +73,8 @@ main paths:
   root on every non-negative float32;
 - the SPMD backend: ``torchrun`` of 4 ``python -m repro_torch run
   --backend spmd`` ranks sharing the card over gloo, xlstm-350m at its
-  published width with its remat "block", annealed g 1 -> 2 -> 4 (7
+  published width with its remat "block" (2 of its 6 block groups),
+  annealed g 1 -> 2 -> 4 (7
   gradients; the g 2 and g 4 phases in the reference's FSDP layout,
   each rank's state held against the partition rules' shard bytes and
   its step peak against the dry-run's traced FSDP peak; every merge
@@ -103,7 +104,11 @@ main paths:
   fed rank 0's whole run's tokens, within 1e-3 of the same params served
   whole in float32; each rank's cache bytes the dry-run's, the routing
   equal across each model group, rmsnorm and flash launched on the
-  sliced path; then ``flush`` alone at a rank's chunk of each
+  sliced path; then the same for 1 prompt (``long_500k``'s B 1, which
+  the data axis does not divide: every rank serves the row, the cache
+  of 32 cut along its sequence or channels over data x model, so the
+  prompt's slots cross from data position 0 to 1), every rank's tokens
+  equal; then ``flush`` alone at a rank's chunk of each
   run's merge, bitwise against its plain version.  Four cards
   are ``python -m repro_torch.multicard_smoke``'s (NCCL), not this
   script's.
@@ -2087,8 +2092,9 @@ FLASH_NEW_SMALL = [
     ("MLA 80/64 f32", 2, 40, 4, 4, 80, 64, True, None, None, "float32"),
 ]
 RMS_NEW_D = (1024, 2048, 4096, 5120)
-# the rows a rank normalizes in h2o's sliced decode step at data 2
-RMS_SLICED = (2, 2560)
+# the rows a rank normalizes in h2o's sliced decode step at data 2: 2 of
+# 4 prompts, or the 1 prompt every rank serves (regime (b))
+RMS_SLICED = ((2, 2560), (1, 2560))
 
 
 def qkv_v(torch, seed, B, S, H, KV, d, dv, dtype):
@@ -2117,15 +2123,15 @@ def compare_new_kernel_shapes(torch):
                 errs["rmsnorm"] = max(errs["rmsnorm"], hold(
                     torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale),
                     *RMS_TOL[dtype], f"N={n} D={width} {dtype}"))
-    n, width = RMS_SLICED
-    scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
-    for dtype in ("float32", "bfloat16"):
-        x = torch.randn(n, width, device="cuda", generator=gen).to(
-            getattr(torch, dtype))
-        (y,) = same_twice(torch, lambda: rms.rmsnorm(x, scale))
-        errs["rmsnorm"] = max(errs["rmsnorm"], hold(
-            torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale), *RMS_TOL[dtype],
-            f"sliced decode N={n} D={width} {dtype}"))
+    for n, width in RMS_SLICED:
+        scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
+        for dtype in ("float32", "bfloat16"):
+            x = torch.randn(n, width, device="cuda", generator=gen).to(
+                getattr(torch, dtype))
+            (y,) = same_twice(torch, lambda: rms.rmsnorm(x, scale))
+            errs["rmsnorm"] = max(errs["rmsnorm"], hold(
+                torch, "rmsnorm", y, ref.rmsnorm_ref(x, scale),
+                *RMS_TOL[dtype], f"sliced decode N={n} D={width} {dtype}"))
     for seed, (label, B, S, H, KV, d, dv, causal, window, chunk, dtype) in \
             enumerate(FLASH_NEW + FLASH_NEW_SMALL):
         q, k, v = qkv_v(torch, 50 + seed, B, S, H, KV, d, dv, dtype)
@@ -2173,24 +2179,25 @@ def time_new_kernel_shapes(torch):
             log(f"[time] {name}: kernel alone {t['kernel_only_ms']:.6f} ms "
                 f"= {100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of "
                 f"bound {t['bound_ms']:.6f} ms")
-    n, width = RMS_SLICED
-    scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
-    x = torch.randn(n, width, device="cuda", generator=gen).to(
-        torch.bfloat16)
-    name = f"rmsnorm sliced decode N={n} D={width} bfloat16"
-    case = {name: (lambda: rms.rmsnorm(x, scale),
-                   lambda: ref.rmsnorm_ref(x, scale),
-                   lambda ls=scale.to(x.dtype): F.rms_norm(
-                       x, (width,), ls, 1e-5),
-                   rms.cost(n, width, x.element_size()))}
-    out.update(time_cases(torch, timer, case))
-    out[name]["kernel_only_ms"] = kernel_only_ms(torch, case[name][0],
-                                                 "rmsnorm_kernel")
-    t = out[name]
-    log(f"[time] {name}: kernel alone {t['kernel_only_ms']:.6f} ms = "
-        f"{100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of bound "
-        f"{t['bound_ms']:.6f} ms; call {t['ms']:.6f} ms, plain "
-        f"{t['plain_ms']:.6f} ms, F.rms_norm {t['library_ms']}")
+    for n, width in RMS_SLICED:
+        scale = 1 + 0.1 * torch.randn(width, device="cuda", generator=gen)
+        x = torch.randn(n, width, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        name = f"rmsnorm sliced decode N={n} D={width} bfloat16"
+        case = {name: (lambda x=x, sc=scale: rms.rmsnorm(x, sc),
+                       lambda x=x, sc=scale: ref.rmsnorm_ref(x, sc),
+                       lambda x=x, w=width, ls=scale.to(x.dtype): F.rms_norm(
+                           x, (w,), ls, 1e-5),
+                       rms.cost(n, width, x.element_size()))}
+        out.update(time_cases(torch, timer, case))
+        out[name]["kernel_only_ms"] = kernel_only_ms(torch, case[name][0],
+                                                     "rmsnorm_kernel")
+        t = out[name]
+        log(f"[time] {name}: kernel alone {t['kernel_only_ms']:.6f} ms = "
+            f"{100 * t['bound_ms'] / t['kernel_only_ms']:.1f}% of bound "
+            f"{t['bound_ms']:.6f} ms; call {t['ms']:.6f} ms, warm "
+            f"{t['warm_ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, "
+            f"F.rms_norm {t['library_ms']}")
     for seed, (label, B, S, H, KV, d, dv, causal, window, chunk, dtype) in \
             enumerate(FLASH_NEW):
         q, k, v = qkv_v(torch, 70 + seed, B, S, H, KV, d, dv, dtype)
@@ -2846,10 +2853,14 @@ SPMD_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
             str(SPMD_SEQ), "--lr", str(SPMD_LR), "--optimizer", "sgd",
             "--log-every", "1"]
 SPMD_GROUPS = [1, 2, 4]
+# [spmd]'s run at 2 of xlstm-350m's 6 block groups, its widths unchanged:
+# the [spmd-tp] runs start once it has been read, after the zoo phases,
+# and at all 6 groups its ~111 s outlasted them
+SPMD_DEPTH = 2
+SPMD_CHILD = "--spmd-child"
 SPMD_SMALL = ["--arch", "h2o-danube-1.8b", "--smoke", "--schedule",
               "step:2", "--steps", "4", "--batch", "4", "--seq", "16",
               "--log-every", "1"]
-SPMD_MERGE_P = 440_057_856      # xlstm-350m's params slab, padded
 SPMD_TOL = (1e-5, 1e-6)         # card vs CPU, float32
 
 
@@ -2903,11 +2914,38 @@ def spmd_npz(path: str) -> dict:
         return {k: z[k] for k in z.files}
 
 
+def spmd_config():
+    """``[spmd]``'s config: xlstm-350m at ``SPMD_DEPTH`` of its groups."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("xlstm-350m"),
+                               num_groups=SPMD_DEPTH)
+
+
+def spmd_child(out: str) -> int:
+    """A rank of ``[spmd]``'s full-width run (started by torchrun):
+    ``python -m repro_torch run --backend spmd`` with ``SPMD_RUN`` on
+    xlstm-350m cut to ``SPMD_DEPTH`` groups."""
+    from repro_torch.api.cli import main as cli
+    from repro_torch.multicard_smoke import at_depth
+    at_depth("xlstm-350m", SPMD_DEPTH)
+    return cli(["run", "--backend", "spmd", *SPMD_RUN, "--device", "cuda",
+                "--quiet", "--out", out])
+
+
 def start_spmd(tmp: str) -> dict:
     """Start ``[spmd]``'s full-width run (:func:`drive_spmd` reads it):
-    its torchrun, where it writes and when it started."""
+    its torchrun of ``SPMD_CHILD`` ranks, where it writes and when it
+    started."""
     out = os.path.join(tmp, "full.json")
-    return {"proc": spmd_launch(SPMD_RANKS, SPMD_RUN, "cuda", out),
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(SPMD_RANKS), os.path.abspath(__file__),
+           SPMD_CHILD, out]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    return {"proc": subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
             "out": out, "t0": time.time()}
 
 
@@ -3073,7 +3111,7 @@ def spmd_fsdp_check(layout) -> None:
           [(g, g > 1) for g in SPMD_GROUPS], f"[spmd] layout {layout}")
     shape = InputShape("spmd", SPMD_SEQ, SPMD_BATCH, "train")
     for p in layout[1:]:
-        pred = dryrun.fsdp_layout(get_config("xlstm-350m"), shape,
+        pred = dryrun.fsdp_layout(spmd_config(), shape,
                                   SPMD_RANKS, hybrid_rep=SPMD_RANKS // p["g"],
                                   optimizer=sgd(SPMD_LR))
         state, peak = pred["state_bytes_total"], pred["peak_bytes"]
@@ -3096,11 +3134,12 @@ def spmd_fsdp_check(layout) -> None:
 
 def spmd_merge_flush(torch) -> dict:
     """``flush`` alone at the merge's shape: K 4 replicas of one rank's
-    P-chunk of xlstm-350m's f32 slab (the merges are split along P over
+    P-chunk of the full run's f32 slab (the merges are split along P over
     the 4 ranks)."""
-    from repro_torch.core.slab import shard_chunks
-    return merge_flush(torch, SPMD_RANKS,
-                       shard_chunks(SPMD_MERGE_P, SPMD_RANKS)[0],
+    from repro_torch.core.slab import shard_chunks, slab_codec
+    from repro_torch.launch import dryrun
+    P = slab_codec(dryrun.meta_params(spmd_config())).padded_size
+    return merge_flush(torch, SPMD_RANKS, shard_chunks(P, SPMD_RANKS)[0],
                        "the merge's shape")
 
 
@@ -3167,6 +3206,8 @@ TP_CHILD = "--spmd-tp-child"
 # a cache of 32 (M 2 divides it), the params drawn sliced from seed 0 on
 # the card, against rank 0's whole run of the same params
 TP_SERVE = dict(batch=4, prompt=24, gen=8, max_seq=32)
+# then 1 prompt, which the 2 data positions do not divide (regime (b))
+TP_SERVE_B = dict(TP_SERVE, batch=1)
 
 
 def tp_config(arch: str, groups: int):
@@ -3199,12 +3240,13 @@ def spmd_tp_child(out: str, arch: str, groups: int) -> int:
                 json.dump(final_summary(final, TP_MODEL, time.time() - t0),
                           f)
         del final
-        served = sliced_serve(tp_config(arch, groups), TP_MODEL,
-                              TP_SERVE["batch"], TP_SERVE["prompt"],
-                              TP_SERVE["gen"], TP_SERVE["max_seq"])
-    if served is not None:
-        with open(out + ".serve.json", "w") as f:
-            json.dump(served, f)
+        for tag, shape in (("serve", TP_SERVE), ("serve-b", TP_SERVE_B)):
+            served = sliced_serve(tp_config(arch, groups), TP_MODEL,
+                                  shape["batch"], shape["prompt"],
+                                  shape["gen"], shape["max_seq"])
+            if served is not None:
+                with open(f"{out}.{tag}.json", "w") as f:
+                    json.dump(served, f)
     return 0
 
 
@@ -3347,16 +3389,20 @@ def tp_serve_check(run: dict, cfg) -> dict:
     logits within ``F32_TOL`` of rank 0's float32 whole run's, each
     rank's cache bytes the dry-run's to the byte, the MoE's routing
     digests equal across each model group, rmsnorm and flash launched on
-    the sliced path.  Returns the sliced run's launches, summed over the
-    ranks."""
+    the sliced path; then the same of ``TP_SERVE_B``'s one row, every
+    rank's tokens and routing equal.  Returns the sliced runs' launches,
+    summed over the ranks."""
     from repro_torch.serve_smoke import check_served, summary
-    tag = f"[spmd-tp] {run['label']} serve"
-    with open(run["out"] + ".serve.json") as f:
-        sv = json.load(f)
-    want = check_served(tag, sv, cfg, SPMD_RANKS, TP_MODEL)
-    log(f"{tag}: {summary(sv, want)}")
-    return {k: sum(r[k] for r in sv["by_rank"]["launches"])
-            for k in ("rmsnorm", "flash_attention")}
+    launches = {"rmsnorm": 0, "flash_attention": 0}
+    for name in ("serve", "serve-b"):
+        tag = f"[spmd-tp] {run['label']} {name}"
+        with open(f"{run['out']}.{name}.json") as f:
+            sv = json.load(f)
+        want = check_served(tag, sv, cfg, SPMD_RANKS, TP_MODEL)
+        log(f"{tag}: {summary(sv, want)}")
+        for k in launches:
+            launches[k] += sum(r[k] for r in sv["by_rank"]["launches"])
+    return launches
 
 
 def published_groups(arch: str) -> int:
@@ -3731,6 +3777,8 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(dryrun_train_step(torch)), flush=True)
         return 0
+    if sys.argv[1:2] == [SPMD_CHILD]:         # a [spmd] rank
+        return spmd_child(sys.argv[2])
     if sys.argv[1:2] == [TP_CHILD]:           # a [spmd-tp] rank
         torch.backends.cuda.matmul.allow_tf32 = False
         out, arch, groups = sys.argv[2:]

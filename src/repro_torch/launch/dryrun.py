@@ -45,9 +45,12 @@ two layouts side by side:
   the MoE's counts apart (``combine all-gather``, ``argmax all-gather``,
   ``routing all-gather``); the cache a card holds sits beside the
   rule's (``cache_bytes_rule``).  At a batch the data axis does not
-  divide (``long_500k`` at data > 1) the peak is an estimate, the held
-  state replaced by the rules' shards plus one group's layer, naming
-  ROADMAP A16c.5b.
+  divide (``long_500k`` at data > 1, regime (b), ROADMAP A16c.5b) the
+  decode is traced the same way on every row, the cache cut along its
+  sequence or channels over data x model, the recurrences' per-step
+  gathers and sums over the replica group and the data column counted
+  apart (``state all-gather``, ``state all-reduce``) and the combines
+  over the data column or the replica group with the others.
 
 Collective bytes are what each card sends on a ring: ``2 (g-1)/g`` of
 the bytes for an all-reduce over g cards, ``(g-1)/g`` for an all-gather
@@ -109,8 +112,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor cores
               torch.float32: 67e12}      # outside the tensor cores
 # the serving collectives counted apart (``parallel/tensor.py``): the
 # split-softmax combines, the greedy token over the vocabulary shards,
-# the MoE's per-group counts over the data column (``parallel/fsdp.py``)
-SERVE_KINDS = ("combine", "argmax", "routing")
+# the MoE's per-group counts over the data column (``parallel/fsdp.py``),
+# regime (b)'s recurrent states and channels over the replica group and
+# the data column (``Spread``)
+SERVE_KINDS = ("combine", "argmax", "routing", "state")
 SPMD = "spmd_whole_replica"
 FSDP = "fsdp_partition_rules"
 
@@ -191,6 +196,14 @@ class _CountingComm:
     def all_reduce_sum_(self, t, g):
         self.bytes["all-reduce"] += 2 * _nbytes(t) * _ring(g)
 
+    def replica_all_gather_(self, out, t, g):
+        self._add(f"{self.kind} all-gather", _nbytes(out)
+                  * _ring(g * self.model))
+
+    def replica_all_reduce_(self, t, g):
+        self._add(f"{self.kind} all-reduce", 2 * _nbytes(t)
+                  * _ring(g * self.model))
+
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
@@ -262,8 +275,8 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
         return step, (params, opt_state, specs["batch"]), info
     # serving: whole on each card, or (sliced) a card's model slices and
     # FSDP shards, its batch rows and its slice of the cache (ROADMAP
-    # A16c.5, regime (a); a batch the data axis does not divide is
-    # refused naming A16c.5b)
+    # A16c.5; every row where the data axis does not divide the batch,
+    # regime (b), A16c.5b)
     kw, tp = {}, None
     if sliced:
         params, tp, sharding = _card_slices(cfg, params, info, model)
@@ -277,7 +290,8 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
         def prefill(params, batch):
             counted()
             with torch.no_grad():
-                return prefill_step(params, batch, cfg, **kw)
+                return prefill_step(params, batch, cfg,
+                                    global_batch=shape.global_batch, **kw)
         return prefill, (params, specs["batch"]), info
     info["cache"] = M.init_cache(cfg, shape.global_batch, shape.seq_len,
                                  device="meta", tp=tp, data=info["group"]) \
@@ -288,7 +302,9 @@ def build_step(arch, shape, cards: int = 1, microbatch: int = 1,
         counted()
         with torch.no_grad():
             logits, cache = M.decode_step(params, cache, tokens, cur_index,
-                                          cfg, max_seq=shape.seq_len, **kw)
+                                          cfg, max_seq=shape.seq_len,
+                                          global_batch=shape.global_batch,
+                                          **kw)
             tok = torch.argmax(logits, dim=-1).to(torch.int32) \
                 if tp is None else tp.argmax(logits)
             return tok, cache
@@ -407,18 +423,8 @@ def _layouts(shape, info, report: C.Report, traced=None
     else:
         out[FSDP]["peak_is_estimate"] = (
             "the traced peak with the held state replaced by its shards "
-            "plus one group's layer gathered whole" + (
-                "; a batch the data axis does not divide is served "
-                "sliced in ROADMAP A16c.5b"
-                if shape.kind != "train" and _regime_b(shape, g) else ""))
+            "plus one group's layer gathered whole")
     return out
-
-
-def _regime_b(shape, data: int) -> bool:
-    """Whether a serving shape's batch is one the data axis does not
-    divide (long_500k's B 1 at data > 1): the partition rule's regime
-    (b), ROADMAP A16c.5b."""
-    return shape.global_batch % data != 0
 
 
 def _numel(shape) -> int:
@@ -531,9 +537,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: Optional[str] = None,
             report, info = analyze_step(cfg, shape_name, cards,
                                         microbatch, accum_dtype, hybrid_rep,
                                         model=model)
-        if traced is None and (info["group"] > 1 or model > 1) and (
-                shape.kind == "train"
-                or not _regime_b(shape, cards // model)):
+        if traced is None and (info["group"] > 1 or model > 1):
             traced = analyze_step(cfg, shape_name, cards, microbatch,
                                   accum_dtype, hybrid_rep, fsdp=True,
                                   model=model)

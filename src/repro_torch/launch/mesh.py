@@ -166,13 +166,16 @@ class Collectives:
     (``all_reduce_sum_``, ``all_gather_``, ``reduce_scatter_``) run over
     its data column within the replica group, the tensor-parallel ones
     (``model_all_reduce_``, ``model_all_gather_``,
-    ``model_reduce_scatter_``) over its model group,
+    ``model_reduce_scatter_``) over its model group, the serving's
+    ``replica_all_reduce_`` and ``replica_all_gather_`` over its replica
+    group of g data positions (a batch the data axis does not divide,
+    ``parallel/tensor.py::Spread``),
     and the merges' ``all_to_all_`` over its model column: the W/M ranks
     with its model index, where ``position`` is its place and
     ``positions`` their count.  Every rank creates the model groups, then
-    the columns, in the same order, and the data columns of a group size
-    the first time it is asked for.  Under NCCL a model group stays on
-    one host.
+    the columns, in the same order, and the data columns and the replica
+    group of a group size the first time it is asked for.  Under NCCL a
+    model group stays on one host.
 
     ``seconds`` adds up the time spent in the collectives, waits
     for the other ranks included, and ``seconds_by`` splits it by the
@@ -207,6 +210,7 @@ class Collectives:
         self._kind = "other"
         self._handles: Dict[Tuple[int, ...], object] = {}
         self._groups: Dict[int, object] = {}
+        self._replicas: Dict[int, object] = {}
         self._pinned: Dict[torch.dtype, torch.Tensor] = {}
         M, W = self.model, self.world
         self._model = self._create(
@@ -240,6 +244,15 @@ class Collectives:
                 [data_column(base + k, g, M)
                  for base in range(0, self.world, g * M) for k in range(M)])
         return self._groups[g]
+
+    def replica(self, g: int):
+        """This rank's replica group of ``g`` data positions x M model
+        ranks (None for the whole world), created the first time it is
+        asked for, as :meth:`group` creates the columns."""
+        if g not in self._replicas:
+            self._replicas[g] = self._create(replica_groups(
+                self.world, self.world // (g * self.model)))
+        return self._replicas[g]
 
     @contextlib.contextmanager
     def timing(self, kind: str) -> Iterator[None]:
@@ -382,6 +395,23 @@ class Collectives:
         grp = self._model
         self._staged_pair(out, t, lambda o, i: _quiet(
             dist.reduce_scatter_tensor, o, i, group=grp))
+
+    def replica_all_reduce_(self, t: torch.Tensor, g: int) -> None:
+        """Sum flat ``t`` in place over this rank's replica group of g
+        data positions."""
+        if g * self.model > 1:
+            grp = self.replica(g)
+            self._staged(t, lambda x: dist.all_reduce(x, group=grp))
+
+    def replica_all_gather_(self, out: torch.Tensor, t: torch.Tensor,
+                            g: int) -> None:
+        """``out`` (flat, g M times ``t``'s size) <- the flat ``t`` of
+        each rank of this rank's replica group of g data positions, in
+        rank order (position d, model index k at d M + k)."""
+        if g * self.model == 1:
+            out.copy_(t)
+            return
+        self._gather(out, t, self.replica(g))
 
     def _gather(self, out, t, grp) -> None:
         self._staged_pair(out, t, lambda o, i: _quiet(

@@ -10,8 +10,12 @@ model slices (``parallel/tensor.py``), with ``gather`` their FSDP
 shards over its data column (``parallel/fsdp.py``), and ``column`` (the
 column's ``GroupShards``) says which batch rows it serves and groups the
 MoE's tokens over the column.  The reference's serving shards the batch
-over the data axis when it divides it (``tok_spec``); a batch it does
-not divide is regime (b), ROADMAP A16c.5b, and refused here.
+over the data axis when it divides it (``tok_spec``,
+``src/repro/launch/dryrun.py:167-169``); a batch it does not divide
+(``long_500k``'s B 1) is regime (b) (ROADMAP A16c.5b): every rank
+serves every row, the MoE groups them as they are, and the decode
+cache is cut along its sequence or channels over the data positions
+and the model ranks (``parallel/tensor.py::cache_dims``, ``Spread``).
 
 Example:
   python -m repro_torch serve --arch h2o-danube-1.8b --smoke \\
@@ -34,15 +38,11 @@ from repro_torch.models import model as M
 
 def data_rows(batch: int, column=None) -> slice:
     """The batch rows a data position serves: its B/g contiguous rows of
-    the column's ``batch`` (all of them without ``column``).  A batch
-    the g positions do not divide is refused naming ROADMAP A16c.5b."""
+    the column's ``batch`` (all of them without ``column``), or every
+    row where the g positions do not divide the batch (regime (b))."""
     g, d = (1, 0) if column is None else (column.g, column.rank)
     if batch % g:
-        raise ValueError(
-            f"a batch of {batch} over {g} data positions: the sliced "
-            "serving forward takes a batch the data axis divides; the "
-            "sequence over data and channels over data x model is ROADMAP "
-            "A16c.5b")
+        return slice(0, batch)
     n = batch // g
     return slice(d * n, (d + 1) * n)
 
@@ -56,9 +56,10 @@ def greedy_generate(cfg, params, prompts: np.ndarray, gen_len: int,
     ``decode_step`` one token at a time (cache-exact), then each new
     token is the argmax of the last logits.  Tokens stay on the device
     until the end.  Sliced (``gather``, ``tp``, ``column``; see above) a
-    rank serves its data position's rows (:func:`data_rows`) from its
-    slice of the cache, and returns those rows' tokens, each the argmax
-    over the vocabulary shards (``TensorParallel.argmax``)."""
+    rank serves its data position's rows (:func:`data_rows`: every row
+    in regime (b)) from its slice of the cache, and returns those rows'
+    tokens, each the argmax over the vocabulary shards
+    (``TensorParallel.argmax``)."""
     B, P = prompts.shape
     rows = data_rows(B, column)
     max_seq = max_seq or (P + gen_len)
@@ -71,7 +72,8 @@ def greedy_generate(cfg, params, prompts: np.ndarray, gen_len: int,
 
     def step(tokens, i):
         return M.decode_step(params, cache, tokens, i, cfg, gather=gather,
-                             tp=tp, column=column, max_seq=max_seq)[0]
+                             tp=tp, column=column, max_seq=max_seq,
+                             global_batch=B)[0]
     last = None
     for i in range(P):
         last = step(toks[:, i:i + 1], i)
@@ -83,11 +85,18 @@ def greedy_generate(cfg, params, prompts: np.ndarray, gen_len: int,
     return torch.cat(out, dim=1).cpu().numpy()
 
 
-def prefill_step(params, batch, cfg, gather=None, tp=None, column=None
-                 ) -> torch.Tensor:
+def prefill_step(params, batch, cfg, gather=None, tp=None, column=None,
+                 global_batch: int = 0) -> torch.Tensor:
     """The full-sequence forward's last-position logits (B, vocab).
-    Sliced (see above), ``batch`` is a rank's rows and the logits are
-    gathered whole over the vocabulary shards."""
+    Sliced (see above), ``batch`` is a rank's rows (:func:`data_rows` of
+    ``global_batch``, which a column of more than one position needs:
+    a ``ValueError`` without it) and the logits are gathered whole over
+    the vocabulary shards.  Where the positions do not divide
+    ``global_batch`` (regime (b)) the rows are every row, replicated,
+    and the MoE groups them without the column."""
+    if column is not None and M.served_batch(global_batch, column.g) \
+            % column.g:
+        column = None
     logits, _ = M.forward(params, batch, cfg, gather=gather, tp=tp,
                           column=column)
     last = logits[:, -1]

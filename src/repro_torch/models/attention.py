@@ -150,22 +150,26 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 
 def attention_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
                      rope: RopeTable, global_layer: bool = False, tp=None,
-                     seq: bool = False):
+                     seq: bool = False, sp=None):
     """One-token decode.  x: (B, 1, D); ``cur_index``: tokens so far (a
     Python int); ``rope``: the table at position ``cur_index``.  Returns
     (y, cache).  The new key and value are written
     into ``cache`` in place (the reference returns a new cache), and the
     same dict is returned.  ``tp``: a rank's heads and its slice of the
-    cache, a slice of its sequence where ``seq`` (see above)."""
+    cache, a slice of its sequence where ``seq`` (see above); ``sp``
+    (regime (b)): the rows replicated over the replica group, the
+    sequence split over its data column, or over the whole group where
+    M does not divide KV."""
     B = x.shape[0]
     # a rank's wq holds its query heads; wk/wv its kv heads, or every kv
     # head where M does not divide KV, which the cache then holds too
     q, k, v = _project_qkv(params, x, cfg, rope)
+    over, n, i = seq_group(seq, tp, sp, cfg.num_kv_heads)
 
     ck, cv = cache["k"], cache["v"]
-    L = ck.shape[1] * (tp.M if seq else 1)
+    L = ck.shape[1] * n
     slot = cur_index % L                  # ring for SWA/chunked; linear else
-    first = tp.k * ck.shape[1] if seq else 0
+    first = i * ck.shape[1]
     if first <= slot < first + ck.shape[1]:
         ck[:, slot - first] = k[:, 0].to(ck.dtype)
         cv[:, slot - first] = v[:, 0].to(cv.dtype)
@@ -182,8 +186,11 @@ def attention_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
 
     hd = cfg.resolved_head_dim
     heads = q.shape[2]
-    if seq:
-        q = tp.gather(q, 2)               # every head's query
+    # every head's query over this rank's slots where its slots hold
+    # every kv head
+    every = over in ("model", "replica")
+    if every:
+        q = tp.gather(q, 2)
     elif tp is not None and tp.kv_whole:
         # the kv heads this rank's query heads map to
         ck, cv = ck.narrow(2, *tp.kv_range), cv.narrow(2, *tp.kv_range)
@@ -192,15 +199,33 @@ def attention_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
                           ck.float()) * (hd ** -0.5)
     scores = torch.where(valid, scores, NEG_INF)
-    if seq:
+    if over is not None:
         # the softmax over the group's slots; then this rank's heads
-        out = tp.softmax(scores, lambda e: torch.einsum(
-            "bkgqs,bskd->bkgqd", e, cv.float()))
-        out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd) \
-            .narrow(2, tp.k * heads, heads)
+        out = (tp if sp is None else sp).softmax(
+            scores, lambda e: torch.einsum("bkgqs,bskd->bkgqd", e,
+                                           cv.float()), over)
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd)
+        if every:
+            out = out.narrow(2, tp.k * heads, heads)
     else:
         w = torch.softmax(scores, dim=-1)
         out = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
     out = out.reshape(B, 1, heads, hd).to(x.dtype)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return (y, cache) if tp is None else (tp.reduce(y), cache)
+
+
+def seq_group(seq: bool, tp, sp, kv_heads: Optional[int] = None):
+    """``(over, n, i)``: the group over which a decode cache's sequence
+    is split (None: it is not), its size and this rank's index in it.
+    Regime (a) splits it over the model group; regime (b) (``sp``) over
+    the data column where M divides ``kv_heads`` (a rank holds its own
+    kv heads), else (MLA's latent: None) over the whole replica
+    group."""
+    if not seq:
+        return None, 1, 0
+    if sp is None:
+        return "model", tp.M, tp.k
+    if kv_heads is not None and kv_heads % sp.M == 0:
+        return "data", sp.D, sp.d
+    return "replica", sp.R, sp.r

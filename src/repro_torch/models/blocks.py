@@ -129,26 +129,27 @@ def init_layer_cache(mixer: str, cfg: ModelConfig, batch: int, max_seq: int,
 
 def layer_decode(p, x, cache, cur_index: int, mixer: str, ffn: str,
                  cfg: ModelConfig, ropes: Dict[int, RopeTable], tp=None,
-                 column=None, seq: bool = False):
+                 column=None, seq: bool = False, sp=None):
     """One-token layer step; ``ropes`` at ``cur_index``.  Returns
     (x, cache); the cache is updated in place.  ``tp``: a rank's slices
     of the layer and of its cache, which holds a slice of its sequence
     where ``seq`` (``models/model.py::sequence_split``); ``column``:
-    ``moe_forward``'s."""
+    ``moe_forward``'s; ``sp``: regime (b)'s rows replicated over the
+    replica group (``parallel/tensor.py::Spread``)."""
     h = apply_norm(cfg.norm, p["mixer_norm"], x, cfg.norm_eps)
     if mixer in (ATTN, ATTN_GLOBAL):
         h, cache = attn_mod.attention_decode(
             p["mixer"], h, cache, cur_index, cfg,
             ropes[cfg.resolved_head_dim],
-            global_layer=(mixer == ATTN_GLOBAL), tp=tp, seq=seq)
+            global_layer=(mixer == ATTN_GLOBAL), tp=tp, seq=seq, sp=sp)
     elif mixer == MLA:
         h, cache = mla_mod.mla_decode(p["mixer"], h, cache, cur_index, cfg,
-                                      ropes[cfg.rope_head_dim], tp, seq)
+                                      ropes[cfg.rope_head_dim], tp, seq, sp)
     elif mixer == MAMBA:
-        h, cache = mamba_mod.mamba_decode(p["mixer"], h, cache, cfg, tp)
+        h, cache = mamba_mod.mamba_decode(p["mixer"], h, cache, cfg, tp, sp)
     elif mixer == MLSTM:
-        h, cache = xlstm_mod.mlstm_decode(p["mixer"], h, cache, cfg, tp)
+        h, cache = xlstm_mod.mlstm_decode(p["mixer"], h, cache, cfg, tp, sp)
     else:
-        h, cache = xlstm_mod.slstm_decode(p["mixer"], h, cache, cfg, tp)
+        h, cache = xlstm_mod.slstm_decode(p["mixer"], h, cache, cfg, tp, sp)
     x, _ = _ffn(p, x + h, ffn, cfg, tp=tp, column=column)
     return x, cache

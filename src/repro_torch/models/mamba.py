@@ -22,7 +22,10 @@ own channels (``tp.sum``: its gradient is summed too).  Under remat the
 chunk's all-reduce runs again in its recompute, in the same order on
 every rank.  ``w_out`` is row-parallel (``tp.reduce``).  The decode
 takes ``tp`` the same way: a rank holds its channels of the ``conv``
-and ``h`` caches.
+and ``h`` caches.  A batch the data axis does not divide (regime (b),
+``sp``, ``parallel/tensor.py::Spread``) replicates the rows on every
+rank of the replica group, and a rank holds di/(D M) channels of the
+caches, the d-th part of its model slice's.
 """
 from __future__ import annotations
 
@@ -74,13 +77,16 @@ def causal_conv(x, w, b, d_conv: int, init_state=None):
     return y + b, xp[:, xp.shape[1] - (d_conv - 1):]
 
 
-def _ssm_inputs(params, xc, cfg: ModelConfig, tp=None):
+def _ssm_inputs(params, xc, cfg: ModelConfig, tp=None, sp=None):
     """xc (B,S,di) after the conv -> a, bx (B,S,di,ds) and C (B,S,ds),
     float32.  Under ``tp`` xc holds a rank's di/M channels and ``proj``
-    is summed over the model group."""
+    is summed over the model group; under ``sp`` (regime (b)) its
+    di/(D M) channels, summed over the replica group."""
     ds, dtr = cfg.mamba_d_state, cfg.resolved_dt_rank
     proj = xc @ params["w_x"]
-    if tp is not None:
+    if sp is not None:
+        proj = sp.sum(proj).to(xc.dtype)
+    elif tp is not None:
         proj = tp.sum(proj.float()).to(xc.dtype)
     proj = proj.float()
     dt, Bm, Cm = torch.split(proj, [dtr, ds, ds], dim=-1)
@@ -137,19 +143,36 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
-def mamba_decode(params, x, cache, cfg: ModelConfig, tp=None):
+# the leaves over a rank's inner channels the decode reads for its
+# part of them under ``sp``, by the dim of their channels
+_CHANNEL_DIMS = {"conv_w": 1, "conv_b": 0, "w_x": 0, "w_dt": 1,
+                 "dt_bias": 0, "A_log": 0, "D": 0}
+
+
+def mamba_decode(params, x, cache, cfg: ModelConfig, tp=None, sp=None):
     """One-token recurrence.  x (B, 1, D).  The cache is updated in
-    place and returned.  ``tp``: a rank's inner channels."""
+    place and returned.  ``tp``: a rank's inner channels; ``sp`` (regime
+    (b)): the rows replicated, a rank advancing the d-th D-th of its
+    model slice's channels (its ``conv`` and ``h``), ``proj`` summed
+    over the replica group, ``y``'s channels gathered over the data
+    column before the row-parallel ``w_out``."""
     xi, z = torch.chunk(x @ params["w_in"], 2, dim=-1)
-    xc, conv = causal_conv(xi, params["conv_w"], params["conv_b"],
+    p = params
+    if sp is not None:
+        xi, z = sp.mine(xi, -1), sp.mine(z, -1)
+        p = {**params, **{k: sp.mine(params[k], d)
+                          for k, d in _CHANNEL_DIMS.items()}}
+    xc, conv = causal_conv(xi, p["conv_w"], p["conv_b"],
                            cfg.mamba_d_conv, cache["conv"])
     xc = F.silu(xc)
-    a, bx, Cm = _ssm_inputs(params, xc, cfg, tp)
+    a, bx, Cm = _ssm_inputs(p, xc, cfg, tp, sp)
     h = a[:, 0] * cache["h"] + bx[:, 0]
     y = torch.einsum("bds,bs->bd", h, Cm[:, 0])[:, None]
-    y = y + params["D"] * xc.float()
+    y = y + p["D"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     cache["conv"].copy_(conv)
     cache["h"].copy_(h)
+    if sp is not None:
+        y = sp.column(y, -1)
     y = y @ params["w_out"]
     return (y, cache) if tp is None else (tp.reduce(y), cache)

@@ -41,7 +41,8 @@ import functools
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.attention import NEG_INF, plain_attention
+from repro_torch.models.attention import (NEG_INF, plain_attention,
+                                          seq_group)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import RopeTable, apply_rope
 
@@ -111,17 +112,20 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 
 
 def mla_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
-               rope: RopeTable, tp=None, seq: bool = False):
+               rope: RopeTable, tp=None, seq: bool = False, sp=None):
     """One-token decode from the latent cache, absorbed: the score is
     ``q_nope . (c W_uk) + q_rope . k_rope`` and the output is taken in
     latent space, then up-projected by ``W_uv``.  The cache is written in
     place and returned.  ``tp``: a rank's heads and its slice of the
-    cache, a slice of its sequence where ``seq`` (see above)."""
+    cache, a slice of its sequence where ``seq`` (see above); ``sp``
+    (regime (b)): the rows replicated, the sequence split over the
+    replica group."""
     hd, rh = cfg.resolved_head_dim, cfg.rope_head_dim
     q = _queries(params, x, cfg, rope)                # (B,1,H,hd+rh)
     c_new, kr_new = _latent(params, x, rope)
     c, kr = cache["c_kv"], cache["k_rope"]
-    first = tp.k * c.shape[1] if seq else 0
+    over, _, i = seq_group(seq, tp, sp)
+    first = i * c.shape[1]
     if first <= cur_index < first + c.shape[1]:
         c[:, cur_index - first] = c_new[:, 0].to(c.dtype)
         kr[:, cur_index - first] = kr_new[:, 0].to(kr.dtype)
@@ -129,7 +133,8 @@ def mla_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
     heads = q.shape[2]
     q_nope, q_rope = q[..., :hd].float(), q[..., hd:].float()
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"].float())
-    if seq:
+    every = over is not None and tp is not None
+    if every:
         # every head's absorbed query, then the rope part
         q_lat, q_rope = tp.gather(torch.cat([q_lat, q_rope], -1), 2) \
             .split([q_lat.shape[-1], rh], dim=-1)
@@ -139,10 +144,12 @@ def mla_decode(params, x, cache, cur_index: int, cfg: ModelConfig,
     valid = torch.arange(first, first + c.shape[1],
                          device=x.device) <= cur_index
     scores = torch.where(valid, scores, NEG_INF)
-    if seq:
-        o_lat = tp.softmax(scores, lambda e: torch.einsum(
-            "bhst,btr->bhsr", e, c.float()))
-        o_lat = o_lat.transpose(1, 2).narrow(2, tp.k * heads, heads)
+    if over is not None:
+        o_lat = (tp if sp is None else sp).softmax(
+            scores, lambda e: torch.einsum("bhst,btr->bhsr", e, c.float()),
+            over).transpose(1, 2)
+        if every:
+            o_lat = o_lat.narrow(2, tp.k * heads, heads)
     else:
         w = torch.softmax(scores, dim=-1)
         o_lat = torch.einsum("bhst,btr->bshr", w, c.float())

@@ -56,7 +56,7 @@ from repro_torch.models.blocks import (init_layer, init_layer_cache,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.norms import apply_norm, init_norm
 from repro_torch.parallel.partition import map_with_path
-from repro_torch.parallel.tensor import cache_dims, slice_shape
+from repro_torch.parallel.tensor import Spread, cache_dims, slice_shape
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -313,7 +313,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
     tree).  With ``tp`` (a ``TensorParallel``) or ``data`` g > 1 data
     positions, the slice of the whole cache of ``batch`` rows that a
     rank holds, made at its own size (every rank's has the same shape
-    and initial values; ``parallel/tensor.py::cache_dims``)."""
+    and initial values; ``parallel/tensor.py::cache_dims``): its rows'
+    where g divides ``batch`` (regime (a)), else every row's, cut along
+    the sequence or the channels (regime (b))."""
     g, M_ = data, 1 if tp is None else tp.M
     if M_ == 1 and g == 1:
         return _whole_cache(cfg, batch, max_seq, device)
@@ -332,37 +334,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
 
 
 @functools.lru_cache(maxsize=None)
-def sequence_split(cfg: ModelConfig, max_seq: int, model: int
-                   ) -> Tuple[bool, ...]:
+def sequence_split(cfg: ModelConfig, max_seq: int, model: int,
+                   batch: int = 1, data: int = 1) -> Tuple[bool, ...]:
     """Whether each pattern entry's cache of length ``max_seq`` holds a
-    slice of its sequence over ``model`` ranks, as the partition rule
-    cuts it (``parallel/tensor.py::cache_dims``): attention's where M
-    does not divide its kv heads, MLA's, each where M divides its
+    slice of its sequence, as the partition rule cuts it over ``data``
+    positions x ``model`` ranks at a global ``batch``
+    (``parallel/tensor.py::cache_dims``): over the model ranks where the
+    data axis divides the batch (attention's where M does not divide its
+    kv heads, MLA's), else (regime (b)) over the data positions or all
+    D M ranks (attention's and MLA's); each where they divide its
     length."""
     with _OnMeta():
-        shapes = _whole_cache(cfg, 1, max_seq, None)
-    dims = cache_dims(shapes, 1, 1, model)
-    return tuple(any(dims[(str(j), k)][1] == 2 for k in ("k", "c_kv")
+        shapes = _whole_cache(cfg, batch, max_seq, None)
+    dims = cache_dims(shapes, batch, data, model)
+    return tuple(any(2 in dims[(str(j), k)][:2] for k in ("k", "c_kv")
                      if (str(j), k) in dims)
                  for j in range(len(cfg.block_pattern)))
 
 
+def served_batch(global_batch: int, data: int) -> int:
+    """``global_batch``, checked: the regime follows from it and the
+    ``data`` positions, so a sliced call over more than one position
+    must name it (0 only where ``data`` is 1)."""
+    if data > 1 and global_batch < 1:
+        raise ValueError(f"serving over {data} data positions needs "
+                         "global_batch, the batch they serve between them")
+    return global_batch
+
+
 def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig,
-                gather=None, tp=None, column=None, max_seq: int = 0):
+                gather=None, tp=None, column=None, max_seq: int = 0,
+                global_batch: int = 0):
     """One-token decode.  tokens: (B, 1) int; ``cur_index``: tokens
     already in the cache (a Python int).  Returns (logits, cache); the
     cache is updated in place and returned.  ``gather``, ``tp`` and
     ``column`` are :func:`forward`'s: ``params`` a rank's model slices
     (under ``gather``, their FSDP shards, each block group's layer
     gathered in its turn), ``cache`` its slice (:func:`init_cache` at
-    ``max_seq``, which says how it is cut: :func:`sequence_split`), the
-    logits its V/M vocabulary columns."""
+    ``max_seq`` and ``global_batch``, which say how it is cut:
+    :func:`sequence_split`), the logits its V/M vocabulary columns.
+    ``global_batch`` is the batch the data positions serve between them,
+    needed where there are more than one (a ``ValueError`` without it);
+    where they do not divide it (regime (b)) ``tokens`` are all its
+    rows, replicated on every rank, and the layers run under a
+    ``Spread`` of the column's replica group."""
+    data = 1 if column is None else column.g
+    batch = served_batch(global_batch, data) or tokens.shape[0]
+    sp = None if batch % data == 0 else Spread(column.comm, data,
+                                               column.rank)
     split = (False,) * len(cfg.block_pattern)
-    if tp is not None and tp.M > 1:
+    if (tp is not None and tp.M > 1) or sp is not None:
         if max_seq < 1:
             raise ValueError("a sliced decode_step needs max_seq, the "
                              "length its cache was made at")
-        split = sequence_split(cfg, max_seq, tp.M)
+        split = sequence_split(cfg, max_seq, 1 if tp is None else tp.M,
+                               batch, data)
     take = gather or _whole
     embed = take(("embed",), params["embed"])
     x = (embed[tokens] if tp is None else tp.embed(embed, tokens)
@@ -376,7 +402,9 @@ def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig,
                                         for p in params["groups"]))
         for j, (mixer, ffn) in enumerate(cfg.block_pattern):
             x, _ = layer_decode(group[j], x, _index(cache[j], g), cur_index,
-                                mixer, ffn, cfg, ropes, tp, column, split[j])
+                                mixer, ffn, cfg, ropes, tp,
+                                column if sp is None else None, split[j],
+                                sp)
         del group
     x = apply_norm(cfg.norm, take(("final_norm",), params["final_norm"]),
                    x, cfg.norm_eps)

@@ -6,7 +6,13 @@ token count is not a multiple, as in decode); each group routes its
 tokens top-k into per-expert buffers of ``C`` slots and drops what does
 not fit.  With the batch split over a data column the groups are the
 column's (ROADMAP C.52): a group may span data positions, and a
-position's queue in it continues from the positions before.  Shared experts (DeepSeek, llama4) run densely on every token.
+position's queue in it continues from the positions before.  Where the
+rows are replicated on every data position instead (a batch the data
+axis does not divide, regime (b), ROADMAP A16c.5b) the caller passes no
+column: the groups, the capacity and the aux loss' means come from the
+rows once, as the reference's replicated batch gives them, and every
+rank of the replica group routes alike.  Shared experts (DeepSeek,
+llama4) run densely on every token.
 Returns the Switch load-balance auxiliary loss beside the output.
 
 Top-k: ``jax.lax.top_k`` orders equal probabilities by lower expert

@@ -40,7 +40,15 @@ ROADMAP A16c.5).  The mLSTM's cache holds a rank's heads of ``C``,
 rank's d/M channels of ``c``, ``n``, ``m`` and ``h``, the partition
 rule's split (ROADMAP C.53): each step gathers them with the gate
 pre-activations in one all-gather, runs the recurrence whole, and keeps
-its channels.
+its channels.  A batch the data axis does not divide (regime (b),
+``sp``, ``parallel/tensor.py::Spread``) replicates the rows over the
+replica group of D x M ranks: the mLSTM's rank computes every head's
+q, k, v and gates from ``xc`` and ``u`` gathered over the group (its
+conv runs on the d-th part of its model slice's channels), holds its
+chunk of ``C``'s and ``n``'s first dh and of ``m``'s heads, and sums its
+partial numerator and normalizer over the group; the sLSTM's holds
+d/(D M) of the states, gathered with its part of the gate
+pre-activations each step.
 """
 from __future__ import annotations
 
@@ -100,29 +108,58 @@ def _mlstm_qkv_gates(params, x, cfg: ModelConfig, conv_state=None,
         x = tp.copy(x)
     u = x @ params["w_up"]
     z = x @ params["w_z"]
-    dc = cfg.xlstm_conv
-    if conv_state is None:
-        conv_state = u.new_zeros((x.shape[0], dc - 1, u.shape[-1]))
-    up = torch.cat([conv_state, u], dim=1)
-    S = u.shape[1]
-    xc = up[:, 0:S] * params["conv_w"][0]
-    for i in range(1, dc):
-        xc = xc + up[:, i:i + S] * params["conv_w"][i]
-    xc = F.silu(xc + params["conv_b"])
-    new_conv = up[:, up.shape[1] - (dc - 1):]
+    xc, new_conv = _conv_silu(u, params["conv_w"], params["conv_b"],
+                              cfg.xlstm_conv, conv_state)
     lq, lk, lv = params["lq"], params["lk"], params["lv"]
     w_if, b_if = params["w_if"], params["b_if"]
     if tp is not None:
         xc, u = tp.gather_for_heads(xc), tp.gather_for_heads(u)
         lq, lk, lv, w_if = (tp.my_heads(t, 1) for t in (lq, lk, lv, w_if))
         b_if = tp.my_heads(b_if, 0)
+    return _project(xc, u, lq, lk, lv, w_if, b_if) + (z, new_conv)
+
+
+def _conv_silu(u, conv_w, conv_b, dc: int, conv_state=None):
+    """The depthwise causal conv of ``u`` (B, S, c) after
+    ``conv_state``'s last dc - 1 inputs, through silu, and the conv's
+    last dc - 1 inputs."""
+    if conv_state is None:
+        conv_state = u.new_zeros((u.shape[0], dc - 1, u.shape[-1]))
+    up = torch.cat([conv_state, u], dim=1)
+    S = u.shape[1]
+    xc = up[:, 0:S] * conv_w[0]
+    for i in range(1, dc):
+        xc = xc + up[:, i:i + S] * conv_w[i]
+    return F.silu(xc + conv_b), up[:, up.shape[1] - (dc - 1):]
+
+
+def _project(xc, u, lq, lk, lv, w_if, b_if):
+    """q, k, v and the log gates of the heads of ``lq``/``lk``/``lv``/
+    ``w_if``/``b_if`` from ``xc`` and ``u`` over all di."""
     q = torch.einsum("bse,ehk->bshk", xc, lq)
     k = torch.einsum("bse,ehk->bshk", xc, lk)
     v = torch.einsum("bse,ehk->bshk", u, lv)
     gates = torch.einsum("bse,ehg->bshg", xc.float(), w_if) + b_if
     li = gates[..., 0]                          # log input gate (B,S,H)
     lf = act.log_sigmoid(gates[..., 1])         # log forget gate
-    return q, k, v, li, lf, z, new_conv
+    return q, k, v, li, lf
+
+
+def _spread_gates(params, x, cfg: ModelConfig, cache, sp):
+    """Regime (b)'s q, k, v and log gates of every head, z over the
+    rank's model slice, the conv's last inputs over the d-th part of it,
+    and every head's stabilizer ``m``: the conv runs on the rank's part
+    of the channels, and its ``xc`` and ``u`` and the cache's chunk of
+    ``m`` are gathered over the replica group in one all-gather."""
+    u, z = x @ params["w_up"], x @ params["w_z"]
+    u = sp.mine(u, -1)
+    xc, conv = _conv_silu(u, sp.mine(params["conv_w"], 1),
+                          sp.mine(params["conv_b"], 0), cfg.xlstm_conv,
+                          cache["conv"])
+    xc, u, m = sp.gather((xc, -1, True), (u, -1, True),
+                         (cache["m"], -1, False))
+    return _project(xc, u, params["lq"], params["lk"], params["lv"],
+                    params["w_if"], params["b_if"]) + (z, conv, m)
 
 
 def _headnorm(h, scale, eps: float = 1e-5):
@@ -215,31 +252,50 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
-def mlstm_decode(params, x, cache, cfg: ModelConfig, tp=None):
+def mlstm_decode(params, x, cache, cfg: ModelConfig, tp=None, sp=None):
     """x (B, 1, D) -> (y, cache): one recurrent step; the cache is
-    updated in place and returned.  ``tp``: a rank's heads."""
+    updated in place and returned.  ``tp``: a rank's heads; ``sp``
+    (regime (b)): the rows replicated, a rank computing every head and
+    holding its chunk of ``C``'s and ``n``'s first dh and of ``m``'s
+    heads (the rule's cut), the numerator and normalizer summed over the
+    replica group, then its own heads."""
     di, H, dh = _mlstm_dims(cfg)
     if tp is not None:
         di = di // tp.M
-    q, k, v, li, lf, z, conv = _mlstm_qkv_gates(params, x, cfg,
-                                                cache["conv"], tp)
+    if sp is None:
+        q, k, v, li, lf, z, conv = _mlstm_qkv_gates(params, x, cfg,
+                                                    cache["conv"], tp)
+        m = cache["m"]
+    else:
+        q, k, v, li, lf, z, conv, m = _spread_gates(params, x, cfg, cache,
+                                                    sp)
     q = q[:, 0].float() * dh ** -0.5
     k = k[:, 0].float()
     v = v[:, 0].float()
+    if sp is not None:
+        q, k = sp.chunk(q, -1), sp.chunk(k, -1)
     li, lf = li[:, 0], lf[:, 0]                                    # (B,H)
-    m_new = torch.clamp(torch.maximum(lf + cache["m"], li), min=-30.0)
-    fdec = act.exp(lf + cache["m"] - m_new)[:, :, None]
+    m_new = torch.clamp(torch.maximum(lf + m, li), min=-30.0)
+    fdec = act.exp(lf + m - m_new)[:, :, None]
     iexp = act.exp(li - m_new)[:, :, None]
     # C[d, e] = k_d v_e, the layout of the chunkwise state update
     C = fdec[..., None] * cache["C"] + iexp[..., None] * k[:, :, :, None] \
         * v[:, :, None, :]
     nst = fdec * cache["n"] + iexp * k
     num = torch.einsum("bhde,bhd->bhe", C, q)
-    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", nst, q)),
-                        act.exp(-m_new))[..., None]
-    h = _headnorm(num / den, params["gn_scale"])
+    nq = torch.einsum("bhd,bhd->bh", nst, q)
+    if sp is not None:
+        both = sp.sum(torch.cat([num, nq[..., None]], -1))
+        num, nq = both[..., :-1], both[..., -1]
+    den = torch.maximum(torch.abs(nq), act.exp(-m_new))[..., None]
+    h = num / den
+    if sp is not None and tp is not None:
+        h = tp.my_heads(h, 1)
+    h = _headnorm(h, params["gn_scale"])
     h = h.reshape(x.shape[0], 1, di).to(x.dtype)
     out = (h * F.silu(z)) @ params["w_down"]
+    if sp is not None:
+        m_new = sp.chunk(m_new, -1)
     for name, val in (("conv", conv), ("C", C), ("n", nst), ("m", m_new)):
         cache[name].copy_(val)
     return (out, cache) if tp is None else (tp.reduce(out), cache)
@@ -334,10 +390,11 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype,
             "h": zeros()}
 
 
-def slstm_decode(params, x, cache, cfg: ModelConfig, tp=None):
+def slstm_decode(params, x, cache, cfg: ModelConfig, tp=None, sp=None):
     """x (B, 1, D) -> (y, cache): one recurrent step; the cache is
     updated in place and returned.  ``tp``: a rank's gate channels, its
-    d/M of the states (see above)."""
+    d/M of the states (see above); ``sp`` (regime (b)): the rows
+    replicated, its d/(D M) of the states."""
     B, _, D = x.shape
     H = cfg.num_heads
     names = ("c", "n", "m", "h")
@@ -345,14 +402,23 @@ def slstm_decode(params, x, cache, cfg: ModelConfig, tp=None):
         + params["b"]
     state = tuple(cache[name] for name in names)
     p = params
-    if tp is not None:
+    if sp is not None:
+        # the gate pre-activations (the d-th part of the rank's model
+        # slice) and the states' chunks, whole, in one gather
+        xg, whole = sp.gather((sp.mine(xg, -1), -1, True),
+                              (torch.stack(state, 1), -1, False))
+        state = tuple(whole.unbind(1))
+    elif tp is not None:
         # the gate pre-activations and the states, whole, in one gather
         whole = tp.gather(torch.cat([xg, torch.stack(state, 1)], 1), -1)
         xg, state = whole[:, :4], tuple(whole[:, 4:].unbind(1))
+    if tp is not None:
         p = {"r_h": tp.gather(params["r_h"], 0)}
     new = _slstm_step(p, xg, state, H, D // H)
     for name, val in zip(names, new):
-        if tp is not None:
+        if sp is not None:
+            val = sp.chunk(val, -1)
+        elif tp is not None:
             val = val.narrow(-1, tp.k * (D // tp.M), D // tp.M)
         cache[name].copy_(val)
     return _slstm_out(params, new[3], x.dtype, tp)[:, None], cache

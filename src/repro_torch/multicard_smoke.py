@@ -80,18 +80,21 @@ rank per card on NCCL unless a phase says otherwise:
 * ``[serve-tp]``: the serving forward over the model axis (ROADMAP
   A16c.5, ``serve_smoke.py``).  jamba-v0.1-52b at ``SSM_GROUPS`` of its
   4 groups (the only card path through mamba's sliced decode) and
-  deepseek-v2-lite-16b at full depth, each at data 2 x model 2 and at
-  data 1 x model 4, full width, bf16, the params drawn sliced from one
-  seed on each card: 8 prompts of 32 tokens, 16 new, a cache of 48.
-  bf16 for the launches and times; then the same slices drawn in
-  float32, whose prefill's last-position logits and decode's logits fed
-  rank 0's whole run's tokens are within 1e-3 of the same params served
-  whole in float32 (``serve_smoke.F32_TOL``), each
-  card's cache bytes the dry-run's to the byte, the routing digests
-  equal across each model group, rmsnorm and flash launched on every
-  card; decode ms a step and collective seconds by kind.  All four runs
-  end before any is checked, so a failed check still leaves every
-  run's figures.
+  deepseek-v2-lite-16b at full depth, full width, bf16, the params
+  drawn sliced from one seed on each card: 8 prompts of 32 tokens, 16
+  new, a cache of 48, at data 2 x model 2 and at data 1 x model 4; and
+  1 prompt (``long_500k``'s B 1, which the data axis does not divide:
+  every card serves the row, the cache cut along its sequence or
+  channels, ROADMAP A16c.5b) at data 2 x model 2 (in the same torchrun)
+  and at data 4 x model 1.  bf16 for the launches and times; then the
+  same slices drawn in float32, whose prefill's last-position logits
+  and decode's logits fed rank 0's whole run's tokens are within 1e-3
+  of the same params served whole in float32 (``serve_smoke.F32_TOL``),
+  each card's cache bytes the dry-run's to the byte, the tokens and
+  routing digests equal across the cards serving the same rows, rmsnorm
+  and flash launched on every card; decode ms a step and collective
+  seconds by kind.  All the runs end before any is checked, so a failed
+  check still leaves every run's figures.
 """
 from __future__ import annotations
 
@@ -150,7 +153,9 @@ XLSTM_TP_RUN = ["--arch", "xlstm-350m", "--no-smoke", "--mode", "hybrid",
 # divide 48)
 SERVE_TP = dict(batch=8, prompt=32, gen=16, max_seq=48)
 SERVE_RUNS = ((JAMBA, SSM_GROUPS), (DS, 27))       # deepseek: all 27
-SERVE_MODELS = (2, 4)
+# the batches each model width serves, in one torchrun: 8 rows, and 1
+# row, which the data positions do not divide (regime (b))
+SERVE_MODELS = {2: (8, 1), 4: (8,), 1: (1,)}
 SERVE_CHILD = "--serve-child"
 H2O_TP_RUN = ["--arch", "h2o-danube-1.8b", "--no-smoke", "--mode", "hybrid",
               "--schedule", "step:2", "--steps", "4", "--batch", "2",
@@ -1018,16 +1023,19 @@ def phase_tensor_ssm(tmp: str) -> dict:
 
 def serve_child(out: str, arch: str, groups: int, model: int) -> int:
     """A rank of a ``[serve-tp]`` run (started by torchrun): ``arch`` at
-    ``groups`` of its block groups served sliced at ``model``; rank 0
-    writes the figures to ``out``."""
+    ``groups`` of its block groups served sliced at ``model``, each
+    batch of ``SERVE_MODELS[model]`` in turn; rank 0 writes the figures
+    to ``out``, by batch."""
     from repro_torch.launch.mesh import distributed, rank_device
     from repro_torch.serve_smoke import sliced_serve
     cfg = _at_groups(arch, groups)
+    served = {}
     with distributed(rank_device("cuda")):
-        served = sliced_serve(cfg, model, SERVE_TP["batch"],
-                              SERVE_TP["prompt"], SERVE_TP["gen"],
-                              SERVE_TP["max_seq"])
-    if served is not None:
+        for batch in SERVE_MODELS[model]:
+            served[batch] = sliced_serve(cfg, model, batch,
+                                         SERVE_TP["prompt"], SERVE_TP["gen"],
+                                         SERVE_TP["max_seq"])
+    if None not in served.values():
         with open(out, "w") as f:
             json.dump(served, f)
     return 0
@@ -1043,13 +1051,14 @@ def phase_serve_tp(tmp: str) -> dict:
             _torchrun(["-m", "repro_torch.multicard_smoke", SERVE_CHILD, out,
                        arch, str(groups), str(mm)], _env())
             with open(out) as f:
-                runs[(arch, mm)] = json.load(f)
-            runs[(arch, mm)]["outer_s"] = time.time() - t0
+                for batch, sv in json.load(f).items():
+                    runs[(arch, mm, int(batch))] = sv
+                    sv["outer_s"] = time.time() - t0
     # every run's figures before any check
     fails = []
-    for (arch, mm), sv in runs.items():
+    for (arch, mm, batch), sv in runs.items():
         groups = dict(SERVE_RUNS)[arch]
-        tag = f"[serve-tp] {arch} M {mm}"
+        tag = f"[serve-tp] {arch} M {mm} B {batch}"
         try:
             want = check_served(tag, sv, _at_groups(arch, groups), CARDS, mm)
         except AssertionError as e:
@@ -1057,9 +1066,10 @@ def phase_serve_tp(tmp: str) -> dict:
             want = sv["by_rank"]["cache_bytes"][0]
         log(f"{tag}: {groups} of {_full_groups(arch)} groups, full width, "
             f"bf16, NCCL: {summary(sv, want)}; {sv['outer_s']:.1f} s with "
-            "torchrun")
+            "the torchrun (its batches together)")
     check(not fails, "; ".join(fails))
-    return {f"{arch} M{mm}": sv for (arch, mm), sv in runs.items()}
+    return {f"{arch} M{mm} B{batch}": sv
+            for (arch, mm, batch), sv in runs.items()}
 
 
 def _full_groups(arch: str) -> int:

@@ -80,10 +80,26 @@ C.53).  Where the cache's sequence is split, a rank scores every
 head's query over its slots and the group combines the partial
 softmaxes (:meth:`TensorParallel.softmax`).  The greedy token is the
 argmax over the vocabulary shards (:meth:`TensorParallel.argmax`).
+
+A batch the data positions do not divide (``long_500k``'s B 1) is
+regime (b) (ROADMAP A16c.5b): its rows are replicated on every rank of
+the replica group of D data positions x M model ranks (:class:`Spread`),
+and no leaf of the cache is cut along its batch.  A rank holds, after
+the rule's tiny-batch branch, a k/v cache's sequence over ``data`` (its
+kv heads over ``model``; the sequence over ``data x model`` where M does
+not divide the kv heads), MLA's latent sequence over ``data x model``
+and each state's channel dim over ``data x model``: one contiguous chunk
+of D M, the chunk ``d M + k`` (:class:`Cut`), except where the port's
+compute reads the chunk for its model slice of the params (``conv`` and
+mamba's ``h``: the chunk ``k D + d``, the d-th part of its model slice,
+the same dim and bytes: ROADMAP C.54).  A split sequence is combined
+over the data column or the replica group (:func:`group_softmax`); the
+recurrences gather and sum their channels over the replica group each
+step (:meth:`Spread.gather`, :meth:`Spread.sum`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -110,6 +126,14 @@ PAIRED = {"w_in": 2}
 # ndim): mamba's ``h`` (G, B, di, ds) on its channels, the mLSTM's ``C``
 # (G, B, H, dh, dh) and ``n`` (G, B, H, dh) on their heads
 CACHE_DIM = {("h", 4): 2, ("C", 5): 2, ("n", 4): 2}
+# decode-cache leaves whose sequence the rule may cut: every other leaf
+# is a state
+SEQUENCE_LEAVES = ("k", "v", "c_kv", "k_rope")
+# regime (b)'s cuts over data x model that the port takes model-major
+# (chunk k D + d), by (name, ndim): ``conv`` (G, B, dc - 1, di) of mamba
+# and the mLSTM and mamba's ``h`` (G, B, di, ds), whose channels a rank
+# reads with its model slice of the params (ROADMAP C.54)
+MODEL_MAJOR = {("conv", 4), ("h", 4)}
 # an odd 64-bit multiplier (2**64 / golden ratio, as a signed int64):
 # position i of a routing weighs (i + 1) times it in its digest
 _GOLDEN = -7046029254386353131
@@ -155,30 +179,52 @@ def check_model_axis(cfg, model: int) -> None:
                              f"{cfg.name}'s {name} ({n}): ROADMAP A16c")
 
 
+class Cut(NamedTuple):
+    """How a rank holds a decode-cache leaf: ``data`` and ``model`` are
+    the dims it holds a contiguous slice of over the data positions and
+    over the model ranks (None: whole along that axis).  Where both name
+    one dim (regime (b)'s cuts over data x model) a rank holds one chunk
+    of D M: the chunk ``d M + k`` (the rule's, the mesh axes' order),
+    or, ``model_major``, the chunk ``k D + d``."""
+    data: Optional[int]
+    model: Optional[int]
+    model_major: bool = False
+
+
 def cache_dims(cache, batch: int, data: int, model: int
-               ) -> Dict[Path, Tuple[Optional[int], Optional[int]]]:
+               ) -> Dict[Path, Cut]:
     """Each leaf of a whole decode cache (``models/model.py::init_cache``
-    at the global ``batch``) as ``(data dim, model dim)``: the dims a
-    rank of ``data`` positions x ``model`` ranks holds a contiguous
-    slice of (None: whole along that axis), after the partition rule's
-    regime (a), with :data:`CACHE_DIM`'s deviations.  A batch the data
-    axis does not divide is regime (b), refused naming ROADMAP
-    A16c.5b."""
-    if batch % data:
-        raise ValueError(
-            f"a batch of {batch} over {data} data positions: the sliced "
-            "serving forward takes a batch the data axis divides; the "
-            "sequence over data and channels over data x model is ROADMAP "
-            "A16c.5b")
+    at the global ``batch``) as the :class:`Cut` a rank of ``data``
+    positions x ``model`` ranks holds, after the partition rule: regime
+    (a) (a batch the data axis divides) with :data:`CACHE_DIM`'s
+    deviations, regime (b) (a batch it does not divide) with
+    :data:`MODEL_MAJOR`'s.  In regime (b) a state leaf the D M ranks do
+    not divide, which the rule keeps whole, is refused naming ROADMAP
+    A16c.6."""
     specs = cache_leaf_specs(cache, batch, {"data": data, "model": model})
     dims = {}
     for path, spec in specs.items():
         leaf_key = (path[-1], len(spec))
-        mdim = next((d for d, axes in enumerate(spec) if axes == "model"),
-                    None) if model > 1 else None
-        if model > 1 and leaf_key in CACHE_DIM:
-            mdim = CACHE_DIM[leaf_key]
-        dims[path] = (1 if data > 1 else None, mdim)
+        if batch % data == 0:
+            mdim = next((d for d, axes in enumerate(spec)
+                         if axes == "model"), None) if model > 1 else None
+            if model > 1 and leaf_key in CACHE_DIM:
+                mdim = CACHE_DIM[leaf_key]
+            dims[path] = Cut(1 if data > 1 else None, mdim)
+            continue
+
+        def over(axis):
+            return next((d for d, axes in enumerate(spec)
+                         if axes == axis or (isinstance(axes, tuple)
+                                             and axis in axes)), None)
+        if over("data") is None and path[-1] not in SEQUENCE_LEAVES:
+            raise ValueError(
+                f"a batch of {batch} over {data} data positions: the "
+                f"{data * model} ranks of data x model do not divide the "
+                f"cache leaf {'/'.join(path)}, which the rule keeps "
+                "whole: ROADMAP A16c.6")
+        dims[path] = Cut(over("data"), over("model") if model > 1 else None,
+                         model > 1 and leaf_key in MODEL_MAJOR)
     return dims
 
 
@@ -197,7 +243,9 @@ def slice_cache(cache, dims, position: int, k: int, data: int,
     """The slice of a whole decode cache that data position
     ``position``, model index ``k`` holds (fresh contiguous tensors)."""
     def one(path, t):
-        for d, i, n in zip(dims[path], (position, k), (data, model)):
+        cut = dims[path]
+        steps = [(cut.data, position, data), (cut.model, k, model)]
+        for d, i, n in (steps[::-1] if cut.model_major else steps):
             if d is not None:
                 w = t.shape[d] // n
                 t = t.narrow(d, i * w, w)
@@ -205,18 +253,21 @@ def slice_cache(cache, dims, position: int, k: int, data: int,
     return map_with_path(one, cache)
 
 
+def _cat(ts, dim: Optional[int]) -> torch.Tensor:
+    return ts[0] if dim is None else torch.cat(ts, dim=dim)
+
+
 def unslice_cache(parts, dims, data: int, model: int):
     """The whole decode cache of the W = data x model ranks' slices
     ``parts`` (rank ``position * model + k``'s at index r): the inverse
     of :func:`slice_cache`."""
     def one(path, *ts):
-        ddim, mdim = dims[path]
-        rows = []
-        for p in range(data):
-            mine = ts[p * model:(p + 1) * model]
-            rows.append(torch.cat(mine, dim=mdim) if mdim is not None
-                        else mine[0])
-        return torch.cat(rows, dim=ddim) if ddim is not None else rows[0]
+        cut = dims[path]
+        if cut.model_major:
+            return _cat([_cat([ts[p * model + k] for p in range(data)],
+                              cut.data) for k in range(model)], cut.model)
+        return _cat([_cat(list(ts[p * model:(p + 1) * model]), cut.model)
+                     for p in range(data)], cut.data)
     leaves = [dict(_flat(p)) for p in parts]
     return map_with_path(lambda path, _: one(path, *(l[path]
                                                      for l in leaves)),
@@ -335,6 +386,121 @@ class GatherForModel(torch.autograd.Function):
         with comm.timing("tensor"):
             comm.model_reduce_scatter_(out.view(-1), staged.view(-1))
         return out.to(grad.dtype), None, None
+
+
+def group_softmax(scores: torch.Tensor, weigh, comm, over: str,
+                  data: int = 1) -> torch.Tensor:
+    """The softmax over the keys of a group of ranks, each holding
+    ``scores`` (..., L/n) float32 for its own: ``weigh(e)`` is a rank's
+    sum of its values weighted by ``e`` (..., dv).  ``over`` names the
+    group: ``"model"`` (the model group), ``"data"`` (the data column
+    of a replica group of ``data`` positions) or ``"replica"`` (that
+    replica group, ``data`` x M ranks).  Each rank gives its largest
+    score m, ``sum(exp(score - m))`` and ``weigh(exp(score - m))``; one
+    all-gather (timed as ``"combine"``), and every rank adds the parts
+    in rank order, so each gets the same float32 result (ROADMAP C.53).
+    A rank with no valid key yet (its scores all masked at -1e30) weighs
+    its part by ``exp(-1e30 - top) = 0``: it adds exactly nothing."""
+    top = torch.amax(scores, dim=-1, keepdim=True)
+    e = act.exp(scores - top)
+    mine = torch.cat([top, torch.sum(e, dim=-1, keepdim=True),
+                      weigh(e)], dim=-1).contiguous()
+    n = {"model": comm.model, "data": data,
+         "replica": data * comm.model}[over]
+    flat = mine.new_empty((n * mine.numel(),))
+    with comm.timing("combine"):
+        if over == "model":
+            comm.model_all_gather_(flat, mine.view(-1))
+        elif over == "data":
+            comm.all_gather_(flat, mine.view(-1), data)
+        else:
+            comm.replica_all_gather_(flat, mine.view(-1), data)
+    parts = flat.view((n,) + tuple(mine.shape))
+    top = torch.amax(parts[..., :1], dim=0)
+    s_all = o_all = None
+    for k in range(n):
+        w = act.exp(parts[k, ..., :1] - top)
+        s_k, o_k = w * parts[k, ..., 1:2], w * parts[k, ..., 2:]
+        s_all = s_k if s_all is None else s_all + s_k
+        o_all = o_k if o_all is None else o_all + o_k
+    return o_all / s_all
+
+
+class Spread:
+    """Regime (b)'s place of one rank (ROADMAP A16c.5b): a batch the
+    data positions do not divide is replicated on every rank of the
+    replica group of ``data`` positions D x M model ranks (``comm``'s
+    M), this rank at ``position`` d and model index k.  Its cache holds
+    one chunk of D M of a split sequence or channel dim: the chunk
+    ``r = d M + k`` (:meth:`chunk`), or of a value over its model slice
+    the d-th part (:meth:`mine`, the chunk ``k D + d`` of the whole:
+    :data:`MODEL_MAJOR`).  The recurrences' collectives over the replica
+    group and the data column are timed as ``"state"``."""
+
+    def __init__(self, comm, data: int, position: int):
+        self.comm = comm
+        self.D, self.d = int(data), int(position)
+        self.M, self.k = comm.model, comm.k
+        self.R = self.D * self.M
+        self.r = self.d * self.M + self.k
+        # the whole's chunk c = k D + d comes from replica rank d M + k
+        self._model_major = [(c % self.D) * self.M + c // self.D
+                             for c in range(self.R)]
+
+    def mine(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The d-th of D contiguous parts of ``t`` along ``dim``."""
+        n = t.shape[dim] // self.D
+        return t.narrow(dim, self.d * n, n)
+
+    def chunk(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Chunk ``d M + k`` of D M of ``t`` along ``dim``."""
+        n = t.shape[dim] // self.R
+        return t.narrow(dim, self.r * n, n)
+
+    def softmax(self, scores: torch.Tensor, weigh, over: str
+                ) -> torch.Tensor:
+        """:func:`group_softmax` over the data column (``"data"``) or the
+        replica group (``"replica"``)."""
+        return group_softmax(scores, weigh, self.comm, over, self.D)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the replica group in float32 (one
+        all-reduce: every rank gets the same sum)."""
+        out = t.to(torch.float32, copy=True).contiguous()
+        with self.comm.timing("state"):
+            self.comm.replica_all_reduce_(out.view(-1), self.D)
+        return out
+
+    def gather(self, *parts):
+        """Each part ``(t, dim, model_major)`` is a rank's chunk of a
+        value along ``dim`` (chunk ``d M + k``, or ``k D + d`` where
+        ``model_major``): the values whole, from one all-gather over the
+        replica group in float32, each cast back to its dtype."""
+        flat = torch.cat([t.float().reshape(-1) for t, _, _ in parts])
+        out = flat.new_empty((self.R * flat.numel(),))
+        with self.comm.timing("state"):
+            self.comm.replica_all_gather_(out, flat, self.D)
+        rows = out.view(self.R, -1)
+        whole, at = [], 0
+        for t, dim, model_major in parts:
+            chunks = rows[:, at:at + t.numel()].unflatten(1, t.shape)
+            if model_major:
+                chunks = chunks[self._model_major]
+            dim %= t.ndim
+            whole.append(chunks.movedim(0, dim).flatten(dim, dim + 1)
+                         .to(t.dtype))
+            at += t.numel()
+        return whole
+
+    def column(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The data column's ``t`` laid side by side along ``dim`` in
+        position order: a rank's model slice of a value whose d-th part
+        (:meth:`mine`) each rank holds."""
+        t = t.contiguous()
+        flat = t.new_empty((self.D * t.numel(),))
+        with self.comm.timing("state"):
+            self.comm.all_gather_(flat, t.view(-1), self.D)
+        return side_by_side(flat, t, self.D, dim % t.ndim)
 
 
 def _pair_view(t: torch.Tensor, dim: int, pairs: int) -> torch.Tensor:
@@ -510,30 +676,11 @@ class TensorParallel:
 
     # ------------------------------------------------------------ serving
 
-    def softmax(self, scores: torch.Tensor, weigh) -> torch.Tensor:
-        """The softmax over the model group's keys, each rank holding
-        ``scores`` (..., L/M) float32 for its own: ``weigh(e)`` is a
-        rank's sum of its values weighted by ``e`` (..., dv).  Each rank
-        gives its largest score m, ``sum(exp(score - m))`` and
-        ``weigh(exp(score - m))``; one all-gather, and every rank adds
-        the parts in model-index order, so each gets the same float32
-        result (ROADMAP C.53)."""
-        top = torch.amax(scores, dim=-1, keepdim=True)
-        e = act.exp(scores - top)
-        mine = torch.cat([top, torch.sum(e, dim=-1, keepdim=True),
-                          weigh(e)], dim=-1)
-        flat = mine.new_empty((self.M * mine.numel(),))
-        with self.comm.timing("combine"):
-            self.comm.model_all_gather_(flat, mine.reshape(-1))
-        parts = flat.view((self.M,) + tuple(mine.shape))
-        top = torch.amax(parts[..., :1], dim=0)
-        s_all = o_all = None
-        for k in range(self.M):
-            w = act.exp(parts[k, ..., :1] - top)
-            s_k, o_k = w * parts[k, ..., 1:2], w * parts[k, ..., 2:]
-            s_all = s_k if s_all is None else s_all + s_k
-            o_all = o_k if o_all is None else o_all + o_k
-        return o_all / s_all
+    def softmax(self, scores: torch.Tensor, weigh, over: str = "model"
+                ) -> torch.Tensor:
+        """:func:`group_softmax` over the model group (regime (a); the
+        data column and the replica group are :class:`Spread`'s)."""
+        return group_softmax(scores, weigh, self.comm, over)
 
     def argmax(self, logits: torch.Tensor) -> torch.Tensor:
         """The greedy token (int32, ``logits``' shape without its last

@@ -22,9 +22,17 @@ sliced, twice:
 * the check, in float32: the same slices and shards drawn in float32,
   the prefill's last-position logits and the decode fed the whole run's
   tokens, every step's logits gathered over the vocabulary.  A serving
-  run's shards do not change, so each is gathered once here
-  (:func:`_gathered_once`).  Rank 0 holds the logits to the float32
-  whole run's within :data:`F32_TOL`.
+  run's shards do not change, so under gloo, whose gathers go through
+  the host, each is gathered once here (:func:`_gathered_once`); under
+  NCCL where it is used, as the counted run does (a card at data 4 x
+  model 1 could not hold deepseek's whole float32 params beside its
+  shards).  Rank 0 holds the logits to the float32 whole run's within
+  :data:`F32_TOL`.
+
+A batch the data positions do not divide (regime (b), ROADMAP A16c.5b:
+``long_500k``'s B 1) is served the same way on every row by every rank;
+each position's rows are then the whole batch, and every rank's
+free-running tokens must be equal.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import dataclasses
 import gc
 import subprocess
 import time
+import types
 from typing import Optional
 
 from repro_torch.parallel.partition import map_with_path
@@ -221,7 +230,7 @@ def sliced_serve(cfg, model: int, batch: int, prompt: int, n_new: int,
         t0 = time.perf_counter()
         prefill_step(mine, {"tokens": torch.as_tensor(prompts[rows],
                                                       device=dev)},
-                     cfg, gather, tp, column)
+                     cfg, gather, tp, column, global_batch=batch)
         _sync(torch, dev)
         t1 = time.perf_counter()
         free = greedy_generate(cfg, mine, prompts, n_new, max_seq, gather,
@@ -252,19 +261,22 @@ def sliced_serve(cfg, model: int, batch: int, prompt: int, n_new: int,
     f32 = _float32(cfg)
     mine, gather, tp, column = _draw_sliced(torch, f32, seed, dev, comm,
                                             model, g)
-    gather = None if gather is None else _gathered_once(gather)
+    if gather is not None and comm.backend == "gloo":
+        gather = _gathered_once(gather)
     toks = torch.as_tensor(shared[0][rows], device=dev)
 
     def whole_vocab(logits):
         return logits if tp is None else tp.gather(logits, -1)
     with torch.no_grad():
         figures["pre"] = prefill_step(mine, {"tokens": toks[:, :prompt]},
-                                      f32, gather, tp, column).cpu()
+                                      f32, gather, tp, column,
+                                      global_batch=batch).cpu()
         cache = M.init_cache(f32, batch, max_seq, device=dev, tp=tp, data=g)
         steps = []
         for i in range(prompt + n_new):
             out, _ = M.decode_step(mine, cache, toks[:, i:i + 1], i, f32,
-                                   gather, tp, column, max_seq)
+                                   gather, tp, column, max_seq,
+                                   global_batch=batch)
             steps.append(whole_vocab(out)[:, 0].cpu())
         figures["dec"] = torch.stack(steps, 1)
     del mine, gather, tp, column, cache
@@ -276,12 +288,11 @@ def sliced_serve(cfg, model: int, batch: int, prompt: int, n_new: int,
         got = [figures]
     if rank != 0:
         return None
-    n = batch // g
     err_pre = err_dec = 0.0
     diverged = None
     for p in range(g):
         r = got[p * model]
-        sl = slice(p * n, (p + 1) * n)
+        sl = data_rows(batch, types.SimpleNamespace(g=g, rank=p))
         err_pre = max(err_pre, float((r["pre"] - whole["pre"][sl])
                                      .abs().max()))
         err_dec = max(err_dec, float((r["dec"] - whole["dec"][sl])
@@ -293,11 +304,16 @@ def sliced_serve(cfg, model: int, batch: int, prompt: int, n_new: int,
                 first = int(cols[0]) - prompt
                 diverged = first if diverged is None else min(diverged,
                                                               first)
+    # the ranks serving the same rows: a model group, or (regime (b))
+    # every rank
+    lead = [0 if batch % g else r - r % model for r in range(W)]
+    toks_equal = all(np.array_equal(got[r]["toks"], got[lead[r]]["toks"])
+                     for r in range(W))
     keys = ("cache_bytes", "routing", "launches", "draw_s", "prefill_s",
             "decode_ms", "collective_s_by_kind", "peak_bytes")
     return {"by_rank": {k: [r[k] for r in got] for k in keys},
             "max_abs_prefill": err_pre, "max_abs_decode": err_dec,
-            "first_divergence": diverged,
+            "first_divergence": diverged, "toks_equal": toks_equal,
             "whole_added_peak_bytes": whole["added_peak_bytes"],
             "smi_memory_used": whole["smi_memory_used"],
             "logit_max_abs": float(whole["dec"].abs().max()),
@@ -322,12 +338,16 @@ def check_served(tag: str, sv: dict, cfg, cards: int, model: int) -> int:
     """Hold :func:`sliced_serve`'s figures ``sv`` (``cards`` ranks at
     ``model``): each rank's cache bytes the dry-run's
     (:func:`expected_cache_bytes`), the float32 prefill's and decode's
-    logits within :data:`F32_TOL` of the float32 whole run's, an MoE's
-    routing digests equal across each model group, rmsnorm launched on
-    every rank and flash on every rank of a model that attends.  Raises
-    ``AssertionError`` naming ``tag``; returns the cache bytes."""
+    logits within :data:`F32_TOL` of the float32 whole run's, the
+    free-running tokens equal across the ranks serving the same rows
+    (each model group; in regime (b) every rank), and so an MoE's
+    routing digests (taken under a model axis: ``model`` > 1), rmsnorm
+    launched on every rank and flash on every rank of a model that
+    attends.  Raises ``AssertionError`` naming ``tag``; returns the
+    cache bytes."""
     from repro_torch.models.config import ATTN, ATTN_GLOBAL, MLA, MOE
     by = sv["by_rank"]
+    spread = sv["batch"] % sv["data"] != 0
     want = expected_cache_bytes(cfg, sv["batch"], sv["max_seq"], cards,
                                 model)
     if any(b != want for b in by["cache_bytes"]):
@@ -337,9 +357,13 @@ def check_served(tag: str, sv: dict, cfg, cards: int, model: int) -> int:
         raise AssertionError(
             f"{tag}: float32 prefill {sv['max_abs_prefill']}, decode "
             f"{sv['max_abs_decode']} from the whole run, beyond {F32_TOL}")
+    if not sv["toks_equal"]:
+        raise AssertionError(f"{tag}: the free-running tokens differ "
+                             "between ranks serving the same rows")
     routing = by["routing"]
-    if any(f == MOE for _, f in cfg.block_pattern) and (
-            None in routing or any(routing[r] != routing[r - r % model]
+    lead = [0 if spread else r - r % model for r in range(len(routing))]
+    if model > 1 and any(f == MOE for _, f in cfg.block_pattern) and (
+            None in routing or any(routing[r] != routing[lead[r]]
                                    for r in range(len(routing)))):
         raise AssertionError(f"{tag}: routing digests {routing}")
     attends = any(m in (ATTN, ATTN_GLOBAL, MLA) for m, _ in cfg.block_pattern)
@@ -356,7 +380,9 @@ def summary(sv: dict, cache_bytes: int) -> str:
     return (
         f"{sv['batch']} prompts of {sv['prompt']} tokens, {sv['tokens']} "
         f"new, cache {sv['max_seq']}, data {sv['data']} x model "
-        f"{sv['model']}, {sv['dtype']}; against rank 0's whole run (which "
+        f"{sv['model']}"
+        + (" (every row on every rank)" if sv["batch"] % sv["data"] else "")
+        + f", {sv['dtype']}; against rank 0's whole run (which "
         f"added {sv['whole_added_peak_bytes']} B to its allocator's peak; "
         f"nvidia-smi read {sv['smi_memory_used']!r} used at its end): "
         f"float32 prefill logits max abs {sv['max_abs_prefill']:.6g}, "
@@ -365,6 +391,8 @@ def summary(sv: dict, cache_bytes: int) -> str:
         f"{sv['logit_max_abs']:.4g}); free-running tokens "
         + ("equal to the whole run's" if sv["first_divergence"] is None
            else f"first differ at new token {sv['first_divergence']}")
+        + "; every rank's tokens equal to its model group's"
+        + (" and to every other rank's" if sv["batch"] % sv["data"] else "")
         + f"; cache {cache_bytes} B a rank = the dry-run's; params drawn "
         f"sliced in {[round(x, 2) for x in by['draw_s']]} s; prefill s "
         f"{[round(x, 3) for x in by['prefill_s']]}; decode ms a step "

@@ -876,10 +876,10 @@ import dataclasses, json, sys
 from repro_torch.configs.registry import get_config, smoke_variant
 from repro_torch.launch.mesh import distributed, rank_device
 from repro_torch.serve_smoke import sliced_serve
-arch, out = sys.argv[1], sys.argv[2]
+arch, out, model, batch = sys.argv[1], sys.argv[2], *map(int, sys.argv[3:])
 cfg = smoke_variant(get_config(arch))
 with distributed(rank_device("cuda")):
-    served = sliced_serve(cfg, 2, 4, 24, 8, 32)
+    served = sliced_serve(cfg, model, batch, 24, 8, 32)
 if served is not None:
     with open(out, "w") as f:
         json.dump(served, f)
@@ -887,16 +887,21 @@ if served is not None:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "deepseek-v2-lite-16b",
-                                  "jamba-v0.1-52b", "xlstm-350m"])
-def test_cuda_sliced_serving_across_cards(cards, tmp_path, arch):
+@pytest.mark.parametrize("arch,model,batch", [
+    ("h2o-danube-1.8b", 2, 4), ("deepseek-v2-lite-16b", 2, 4),
+    ("jamba-v0.1-52b", 2, 4), ("xlstm-350m", 2, 4),
+    ("h2o-danube-1.8b", 1, 1)])
+def test_cuda_sliced_serving_across_cards(cards, tmp_path, arch, model,
+                                          batch):
     """The sliced serving forward (``repro_torch/serve_smoke.py``) of each
-    family's smoke variant, float32, at model 2 on two cards over NCCL
-    (one model group): the prefill's last-position logits and the
-    decode's logits fed the whole run's tokens within 1e-4 of the same
-    params served whole on the first card, the greedy tokens equal, each
-    card's cache bytes the dry-run's, the routing equal on both cards,
-    rmsnorm launched on both (and flash where the model attends)."""
+    family's smoke variant, float32, on two cards over NCCL: 4 prompts at
+    model 2 (one model group), and 1 prompt at data 2 x model 1 (regime
+    (b): both cards serve the row, the cache's sequence over the two):
+    the prefill's last-position logits and the decode's logits fed the
+    whole run's tokens within 1e-4 of the same params served whole on the
+    first card, the greedy tokens equal (on both cards), each card's
+    cache bytes the dry-run's, the routing equal on both cards, rmsnorm
+    launched on both (and flash where the model attends)."""
     import json
     import os
     import subprocess
@@ -914,14 +919,15 @@ def test_cuda_sliced_serving_across_cards(cards, tmp_path, arch):
     out = tmp_path / "served.json"
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", str(script), arch, str(out)],
+         "--nproc-per-node", "2", str(script), arch, str(out), str(model),
+         str(batch)],
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     sv = json.loads(out.read_text())
     assert sv["max_abs_prefill"] <= 1e-4 and sv["max_abs_decode"] <= 1e-4
-    assert sv["first_divergence"] is None
+    assert sv["first_divergence"] is None and sv["toks_equal"]
     by = sv["by_rank"]
-    want = expected_cache_bytes(cfg, 4, 32, 2, 2)
+    want = expected_cache_bytes(cfg, batch, 32, 2, model)
     assert by["cache_bytes"] == [want, want]
     assert by["routing"][0] == by["routing"][1]
     attends = any(m in (ATTN, ATTN_GLOBAL, MLA) for m, _ in cfg.block_pattern)

@@ -4,9 +4,12 @@
 step on one card's model slices, FSDP shards and slice of the cache,
 on the meta device: the cache a card holds against the partition
 rule's shards leaf by leaf, the traced peak, and the serving collectives
-counted from their calls against closed forms; ``long_500k`` at data > 1
-(regime (b)) keeps an estimate naming A16c.5b, and the frontends stay
-skipped naming A16c."""
+counted from their calls against closed forms; ``long_500k`` (B 1) at
+data 2 x model 2 and data 4 x model 1 (regime (b), ROADMAP A16c.5b)
+traced the same way for the four sub-quadratic configs, the cache a card
+holds the rule's tiny-batch shard, the combines over the data column or
+the replica group and the recurrences' state collectives in closed
+form; the frontends stay skipped naming A16c."""
 import json
 
 import pytest
@@ -116,16 +119,92 @@ def test_decode_collectives_closed_forms():
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "xlstm-350m"])
 def test_long_500k_at_data_2_keeps_an_estimate_naming_a16c_5b(arch):
-    """``long_500k`` (B 1) at data 2 is regime (b): the record keeps
-    ``peak_is_estimate``, naming A16c.5b; at data 1 x model 4 the batch
-    divides and the step is traced."""
+    """``long_500k`` (B 1) at data 2 is regime (b), which the port now
+    serves (the name is that of the estimate this test held before
+    A16c.5b): the record is traced (``peak_traced``, no estimate, no
+    mention of A16c.5b), a card serves the one row and holds the rule's
+    cache; at data 1 x model 4 the batch divides and the step is traced
+    too."""
     res = dryrun.run_one(arch, "long_500k", cards=4, model=2)
     assert res["status"] == "ok", res.get("error")
     lay = res["layouts"][FSDP]
-    assert "peak_traced" not in lay
-    assert "A16c.5b" in lay["peak_is_estimate"]
+    assert "peak_traced" in lay and "peak_is_estimate" not in lay
+    assert "A16c.5b" not in json.dumps(res)
+    assert res["per_card_batch"] == 1
+    assert lay["state_bytes"]["cache"] == lay["cache_bytes_rule"]
     res = dryrun.run_one(arch, "long_500k", cards=4, model=4)
     assert "peak_traced" in res["layouts"][FSDP]
+
+
+LONG_ARCHS = ("h2o-danube-1.8b", "jamba-v0.1-52b", "xlstm-350m",
+              "llama4-scout-17b-a16e")
+
+
+@pytest.mark.parametrize("model", [2, 1])
+@pytest.mark.parametrize("arch", LONG_ARCHS)
+def test_long_500k_cache_a_card_holds_is_the_rule(arch, model):
+    """``long_500k`` at ``--cards 4 --model M`` (data 2 x model 2, data 4
+    x model 1): each leaf of the cache a card holds has the shape of
+    ``cache_shardings``' tiny-batch shard (the sequence or the channels
+    cut, never the batch), the record is traced and its cache bytes are
+    the rule's to the byte."""
+    from repro_torch.models import model as M
+    shape = SHAPES["long_500k"]
+    _, _, info = dryrun.build_step(arch, "long_500k", cards=4, fsdp=True,
+                                   model=model)
+    whole = M.init_cache(info["cfg"], shape.global_batch, shape.seq_len,
+                         device="meta")
+    rule = _shape_leaves(cache_shardings(whole, shape.global_batch,
+                                         {"data": 4 // model,
+                                          "model": model}))
+    held = _leaves(info["cache"])
+    assert len(rule) == len(held)
+    for (p, t), s in zip(held, rule):
+        assert tuple(t.shape) == tuple(s), (p, tuple(t.shape), s)
+    res = dryrun.run_one(arch, "long_500k", cards=4, model=model)
+    assert res["status"] == "ok", res.get("error")
+    lay = res["layouts"][FSDP]
+    assert "peak_traced" in lay
+    assert lay["state_bytes"]["cache"] == lay["cache_bytes_rule"]
+
+
+def test_long_500k_collectives_closed_forms():
+    """Regime (b)'s counted collectives of ``long_500k`` against closed
+    forms, a card's bytes on a ring.  h2o at data 2 x model 2: per layer
+    the combine of (1, 4 kv heads, 4, 1, 2 + 80) float32 partials over
+    the data column of 2, the row-parallel all-reduces of (1, 1, 2560)
+    bf16 (two a layer and the embedding's), the greedy token's (value,
+    index) float64 pair over the model group; at data 4 x model 1 the
+    combine over 4 positions of all 8 kv heads.  jamba at 2 x 2: per
+    mamba layer (7 of 8 a group, 4 groups) ``proj`` (1, 1, 256 + 2 x 16)
+    float32 summed over the 4 ranks and ``y``'s (1, 1, 8192 / 4) bf16
+    gathered over the data column; per attention layer the combine of
+    (1, 4, 4, 1, 2 + 128).  xlstm-350m at 2 x 2: per mLSTM layer (18)
+    ``xc``'s and ``u``'s 2048 / 4 channels and ``m``'s 4 / 4 heads
+    gathered over the 4 ranks in float32 and the (1, 4, 512 + 1)
+    numerator and normalizer summed; per sLSTM layer (6) the gate
+    pre-activations' and the 4 states' 1024 / 4 channels gathered."""
+    def coll(arch, model):
+        res = dryrun.run_one(arch, "long_500k", cards=4, model=model)
+        return res["layouts"][FSDP]["collective_bytes_per_device"]
+    c = coll("h2o-danube-1.8b", 2)
+    L = 24
+    assert c["combine all-gather"] == L * 4 * 4 * 82 * 4 * 2 * 0.5
+    assert c["tensor all-reduce"] == (2 * L + 1) * 2560 * 2 * 2 * 0.5
+    assert c["argmax all-gather"] == 2 * 8 * 1
+    assert "state all-gather" not in c
+    c = coll("h2o-danube-1.8b", 1)
+    assert c["combine all-gather"] == L * 8 * 4 * 82 * 4 * 4 * 0.75
+    c = coll("jamba-v0.1-52b", 2)
+    assert c["state all-reduce"] == 28 * (256 + 32) * 4 * 2 * 0.75
+    assert c["state all-gather"] == 28 * 2048 * 2 * 2 * 0.5
+    assert c["combine all-gather"] == 4 * 4 * 4 * 130 * 4 * 2 * 0.5
+    c = coll("jamba-v0.1-52b", 1)
+    assert c["state all-gather"] == 28 * 2048 * 2 * 4 * 0.75
+    c = coll("xlstm-350m", 2)
+    assert c["state all-gather"] == (18 * (512 + 512 + 1)
+                                     + 6 * 8 * 256) * 4 * 4 * 0.75
+    assert c["state all-reduce"] == 18 * 4 * 513 * 4 * 2 * 0.75
 
 
 @pytest.mark.parametrize("arch,shape", [
